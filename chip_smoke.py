@@ -1,0 +1,499 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``tnco_tpu_torch``) on one GPU.
+
+Run from the repository root on a machine with an NVIDIA Hopper card:
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+
+1. the card's name and power limit; build the CUDA kernels from
+   ``tnco_tpu_torch/csrc`` into ``build/kernels/``;
+2. every kernel against its plain PyTorch version on the card, bitwise,
+   at the main-path shapes plus edge cases;
+3. the main path through the user entry point:
+   ``Optimizer(max_width=30).optimize`` on the Sycamore-like m=20
+   network (N=3241, W=64) with every result audited (valid path, exact
+   bigint cost, widths within the cap after slicing), with the kernels'
+   launch counts read around it;
+4. the flagship operating point: ``ReplicaRunnerFW`` at B=64 replicas,
+   P=128 walks, reslice every 2 steps, with proposals/s and applied/s;
+5. kernel, plain-version, library-call and bound times at the main-path
+   shapes, printed as one ``{"kernels": [...]}`` line.
+
+The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
+without the package beside it, the script exits non-zero and prints no
+result.
+"""
+
+from decimal import Decimal
+import json
+import math
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
+
+# TPU kernels the port's kernels replace (file:line of the pallas_call).
+REPLACES = {
+    'gather_gbn': 'tnco_tpu/kernels/pallas_gather.py:112',
+    'inv_ids': 'tnco_tpu/kernels/pallas_scatter.py:116',
+    'scatter_rows_inplace': 'tnco_tpu/kernels/pallas_scatter.py:354',
+}
+SOURCES = {
+    'gather_gbn': 'tnco_tpu_torch/csrc/gather.cu',
+    'inv_ids': 'tnco_tpu_torch/csrc/scatter.cu',
+    'scatter_rows_inplace': 'tnco_tpu_torch/csrc/scatter.cu',
+}
+
+# Main-path shapes (Sycamore m=20 at B=64, P=128: W=64 index planes,
+# N padded to 3328, 132 planes below par in the FW state).
+B, P, W, N_PAD, F_APPLY = 64, 128, 64, 3328, 132
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def fail(msg):
+    print(f'chip_smoke: FAIL: {msg}', file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def phase_card_and_build(torch):
+    from tnco_tpu_torch.kernels import build
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f'card: {smi}')
+    t0 = time.perf_counter()
+    build.load()
+    log(f'build: {time.perf_counter() - t0:.1f} s into {build.BUILD_DIR}')
+    for line in build.build_log.splitlines():
+        if 'registers' in line or 'spill' in line:
+            log(f'  ptxas: {line.strip()}')
+    return smi
+
+
+def _rand_ids(torch, gen, b, q, n, frac_null=0.1, frac_high=0.05):
+    dev = gen.device
+    ids = torch.randint(0, n, (b, q), generator=gen, device=dev,
+                        dtype=torch.int32)
+    r = torch.rand((b, q), generator=gen, device=dev)
+    ids = torch.where(r < frac_null, -1, ids)
+    return torch.where(r > 1 - frac_high, n + 7, ids).contiguous()
+
+
+def _unique_ids(torch, gen, b, q, n, keep=0.5):
+    """Per-row unique in-range ids (a kept-walk apply), -1 elsewhere."""
+    dev = gen.device
+    perm = torch.argsort(torch.rand((b, n), generator=gen, device=dev),
+                         dim=1)[:, :q].to(torch.int32)
+    r = torch.rand((b, q), generator=gen, device=dev)
+    return torch.where(r < keep, perm, -1).contiguous()
+
+
+def phase_kernels(torch):
+    from tnco_tpu_torch.kernels import gather as kg
+    from tnco_tpu_torch.kernels import scatter as ks
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def rand_vals(g, b, n, dtype):
+        x = torch.randint(-2**31, 2**31 - 1, (g, b, n), generator=gen,
+                          device=dev, dtype=torch.int32)
+        if dtype == torch.float32:
+            # NaN, -inf, signalling NaN bit patterns
+            x[..., :3] = torch.tensor([0x7FC00000, 0xFF800000 - 2**32,
+                                       0x7F800001], device=dev,
+                                      dtype=torch.int32)
+            return x.view(torch.float32)
+        return x
+
+    def same(a, b_):
+        torch.cuda.synchronize()
+        return torch.equal(a.view(torch.int32), b_.view(torch.int32))
+
+    n_checks = 0
+    # K1 at the main-path shapes of the 133-plane FW state (par at the
+    # walks, rows at B, rows at A, index rows at the 5 ids, entry union
+    # planes, reslice windows), the slicer's sorted-space gathers, then
+    # an edge case with lo > 0; every case has -1 and >= N ids.
+    f = 2 * W + 5
+    k1_cases = [(f, N_PAD, (f - 1, f), 2 * P),
+                (f, N_PAD, (2 * W, f), P),
+                (f, N_PAD, (2 * W, f - 1), P),
+                (f, N_PAD, (0, W), 5 * P),
+                (f, N_PAD, (0, W), N_PAD),
+                (f, N_PAD, (0, W), 128),
+                (128, W, None, 2048),
+                (1, 2048, None, 2048),
+                (3, 5, (1, 3), 17)]
+    for dtype in (torch.int32, torch.float32):
+        for g, n, planes, q in k1_cases:
+            vals = rand_vals(g, B, n, dtype)
+            ids = _rand_ids(torch, gen, B, q, n)
+            if not same(kg.gather_gbn(vals, ids, planes=planes),
+                        kg.gather_plain(vals, ids, planes)):
+                fail(f'gather_gbn != plain at G={g} N={n} planes={planes} '
+                     f'Q={q} {dtype}')
+            n_checks += 1
+    # K2: main path (ids [64, 256] -> [64, 3328]), duplicates, large N
+    # (the global-memory branch above 48 KB of shared memory).
+    for q, n, dup in ((2 * P, N_PAD, False), (2 * P, N_PAD, True),
+                      (777, 20000, True), (2048, 2048, False)):
+        ids = _rand_ids(torch, gen, B, q, n)
+        if dup:
+            ids[:, q // 2:] = ids[:, :q - q // 2]
+        if not same(ks.inv_ids(ids, n), ks.inv_ids_plain(ids, n)):
+            fail(f'inv_ids != plain at Q={q} N={n} dup={dup}')
+        n_checks += 1
+    # K3: merged apply (132 planes) and par apply (lo > 0), duplicates.
+    for g_all, planes, dup in ((F_APPLY + 1, (0, F_APPLY), False),
+                               (F_APPLY + 1, (F_APPLY, F_APPLY + 1), False),
+                               (F_APPLY + 1, (3, 40), True)):
+        for dtype in (torch.int32, torch.float32):
+            vals = rand_vals(g_all, B, N_PAD, dtype)
+            lo, hi = planes
+            ids = _unique_ids(torch, gen, B, 2 * P, N_PAD)
+            if dup:
+                ids[:, P:] = ids[:, :P]
+                ids[:, 5] = N_PAD + 3
+            upd = rand_vals(hi - lo, B, 2 * P, dtype)
+            got = ks.scatter_rows_inplace(vals.clone(), ids, upd,
+                                          planes=planes)
+            want = ks.scatter_rows_inplace_plain(vals.clone(), ids, upd,
+                                                 planes)
+            if not same(got, want):
+                fail(f'scatter_rows_inplace != plain at planes={planes} '
+                     f'dup={dup} {dtype}')
+            n_checks += 1
+    log(f'kernels: {n_checks} checks bitwise equal to the plain versions')
+
+
+def _audit_result(res, tn, max_width):
+    """Valid path, exact cost recompute, widths within the cap."""
+    import numpy as np
+
+    from tnco_tpu_torch.ctree import ContractionTree
+    from tnco_tpu_torch.optimize.finite_width import SimpleCostModel
+
+    cm = SimpleCostModel(max_width=max_width)
+    ctree = ContractionTree(res.path, tn.ts_inds, tn.dims,
+                            output_inds=tn.output_inds)
+    ok, msg = ctree.is_valid(return_message=True)
+    if not ok:
+        fail(f'invalid path: {msg}')
+    inds = ctree.inds
+    dims = ctree.dims
+    total = 0
+    for pos, node in enumerate(ctree.nodes):
+        if not node.is_leaf():
+            total += cm.contraction_cost(inds[node.children[0]],
+                                         inds[node.children[1]], inds[pos],
+                                         dims, res.slices)
+    # The per-component costs are exact; the total is their Decimal sum
+    # (context precision, as in the JAX package's results).
+    if sum(int(c) for c in res.disconnected_costs) != total or \
+            res.cost != Decimal(0) + Decimal(total):
+        fail(f'cost {res.cost} != exact recompute {total}')
+    order = ctree.inds_order
+    sl = np.zeros(len(order), dtype=bool)
+    sl[[order.index(x) for x in res.slices]] = True
+    bits = np.unpackbits(ctree.inds_array.view(np.uint8), axis=1,
+                         bitorder='little')[:, :len(order)].astype(bool)
+    widths = (bits & ~sl) @ ctree.log2_dims_array
+    if widths.max() > max_width + 1e-9:
+        fail(f'width {widths.max()} > {max_width} after slicing')
+
+
+def phase_app(torch):
+    import numpy as np
+
+    from tnco_tpu_torch.app import Optimizer, load_tn
+    from tnco_tpu_torch.app.tn import Tensor, TensorNetwork
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tnco_tpu_torch.parallel.replicas import resolve_engine
+    from tnco_tpu_torch.testing.networks import sycamore_like_tn
+
+    ts, out, dims = sycamore_like_tn(20)
+    tn = TensorNetwork([Tensor(xs, tuple(dims[x] for x in xs)) for xs in ts],
+                       output_inds=out)
+    # fuse=0: the default fuse=4 pre-contraction shrinks the network to
+    # N*W = 22230 <= 32768, which 'auto' routes to the 'batched' engine.
+    loaded = load_tn(tn, fuse=0, seed=0)
+    n_nodes = 2 * loaded.n_tensors - 1
+    n_lanes = -(-loaded.n_inds // 32)
+    engine = resolve_engine(n_nodes, n_lanes, accel=True, native=False,
+                            sparse=False, max_new_slices=0,
+                            disable_shared_inds=False, prob_kind=None)
+    log(f'app: N={n_nodes} W={n_lanes} N*W={n_nodes * n_lanes} '
+        f'-> engine {engine!r}')
+    if engine != 'walks':
+        fail(f"'auto' resolved to {engine!r}, expected 'walks'")
+
+    opt = Optimizer(max_width=30, seed=0)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, res = opt.optimize(tn, betas=(0, 60), n_steps=16, n_runs=64,
+                          update_slices=2, fuse=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f'app: 64 runs x 16 steps in {wall:.2f} s (runner set-up + '
+        f'anneal {res[0].runtime_s:.2f} s; the rest is paths and audits '
+        f'on the host); launches {counts}')
+    if not all(v > 0 for v in counts.values()):
+        fail(f'a kernel of the path was never launched: {counts}')
+    t0 = time.perf_counter()
+    for r in res:
+        _audit_result(r, loaded, 30)
+    costs = np.asarray([math.log2(int(r.cost)) for r in res])
+    log(f'app: 64 results audited in {time.perf_counter() - t0:.1f} s; '
+        f'log2 cost best {costs.min():.4f} median {np.median(costs):.4f}')
+    return counts
+
+
+def phase_flagship(torch, card):
+    import numpy as np
+
+    from tnco_tpu_torch.app.finite_width.sa import _build_run_paths
+    from tnco_tpu_torch.app.tn import Tensor, TensorNetwork
+    from tnco_tpu_torch.ctree import ContractionTree
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tnco_tpu_torch.optimize.finite_width import SimpleCostModel
+    from tnco_tpu_torch.parallel import ReplicaRunnerFW
+    from tnco_tpu_torch.testing.networks import sycamore_like_tn
+
+    ts, out, dims = sycamore_like_tn(20)
+    tn = TensorNetwork([Tensor(xs, tuple(dims[x] for x in xs)) for xs in ts],
+                       output_inds=out)
+    seeds = list(range(B))
+    t0 = time.perf_counter()
+    paths = _build_run_paths(tn, seeds, -1)
+    ctrees = [ContractionTree(p[0], ts, dims, output_inds=out)
+              for p in paths]
+    cm = SimpleCostModel(max_width=30)
+    runner = ReplicaRunnerFW(ctrees, seeds, cmodel=cm, n_walks=P)
+    log(f'flagship: N={len(ctrees[0])} W={ctrees[0].inds_array.shape[1]} '
+        f'B={B} P={P} engine={runner.engine!r} set-up '
+        f'{time.perf_counter() - t0:.1f} s')
+    if runner.engine != 'walks':
+        fail(f'flagship engine {runner.engine!r}')
+    betas = np.linspace(0.0, 60.0, 26)
+    runner.run(betas[:2], update_slices=2)          # warm-up
+    torch.cuda.synchronize()
+    moves0, applied0 = runner.moves_done, runner.applied_done
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    runner.run(betas[2:], update_slices=2)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    moves = runner.moves_done - moves0
+    applied = runner.applied_done - applied0
+    log(f'flagship: {len(betas) - 2} iterations in {dt:.3f} s '
+        f'({1e3 * dt / (len(betas) - 2):.2f} ms/iteration) on {card}; '
+        f'launches {counts}')
+    log(f'proposals/s: {moves / dt:.6g} ({card})')
+    log(f'applied/s: {applied / dt:.6g} ({card})')
+    if not all(v > 0 for v in counts.values()):
+        fail(f'a kernel of the flagship path was never launched: {counts}')
+    # Audit every replica's best state.
+    log2d = ctrees[0].log2_dims_array
+    mins = runner.log2_min_totals()
+    worst = 0.0
+    for r in range(B):
+        best = runner.min_ctree(r)
+        ok, msg = best.is_valid(return_message=True)
+        if not ok:
+            fail(f'replica {r}: invalid min tree: {msg}')
+        lanes = runner.min_slices_lanes(r)
+        sl_bits = np.unpackbits(lanes.view(np.uint8),
+                                bitorder='little')[:len(log2d)].astype(bool)
+        bits = np.unpackbits(best.inds_array.view(np.uint8), axis=1,
+                             bitorder='little')[:, :len(log2d)].astype(bool)
+        if ((bits & ~sl_bits) @ log2d).max() > 30 + 1e-9:
+            fail(f'replica {r}: width over the cap after slicing')
+        # Exact sliced total, as a float log2, against the device total.
+        dims_l = best.dims_array
+        sl_mul = math.prod(int(d) for d, s in zip(dims_l, sl_bits) if s)
+        nodes = best.nodes_array
+        total = 0
+        for pos in range(len(nodes)):
+            if nodes[pos, 0] < 0:
+                continue
+            u = bits[nodes[pos, 0]] | bits[nodes[pos, 1]]
+            total += math.prod(int(d) for d in dims_l[u & ~sl_bits])
+        exact = math.log2(total * sl_mul)
+        worst = max(worst, abs(exact - float(mins[r])))
+    if worst > 1e-3:
+        fail(f'device min totals differ from the exact recompute by {worst}')
+    log(f'flagship: {B} replicas audited; best log2 total {mins.min():.4f};'
+        f' |device - exact| <= {worst:.2e}')
+    return counts
+
+
+def _time_ms(torch, fn, reps=50, rounds=11):
+    """Device ms of one call of ``fn``: ``reps`` calls captured in one
+    CUDA graph, replayed between two events, median over ``rounds``.
+
+    The graph keeps the host's issue time (Python wrapper, ctypes) out of
+    the number: a single call timed alone would measure the wrapper.
+    """
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / reps)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _max_abs_err(torch, got, want):
+    """Largest difference of the 32-bit words (0 iff bitwise equal)."""
+    torch.cuda.synchronize()
+    d = got.view(torch.int32).long() - want.view(torch.int32).long()
+    return float(d.abs().max()) if d.numel() else 0.0
+
+
+def phase_times(torch, app_counts, flagship_counts):
+    from tnco_tpu_torch.kernels import gather as kg
+    from tnco_tpu_torch.kernels import scatter as ks
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    rows = []
+
+    def row(name, ms, plain_ms, lib_ms, nbytes, err):
+        rows.append(dict(
+            name=name, route='cuda', source=SOURCES[name],
+            replaces=REPLACES[name], launches=app_counts[name],
+            flagship_launches=flagship_counts[name], max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+            bound_by='bytes', library_ms=lib_ms))
+
+    # K1: the W-plane index gather at {B, A, C, c0(B), c1(B)} (Q = 5P).
+    f = 2 * W + 5
+    vals = torch.randint(-2**31, 2**31 - 1, (f, B, N_PAD), generator=gen,
+                         device=dev, dtype=torch.int32)
+    ids = _rand_ids(torch, gen, B, 5 * P, 3241, frac_high=0.0)
+    got = kg.gather_gbn(vals, ids, planes=(0, W))
+    want = kg.gather_plain(vals, ids, (0, W))
+    err = _max_abs_err(torch, got, want)
+    ok = (ids >= 0) & (ids < N_PAD)
+    uniq = int(torch.unique(
+        (torch.arange(B, device=dev)[:, None] * N_PAD + ids)[ok]).numel())
+    nbytes = 4 * (B * 5 * P + W * uniq + W * B * 5 * P)
+    safe = ids.clamp(0, N_PAD - 1).long()[None].expand(W, B, 5 * P)
+    v0 = vals[:W]
+    ms = _time_ms(torch, lambda: kg.gather_gbn(vals, ids, planes=(0, W)))
+    plain = _time_ms(torch, lambda: kg.gather_plain(vals, ids, (0, W)))
+    lib = _time_ms(torch, lambda: torch.gather(v0, 2, safe))
+    row('gather_gbn', ms, plain, lib, nbytes, err)
+
+    # K2: ids [64, 256] -> [64, 3328] (the {B, A} merged apply's ids).
+    ids = _unique_ids(torch, gen, B, 2 * P, 3241)
+    inv = ks.inv_ids(ids, N_PAD)
+    err = _max_abs_err(torch, inv, ks.inv_ids_plain(ids, N_PAD))
+    nbytes = 4 * (B * 2 * P + B * N_PAD)
+    ok = (ids >= 0) & (ids < N_PAD)
+    safe = torch.where(ok, ids, N_PAD).long()
+    qi = torch.arange(2 * P, device=dev,
+                      dtype=torch.int32).expand(B, 2 * P).contiguous()
+    buf = torch.full((B, N_PAD + 1), -1, dtype=torch.int32, device=dev)
+    ms = _time_ms(torch, lambda: ks.inv_ids(ids, N_PAD))
+    plain = _time_ms(torch, lambda: ks.inv_ids_plain(ids, N_PAD))
+    lib = _time_ms(torch, lambda: buf.scatter_reduce_(1, safe, qi, 'amax'))
+    row('inv_ids', ms, plain, lib, nbytes, err)
+
+    # K3: the merged {B, A} apply, 132 planes, Q = 2P, in place.
+    upd = torch.randint(-2**31, 2**31 - 1, (F_APPLY, B, 2 * P),
+                        generator=gen, device=dev, dtype=torch.int32)
+    v1 = vals.clone()
+    v2 = vals.clone()
+    ks.scatter_rows_inplace(v1, ids, upd, planes=(0, F_APPLY))
+    ks.scatter_rows_inplace_plain(v2, ids, upd, (0, F_APPLY))
+    err = _max_abs_err(torch, v1, v2)
+    k = int(ok.sum())
+    nbytes = 4 * (B * 2 * P + B * 2 * P + 2 * F_APPLY * k)
+    ms = _time_ms(torch, lambda: ks._launch_scatter(
+        v1, ids, inv, upd, 0, F_APPLY))
+    plain = _time_ms(torch, lambda: ks.scatter_rows_inplace_plain(
+        v2, ids, upd, (0, F_APPLY)))
+    bi, qi_ = ok.nonzero(as_tuple=True)
+    ni = ids[bi, qi_].long()
+    gi = torch.arange(F_APPLY, device=dev)[:, None].expand(-1, k)
+    vals_k = upd[:, bi, qi_].contiguous()
+    v3 = vals.clone()
+    lib = _time_ms(torch, lambda: v3.index_put_(
+        (gi, bi.expand(F_APPLY, -1), ni.expand(F_APPLY, -1)), vals_k))
+    row('scatter_rows_inplace', ms, plain, lib, nbytes, err)
+    for r in rows:
+        if r['max_abs_err'] != 0:
+            fail(f"{r['name']}: timing inputs disagree with the plain "
+                 "version")
+        log(f"time {r['name']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print('chip_smoke: torch is not installed', file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print('chip_smoke: CUDA is not available', file=sys.stderr)
+        return 2
+    try:
+        import tnco_tpu_torch  # noqa: F401
+    except ImportError:
+        print('chip_smoke: run from the repository root (tnco_tpu_torch '
+              'not found)', file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    try:
+        card = phase_card_and_build(torch)
+        phase_kernels(torch)
+        app_counts = phase_app(torch)
+        flagship_counts = phase_flagship(torch, card)
+        rows = phase_times(torch, app_counts, flagship_counts)
+    finally:
+        try:
+            from joblib.externals.loky import get_reusable_executor
+            get_reusable_executor().shutdown(wait=True)
+        except ImportError:
+            pass
+    log(f'total: {time.perf_counter() - t_start:.1f} s')
+    print(card)
+    print(json.dumps({'kernels': rows}))
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,200 @@
+"""Port kernels K1-K3: plain versions == the JAX kernels, bitwise.
+
+The JAX side runs as its own tests run it on the CPU: the XLA lowering
+and the Pallas kernel in interpret mode (the reference for the
+last-q-wins rule on duplicate ids).  The CUDA kernels themselves run only
+on the card (``-m cuda``; skipped elsewhere).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tnco_tpu.kernels import pallas_gather as pg
+from tnco_tpu.kernels import pallas_scatter as ps
+from tnco_tpu_torch.kernels import build, launch_counts, reset_launch_counts
+from tnco_tpu_torch.kernels import gather as kg
+from tnco_tpu_torch.kernels import scatter as ks
+
+_SPECIALS = np.asarray([0x7FC00000, 0xFF800000, 0x7F800000, 0x80000000,
+                        0x7F800001], dtype=np.uint32)  # NaN -inf inf -0 sNaN
+
+
+def _vals(r, shape, dtype):
+    x = r.integers(0, 2**32, shape, dtype=np.uint32)
+    x.reshape(-1)[:len(_SPECIALS)] = _SPECIALS
+    return x.view(dtype)
+
+
+def _ids(r, b, q, n):
+    """Ids with -1, >= n and in-range entries (duplicates allowed)."""
+    ids = r.integers(-1, n + 3, (b, q)).astype(np.int32)
+    ids[:, 0] = -1
+    if q > 1:
+        ids[:, 1] = n
+    return ids
+
+
+def _unique_ids(r, b, n, q):
+    ids = np.full((b, q), -1, np.int32)
+    for i in range(b):
+        k = int(r.integers(0, min(q, n) + 1))
+        ids[i, :k] = r.choice(n, size=k, replace=False)
+        r.shuffle(ids[i])
+    return ids
+
+
+def _torch(x):
+    x = np.ascontiguousarray(x)
+    if x.dtype == np.uint32:
+        x = x.view(np.int32)
+    return torch.from_numpy(x.copy())
+
+
+def _bits(x):
+    if isinstance(x, torch.Tensor):
+        x = x.numpy()
+    return np.asarray(x).view(np.uint32)
+
+
+@pytest.mark.parametrize('dtype', ['int32', 'uint32', 'float32'])
+@pytest.mark.parametrize('planes', [None, (1, 3), (2, 3)])
+def test_gather_plain_matches_jax(random_seed, dtype, planes):
+    r = np.random.default_rng(random_seed)
+    g, b, n, q = 3, 8, 200, 130
+    vals = _vals(r, (g, b, n), dtype)
+    ids = _ids(r, b, q, n)
+    want = pg.gather_gbn(jnp.asarray(vals), jnp.asarray(ids), planes=planes)
+    want_pl = pg.gather_gbn(jnp.asarray(vals), jnp.asarray(ids),
+                            planes=planes, interpret=True)
+    got = kg.gather_gbn(_torch(vals), _torch(ids), planes=planes)
+    assert got.dtype == _torch(vals).dtype
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    np.testing.assert_array_equal(_bits(got), _bits(want_pl))
+
+
+def test_gather_bn_matches_jax(random_seed):
+    r = np.random.default_rng(random_seed)
+    vals = _vals(r, (5, 300), 'int32')
+    ids = _ids(r, 5, 64, 300)
+    want = pg.gather_bn(jnp.asarray(vals), jnp.asarray(ids))
+    got = kg.gather_bn(_torch(vals), _torch(ids))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize('dup', [False, True])
+def test_inv_ids_plain_matches_jax(random_seed, dup):
+    r = np.random.default_rng(random_seed)
+    b, n, q = 8, 260, 140
+    if dup:
+        ids = _ids(r, b, q, n)
+        ids[:, 70:] = ids[:, :70]          # duplicates: last q wins
+    else:
+        ids = _unique_ids(r, b, n, q)
+    want = ps.inv_ids(jnp.asarray(ids), n, interpret=True)
+    got = ks.inv_ids(_torch(ids), n)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if not dup:
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(ps.inv_ids(jnp.asarray(ids), n)))
+
+
+@pytest.mark.parametrize('dtype', ['int32', 'uint32', 'float32'])
+@pytest.mark.parametrize('planes,dup', [(None, False), ((2, 5), False),
+                                        ((0, 3), True), ((4, 5), True)])
+def test_scatter_inplace_plain_matches_jax(random_seed, dtype, planes, dup):
+    r = np.random.default_rng(random_seed)
+    g_all, b, n, q = 5, 8, 256, 96
+    lo, hi = (0, g_all) if planes is None else planes
+    vals = _vals(r, (g_all, b, n), dtype)
+    upd = _vals(r, (hi - lo, b, q), dtype)
+    ids = _unique_ids(r, b, n, q)
+    if dup:
+        ids[:, q // 2:] = ids[:, :q - q // 2]
+        ids[:, 3] = n + 1
+    want = ps.scatter_rows_inplace(jnp.asarray(vals), jnp.asarray(ids),
+                                   jnp.asarray(upd), planes=planes,
+                                   interpret=True)
+    tv = _torch(vals)
+    got = ks.scatter_rows_inplace(tv, _torch(ids), _torch(upd),
+                                  planes=planes)
+    assert got is tv                                        # in place
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    if not dup:
+        auto = ps.scatter_rows_inplace(jnp.asarray(vals), jnp.asarray(ids),
+                                       jnp.asarray(upd), planes=planes)
+        np.testing.assert_array_equal(_bits(got), _bits(auto))
+
+
+def test_plain_versions_do_not_count_launches():
+    reset_launch_counts()
+    vals = torch.zeros((2, 3, 4), dtype=torch.int32)
+    ids = torch.zeros((3, 2), dtype=torch.int32)
+    kg.gather_gbn(vals, ids)
+    ks.scatter_rows_inplace(vals, ids, torch.ones((2, 3, 2),
+                                                  dtype=torch.int32))
+    assert launch_counts() == {'gather_gbn': 0, 'inv_ids': 0,
+                               'scatter_rows_inplace': 0}
+
+
+@pytest.mark.parametrize('case', ['meta', 'ids_dtype', 'rows', 'planes',
+                                  'upd_shape', 'itemsize'])
+def test_wrappers_reject_bad_inputs(case):
+    vals = torch.zeros((2, 3, 4), dtype=torch.int32)
+    ids = torch.zeros((3, 2), dtype=torch.int32)
+    upd = torch.zeros((2, 3, 2), dtype=torch.int32)
+    kw = {}
+    if case == 'meta':
+        vals, ids, upd = (x.to('meta') for x in (vals, ids, upd))
+    elif case == 'ids_dtype':
+        ids = ids.long()
+    elif case == 'rows':
+        ids = torch.zeros((4, 2), dtype=torch.int32)
+    elif case == 'planes':
+        kw = {'planes': (1, 3)}
+    elif case == 'upd_shape':
+        upd = torch.zeros((1, 3, 2), dtype=torch.int32)
+    elif case == 'itemsize':
+        vals = vals.double()
+    with pytest.raises(ValueError):
+        if case in ('upd_shape',):
+            ks.scatter_rows_inplace(vals, ids, upd)
+        else:
+            kg.gather_gbn(vals, ids, **kw)
+    if case == 'meta':
+        with pytest.raises(ValueError):
+            ks.inv_ids(ids, 4)
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """On a host without nvcc the CUDA kernels cannot be built: the
+    builder raises instead of carrying on."""
+    monkeypatch.setenv('CUDA_HOME', str(tmp_path))
+    monkeypatch.setenv('PATH', str(tmp_path))
+    monkeypatch.setattr(build, '_lib', None)
+    monkeypatch.setattr(build, 'BUILD_DIR', tmp_path / 'kernels')
+    with pytest.raises(RuntimeError, match='nvcc'):
+        build.load()
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_card(random_seed):
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU (the CUDA kernels have no CPU '
+                    'mode); run python3 chip_smoke.py on the card')
+    r = np.random.default_rng(random_seed)
+    dev = torch.device('cuda')
+    vals = _torch(_vals(r, (5, 64, 3328), 'float32')).to(dev)
+    ids = _torch(_ids(r, 64, 640, 3328)).to(dev)
+    got = kg.gather_gbn(vals, ids, planes=(1, 4))
+    want = kg.gather_plain(vals, ids, (1, 4))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    uids = _torch(_unique_ids(r, 64, 3328, 256)).to(dev)
+    assert torch.equal(ks.inv_ids(uids, 3328),
+                       ks.inv_ids_plain(uids, 3328))
+    upd = _torch(_vals(r, (3, 64, 256), 'float32')).to(dev)
+    a = ks.scatter_rows_inplace(vals.clone(), uids, upd, planes=(2, 5))
+    b = ks.scatter_rows_inplace_plain(vals.clone(), uids, upd, (2, 5))
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))

@@ -1,0 +1,114 @@
+// K2 and K3: id inversion and the in-place row scatter, the port's
+// counterparts of the TPU kernels tnco_tpu/kernels/pallas_scatter.py:
+// _inv_kernel (entry point inv_ids) and _inplace_kernel (entry point
+// scatter_rows_inplace).
+//
+// K2  inv[b, n] = q such that ids[b, q] == n, else -1.  Ids outside
+//     [0, n) are ignored; on duplicate ids the LAST q wins, as in the TPU
+//     kernel.  One block per replica: the row lives in shared memory
+//     (int[n], 13 KB at n = 3328) when it fits the 48 KB default, else in
+//     the output row in global memory.  atomicMax over q makes "last q
+//     wins" exact and independent of thread order.
+//
+// K3  vals[lo + g, b, ids[b, q]] = upd[g, b, q] for in-range ids whose
+//     q is the winner in inv (from K2), so contract-violating duplicates
+//     keep the TPU kernel's last-q-wins result without a race.  -1 ids
+//     write nothing.  In place: only the Q addressed words of each plane
+//     of the range are written; every other word of the caller's tensor
+//     is untouched (the TPU kernel aliases and rewrites whole planes).
+//
+// Bound on an H100: memory.  K2 reads B*Q ids and writes B*n words.  K3
+// reads G*B*Q update words, B*Q ids and their inv entries, and writes at
+// most G*B*Q words: about 17 MB for the 132-plane merged apply at B=64,
+// Q=256 (~5 us at 3.35 TB/s).  One thread per (g, b, q) with q fastest
+// keeps the update reads coalesced; the stores land on data-dependent
+// columns.  Faster tilings are later work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kSmemBytes = 48 * 1024;
+
+__global__ void inv_ids_smem_kernel(const int32_t* __restrict__ ids,
+                                    int32_t* __restrict__ inv, int n, int q) {
+  extern __shared__ int32_t buf[];
+  const long long bi = blockIdx.x;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) buf[i] = -1;
+  __syncthreads();
+  const int32_t* row = ids + bi * q;
+  for (int j = threadIdx.x; j < q; j += blockDim.x) {
+    const int id = row[j];
+    if (id >= 0 && id < n) atomicMax(buf + id, j);
+  }
+  __syncthreads();
+  int32_t* out = inv + bi * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = buf[i];
+}
+
+__global__ void inv_ids_global_kernel(const int32_t* __restrict__ ids,
+                                      int32_t* __restrict__ inv, int n,
+                                      int q) {
+  const long long bi = blockIdx.x;
+  int32_t* out = inv + bi * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = -1;
+  __syncthreads();
+  const int32_t* row = ids + bi * q;
+  for (int j = threadIdx.x; j < q; j += blockDim.x) {
+    const int id = row[j];
+    if (id >= 0 && id < n) atomicMax(out + id, j);
+  }
+}
+
+__global__ void scatter_rows_kernel(int32_t* __restrict__ vals,
+                                    const int32_t* __restrict__ ids,
+                                    const int32_t* __restrict__ inv,
+                                    const int32_t* __restrict__ upd, int g,
+                                    int b, int n, int q) {
+  const long long total = (long long)g * b * q;
+  const long long stride = (long long)blockDim.x * gridDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += stride) {
+    const int qi = (int)(i % q);
+    const long long gb = i / q;
+    const int bi = (int)(gb % b);
+    const long long gi = gb / b;
+    const int id = __ldg(ids + (long long)bi * q + qi);
+    if (id >= 0 && id < n && __ldg(inv + (long long)bi * n + id) == qi) {
+      vals[(gi * b + bi) * (long long)n + id] = __ldg(upd + i);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int tnco_inv_ids(const void* ids, void* inv, int b, int n, int q,
+                            void* stream) {
+  if (b <= 0 || n <= 0) return 0;
+  const int threads = 256;
+  const long long smem = (long long)n * sizeof(int32_t);
+  if (smem <= kSmemBytes) {
+    inv_ids_smem_kernel<<<b, threads, (size_t)smem, (cudaStream_t)stream>>>(
+        (const int32_t*)ids, (int32_t*)inv, n, q);
+  } else {
+    inv_ids_global_kernel<<<b, threads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)ids, (int32_t*)inv, n, q);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tnco_scatter_rows(void* vals, const void* ids, const void* inv,
+                                 const void* upd, int g, int b, int n, int q,
+                                 void* stream) {
+  const long long total = (long long)g * b * q;
+  if (total <= 0) return 0;
+  const int threads = 256;
+  long long blocks = (total + threads - 1) / threads;
+  if (blocks > (1LL << 20)) blocks = 1LL << 20;  // grid-stride loop covers it
+  scatter_rows_kernel<<<(unsigned int)blocks, threads, 0,
+                        (cudaStream_t)stream>>>(
+      (int32_t*)vals, (const int32_t*)ids, (const int32_t*)inv,
+      (const int32_t*)upd, g, b, n, q);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,108 @@
+"""Builds and loads the hand-written Hopper kernels (``csrc/*.cu``).
+
+``nvcc`` compiles every source into an object file, all compilers
+started together, and links them into one shared library with a plain C
+interface under ``build/kernels/`` at the repository root; ``ctypes``
+loads it.  The library is rebuilt when a source is newer than it.  The
+build happens at the first launch, never at import (the CPU tests import
+every module on hosts without ``nvcc``).
+"""
+
+import ctypes
+import os
+from pathlib import Path
+import shutil
+import subprocess
+
+__all__ = ['load', 'build', 'nvcc_path', 'BUILD_DIR', 'SOURCES']
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / 'csrc'
+BUILD_DIR = _PKG.parent / 'build' / 'kernels'
+SOURCES = ('gather.cu', 'scatter.cu')
+_LIB_NAME = 'libtnco_torch_kernels.so'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-Xcompiler', '-fPIC')
+
+_lib = None
+# Compiler output of the last build (``-Xptxas -v``: registers, shared
+# memory and spills per kernel); empty when the library was up to date.
+build_log = ''
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    'tnco_gather_gbn': (_P, _P, _P, _I, _I, _I, _I, _P),
+    'tnco_inv_ids': (_P, _P, _I, _I, _I, _P),
+    'tnco_scatter_rows': (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get('CUDA_HOME') or '/usr/local/cuda'
+    cand = Path(home) / 'bin' / 'nvcc'
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which('nvcc')
+    if found is None:
+        raise RuntimeError(
+            "nvcc was not found (looked in $CUDA_HOME/bin, /usr/local/cuda/"
+            "bin and PATH); the CUDA kernels cannot be built on this host.")
+    return found
+
+
+def build() -> Path:
+    """Compiles ``csrc/*.cu`` into ``build/kernels/`` when stale."""
+    global build_log
+    lib = BUILD_DIR / _LIB_NAME
+    srcs = [CSRC / s for s in SOURCES]
+    deps = srcs + sorted(CSRC.glob('*.cuh'))
+    newest = max(p.stat().st_mtime for p in deps)
+    if lib.is_file() and lib.stat().st_mtime >= newest:
+        return lib
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f'{os.getpid()}'
+    objs = [BUILD_DIR / f'{s.stem}.{tag}.o' for s in srcs]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, '-Xptxas', '-v', '-c', str(s),
+                          '-o', str(o)], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(srcs, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(s, log) for s, p, log in zip(srcs, procs, logs)
+              if p.returncode != 0]
+    if failed:
+        raise RuntimeError('nvcc failed:\n' + '\n'.join(
+            f'--- {s.name}\n{log}' for s, log in failed))
+    tmp = BUILD_DIR / f'{_LIB_NAME}.{tag}.tmp'
+    link = subprocess.run([nvcc, '-shared', *map(str, objs), '-o',
+                           str(tmp)], capture_output=True, text=True)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError('nvcc link failed:\n' + link.stdout + link.stderr)
+    os.replace(tmp, lib)
+    build_log = '\n'.join(logs)
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raises when a launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch "
+                           f"(cudaError {rc}).")

@@ -1,0 +1,77 @@
+"""Plane codecs and widths shared by the walks engine (from
+``tnco_tpu/kernels/sa_fullsweep.py:88-205``).
+
+The engine state is ``int32 [F, B, N_pad]`` planes of bit patterns:
+index words, child/parent ids, and float32 costs bitcast with
+``.view(torch.int32)``.  Ids and words already are int32, so the JAX
+package's ``_u32``/``_i32`` bitcasts have no counterpart here.  The
+full-sweep engine itself is not ported yet.
+"""
+
+import numpy as np
+import torch
+
+from tnco_tpu_torch.ops.bitops import popcount32
+
+__all__ = ['uniform_log2_dim']
+
+
+def uniform_log2_dim(log2_dims) -> float | None:
+    """The common log2 dim if every (unpadded) index dim is equal, else
+    None.  Host-side: pass ``ContractionTree.log2_dims_array``."""
+    a = np.asarray(log2_dims, dtype=np.float64)
+    if a.size == 0:
+        return 0.0
+    if np.all(a == a.flat[0]):
+        return float(a.flat[0])
+    return None
+
+
+def _split_f(x):
+    """float32 tensor -> ``[1, ...]`` int32 bit-pattern planes."""
+    if x.dtype != torch.float32:
+        raise NotImplementedError("float64 state (nk=2) is not ported "
+                                  "yet (ROADMAP queue 1).")
+    return x.view(torch.int32)[None]
+
+
+def _join_f(planes, dtype):
+    """Inverse of :func:`_split_f` (planes ``[1, ...]``)."""
+    if planes.shape[0] != 1 or dtype != torch.float32:
+        raise NotImplementedError("float64 state (nk=2) is not ported "
+                                  "yet (ROADMAP queue 1).")
+    return planes[0].view(torch.float32)
+
+
+def _nk(dtype):
+    return 2 if torch.empty((), dtype=dtype).element_size() == 8 else 1
+
+
+def _width_bn(lanes_wbn, log2d_w32, uniform_log2, dtype):
+    """Width of ``int32 [W, ...]`` lane sets -> ``[...]``.
+
+    Fast path (``uniform_log2`` given): integer popcount times the common
+    log2 dim.  Otherwise the (w*32+s)-ordered pairwise-halving tree over
+    the bit-plane expansion.
+    """
+    if uniform_log2 is not None:
+        pc = popcount32(lanes_wbn).sum(dim=0, dtype=torch.int32)
+        return pc.to(dtype) * torch.tensor(uniform_log2, dtype=dtype,
+                                           device=lanes_wbn.device)
+    w = lanes_wbn.shape[0]
+    rest = (1,) * (lanes_wbn.ndim - 1)
+    sh = torch.arange(32, dtype=torch.int32,
+                      device=lanes_wbn.device).reshape((1, 32) + rest)
+    bits = ((lanes_wbn[:, None] >> sh) & 1).to(dtype)
+    ld = log2d_w32.reshape((w, 32) + rest)
+    terms = (bits * ld).reshape((w * 32,) + tuple(lanes_wbn.shape[1:]))
+    n = w * 32
+    p = 1 << (n - 1).bit_length() if n > 1 else 1
+    if p != n:
+        terms = torch.cat(
+            [terms, terms.new_zeros((p - n,) + tuple(terms.shape[1:]))],
+            dim=0)
+    while terms.shape[0] > 1:
+        h = terms.shape[0] // 2
+        terms = terms[:h] + terms[h:]
+    return terms[0]

@@ -1,0 +1,465 @@
+"""Chained multi-walk SA engine, finite width (the port of
+``tnco_tpu/kernels/sa_walks.py:run_walks_fw`` and its helpers).
+
+Each iteration, ``P`` walks per replica propose an uncle swap at their
+current node (the reference move, include/tnco/optimize/infinite_memory/
+optimizer.hpp:117-192, with the width cap of finite_width/greedy/
+optimizer.hpp:188-225), Metropolis-accept against the pre-round total,
+keep a pairwise-disjoint set (lower walk index wins), apply the kept
+moves, advance every walk to its parent, and every ``update_slices``
+iterations re-derive the slice set greedily and keep it if the total
+improves.
+
+State is ``int32 [F, B, N_pad]`` planes of bit patterns with nodes last:
+``[0:W)`` index words, ``[W:2W)`` union planes ``U[i] = inds[c0[i]] |
+inds[c1[i]]`` (the plane slicer's input, maintained by the apply), c0,
+c1, lcc, the pre-slicing width, par.  Every irregular row access goes
+through the hand-written kernels: row reads through K1
+(:func:`~tnco_tpu_torch.kernels.gather.gather_gbn`), the two apply
+scatters through K2+K3 (:func:`~tnco_tpu_torch.kernels.scatter.
+scatter_rows_inplace`), which write the state IN PLACE where the JAX
+engine donated its buffer.
+
+Semantics follow the JAX engine operation by operation, so integer state
+and slices are bitwise equal on the same state and draws, and totals
+agree within the float bound of ``exp2``/``log2`` (tests inject the JAX
+draws through ``draws=``).  This slice ports ``claim='sequential'``,
+``on_block='advance'``, ``accept_rule='round'``, ``prob_kind='mh'``,
+float32 and the plane slicer on uniform power-of-two dims; the other
+options raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+import numpy as np
+import torch
+
+from tnco_tpu_torch.device import resolve_device
+from tnco_tpu_torch.kernels.gather import gather_gbn
+from tnco_tpu_torch.kernels.sa_batched import compute_hyper_b
+from tnco_tpu_torch.kernels.sa_finite import _WIDTH_EPS
+from tnco_tpu_torch.kernels.sa_finite_batched import (SABatchFW,
+                                                      _greedy_slices_fast,
+                                                      _pc_width)
+from tnco_tpu_torch.kernels.sa_fullsweep import (_join_f, _nk, _split_f,
+                                                 _width_bn)
+from tnco_tpu_torch.kernels.sa_infinite import SweepConfig
+from tnco_tpu_torch.kernels.sa_multiwalk import _chains_lt, draw_walks
+from tnco_tpu_torch.kernels.scatter import scatter_rows_inplace
+from tnco_tpu_torch.ops import costs as costs_ops
+
+__all__ = ['run_walks_fw']
+
+NULL = -1
+
+_ROADMAP = 'ROADMAP.md queue 1, item 6'
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported yet ({_ROADMAP}).")
+
+
+def _n_pad(n: int) -> int:
+    """Node-axis padding to a multiple of 128 (inert rows)."""
+    return -(-n // 128) * 128
+
+
+def _pack_w(c0, c1, par, inds, lcc, width=None):
+    """``[N, B]`` / ``[N, W, B]`` tensors -> ``int32 [F, B, N_pad]``.
+
+    Plane layout: ``[0:W)`` inds; c0; c1; lcc; optionally the FW
+    pre-slicing width; par LAST.  Padding rows are inert: children and
+    parent NULL, inds 0, lcc -inf (an exact zero in the pinned total).
+    """
+    n = c0.shape[0]
+    pad = _n_pad(n) - n
+    if pad:
+        def cat(x, fill):
+            return torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)])
+        c0, c1, par = cat(c0, NULL), cat(c1, NULL), cat(par, NULL)
+        inds = cat(inds, 0)
+        lcc = cat(lcc, -torch.inf)
+        if width is not None:
+            width = cat(width, 0)
+    planes = [inds.permute(1, 2, 0), c0.T[None], c1.T[None],
+              _split_f(lcc.T.contiguous())]
+    if width is not None:
+        planes.append(_split_f(width.T.contiguous()))
+    planes.append(par.T[None])
+    return torch.cat(planes, dim=0).contiguous()
+
+
+def _par_plane(w, nk, fw, u=0):
+    """Index of the par plane (``u`` = union-plane count)."""
+    return w + u + 2 + nk + (nk if fw else 0)
+
+
+def _unpack_w(S, w, dtype, n, fw=False, u=0):
+    nk = _nk(dtype)
+    inds = S[:w, :, :n].permute(2, 0, 1).contiguous()       # [N, W, B]
+    c0 = S[w + u, :, :n].T.contiguous()
+    c1 = S[w + u + 1, :, :n].T.contiguous()
+    lcc = _join_f(S[w + u + 2:w + u + 2 + nk, :, :n], dtype).T.contiguous()
+    par = S[_par_plane(w, nk, fw, u), :, :n].T.contiguous()
+    if not fw:
+        return c0, c1, par, inds, lcc
+    width = _join_f(S[w + u + 2 + nk:w + u + 2 + 2 * nk, :, :n],
+                    dtype).T.contiguous()
+    return c0, c1, par, inds, lcc, width
+
+
+def _lt_from_S(S, w, nk, nl, dtype, u=0):
+    lcc_bn = _join_f(S[w + u + 2:w + u + 2 + nk], dtype)    # [B, N]
+    return costs_ops.log2_total_from_lcc_last(lcc_bn, nl)
+
+
+def _propose_walks(S, pos, leaf, rand_bit, cfg: SweepConfig, log2d_w32,
+                   uniform_log2, dtype, slices_wb=None, with_width=False,
+                   u=0):
+    """Row pulls + proposal math at the ``[B, P]`` walk positions.
+
+    Three dependent pull phases through K1 (par at the positions and
+    fresh leaves; scalar rows at B; scalar rows at A), then ONE
+    index-plane gather at the five ids {B, A, C, c0(B), c1(B)}.  Returns
+    the advanced positions and the per-walk ``ev`` dict (ids/costs
+    ``[B, P]``, lane sets ``[W, B, P]``).
+    """
+    w = cfg.n_lanes
+    nk = _nk(dtype)
+    p = pos.shape[1]
+    par_plane = _par_plane(w, nk, with_width, u)
+
+    # Restart finished walks at the parent of a fresh leaf.
+    ids0 = torch.cat([pos.clamp(min=0), leaf], dim=1)
+    pp = gather_gbn(S, ids0, planes=(par_plane, par_plane + 1))[0]
+    par_pos, par_leaf = pp[:, :p], pp[:, p:]
+    at_boundary = (pos == NULL) | (par_pos == NULL)
+    pos = torch.where(at_boundary, par_leaf, pos).contiguous()
+
+    b = pos
+    rb = gather_gbn(S, b, planes=(w + u, par_plane + 1))
+    c0b, c1b = rb[0], rb[1]
+    l_b = _join_f(rb[2:2 + nk], dtype)
+    a = torch.where(b == NULL, NULL, rb[-1]).contiguous()
+    ev = dict(a=a, b=b, c0b=c0b, c1b=c1b, l_b=l_b)
+    if with_width:
+        ev['w_b'] = _join_f(rb[2 + nk:2 + 2 * nk], dtype)
+
+    ra = gather_gbn(S, a, planes=(w + u, par_plane))
+    c0a, c1a = ra[0], ra[1]
+    ev['l_a'] = _join_f(ra[2:2 + nk], dtype)
+    if with_width:
+        ev['w_a'] = _join_f(ra[2 + nk:2 + 2 * nk], dtype)
+    c = torch.where(c0a == b, c1a, c0a)
+    ev.update(c=c, c0a=c0a, c1a=c1a)
+
+    r5 = gather_gbn(S, torch.cat([b, a, c, c0b, c1b], dim=1),
+                    planes=(0, w))
+    inds_b = r5[:, :, :p]
+    inds_a = r5[:, :, p:2 * p]
+    inds_c = r5[:, :, 2 * p:3 * p]
+    inds0 = r5[:, :, 3 * p:4 * p]
+    inds1 = r5[:, :, 4 * p:]
+    ev['inds_b'] = inds_b
+    ev['inds_a'] = inds_a
+
+    i0 = ((inds0 & inds_c) != 0).any(dim=0)
+    i1 = ((inds1 & inds_c) != 0).any(dim=0)
+    take0 = rand_bit if cfg.disable_shared_inds else \
+        torch.where(i0 & i1, rand_bit, i0)
+    ev['d'] = torch.where(take0, c0b, c1b)
+    ev['e'] = torch.where(take0, c1b, c0b)
+    t0 = take0[None]
+    inds_d = torch.where(t0, inds0, inds1)
+    inds_e = torch.where(t0, inds1, inds0)
+    if with_width:
+        # The FW apply maintains the union planes from these.
+        ev['inds_c'] = inds_c
+        ev['inds_d'] = inds_d
+
+    hyp_a = inds_a & inds_b & inds_c
+    hyp_b = inds_b & inds0 & inds1
+    ev['new_inds_b'] = (inds_d ^ inds_c) | hyp_a | hyp_b
+
+    def width(lanes):
+        if slices_wb is not None:
+            lanes = lanes | slices_wb[:, :, None]
+        return _width_bn(lanes, log2d_w32, uniform_log2, dtype)
+
+    ev['ln_b'] = width(inds_d | inds_c)
+    ev['ln_a'] = width(ev['new_inds_b'] | inds_e)
+    ev['inds_e'] = inds_e
+    return pos, ev
+
+
+def _accept_walks(ev, lt, u, beta):
+    """Metropolis on the totals ratio (``prob_kind='mh'``); ``beta`` is a
+    0-dim tensor or ``[B]`` (one temperature per replica)."""
+    if beta.ndim:
+        beta = beta[:, None]
+    l_new = costs_ops.new_total_log2(lt[:, None], ev['l_a'], ev['l_b'],
+                                     ev['ln_a'], ev['ln_b'])
+    accept = torch.log2(u) <= -beta * (l_new - lt[:, None])
+    return accept & (ev['b'] != NULL) & (ev['a'] != NULL)
+
+
+def _claim_sequential(accept, ev):
+    """Conflict filter: walk i is kept iff accepted and none of its 5
+    nodes {A, B, C, D, E} meets a node of a KEPT walk of lower index.
+
+    The symmetric conflict matrix ``M[b, p, q]`` is built once; the scan
+    then runs walk by walk — the same boolean decisions as the JAX
+    engine's blocked scan, so the kept sets are bitwise equal.
+    """
+    nodes5 = [ev[k] for k in ('a', 'b', 'c', 'd', 'e')]
+    b, p = accept.shape
+    confl = torch.zeros((b, p, p), dtype=torch.bool, device=accept.device)
+    for x in nodes5:
+        for y in nodes5:
+            confl |= x[:, :, None] == y[:, None, :]
+    keep = torch.zeros_like(accept)
+    for i in range(p):
+        blocked = (keep & confl[:, i, :]).any(dim=1)
+        keep[:, i] = accept[:, i] & ~blocked
+    return keep
+
+
+def _apply_walks(S, ev, kept, cfg: SweepConfig, dtype, with_width=False,
+                 u=0):
+    """Scatter the 4 touched rows of every kept walk, IN PLACE on ``S``.
+
+    TWO plane-range scatters (K2 + K3): the merged group (inds, the
+    union planes, c0, c1, lcc and the width) at the {B, A} ids, and the
+    par plane at the {C, E} ids.  Float rows are written in the additive
+    form ``old + (new - old)`` of the JAX engine.
+    """
+    w = cfg.n_lanes
+    nk = _nk(dtype)
+    par_plane = _par_plane(w, nk, with_width, u)
+
+    def masked(ids):
+        return torch.where(kept, ids, NULL)
+
+    b_k, a_k = masked(ev['b']), masked(ev['a'])
+    c_k, e_k = masked(ev['c']), masked(ev['e'])
+
+    new_c0b = torch.where(ev['c0b'] == ev['e'], ev['c'], ev['c0b'])
+    new_c1b = torch.where(ev['c1b'] == ev['e'], ev['c'], ev['c1b'])
+    new_c0a = torch.where(ev['c0a'] == ev['c'], ev['e'], ev['c0a'])
+    new_c1a = torch.where(ev['c1a'] == ev['c'], ev['e'], ev['c1a'])
+    new_l_b = ev['l_b'] + (ev['ln_b'] - ev['l_b'])
+    new_l_a = ev['l_a'] + (ev['ln_a'] - ev['l_a'])
+
+    ids_ba = torch.cat([b_k, a_k], dim=1)
+    planes1 = [torch.cat([ev['new_inds_b'], ev['inds_a']], dim=2)]
+    if u:
+        planes1.append(torch.cat(
+            [ev['inds_d'] | ev['inds_c'],
+             ev['new_inds_b'] | ev['inds_e']], dim=2))
+    planes1 += [
+        torch.cat([new_c0b, new_c0a], dim=1)[None],
+        torch.cat([new_c1b, new_c1a], dim=1)[None],
+        _split_f(torch.cat([new_l_b, new_l_a], dim=1)),
+    ]
+    if with_width:
+        new_w_b = ev['w_b'] + (ev['new_width_b'] - ev['w_b'])
+        planes1.append(_split_f(torch.cat([new_w_b, ev['w_a']], dim=1)))
+    upd1 = torch.cat(planes1, dim=0).contiguous()
+    scatter_rows_inplace(S, ids_ba, upd1, planes=(0, par_plane))
+
+    # par at {C, E} (C reparents to B, E to A).
+    ids_ce = torch.cat([c_k, e_k], dim=1)
+    upd2 = torch.cat([ev['b'], ev['a']], dim=1)[None].contiguous()
+    scatter_rows_inplace(S, ids_ce, upd2,
+                         planes=(par_plane, par_plane + 1))
+    return S
+
+
+def _reslice(S, slices, lt_post, jitter, thr_width, log2d_w32, skip_w,
+             cfg, uniform_log2, dtype, up):
+    """Plane-layout reslice-if-better: the sorted-space slicer reads the
+    index planes in place and lcc is rebuilt by one popcount pass over
+    the union planes; replicas whose new total is lower take the new
+    slices and lcc (written into ``S`` in place)."""
+    w = cfg.n_lanes
+    nk = _nk(dtype)
+    width_nb = _join_f(S[w + up + 2 + nk:w + up + 2 + 2 * nk], dtype).T
+    new_slices = _greedy_slices_fast(S, (0, w), width_nb, jitter,
+                                     thr_width, log2d_w32, skip_w,
+                                     uniform_log2)
+    internal = S[w + up] != NULL                             # [B, N]
+    union = S[w:w + up] | new_slices[:, :, None]
+    lcc_bn = _pc_width(union, uniform_log2, dtype, word_axis=0)
+    new_lcc_bn = torch.where(internal, lcc_bn, -torch.inf).to(dtype)
+    new_lt = costs_ops.log2_total_from_lcc_last(new_lcc_bn, cfg.n_leaves)
+    better = new_lt < lt_post
+    slices = torch.where(better[None, :], new_slices, slices)
+    lcc_plane = S[w + up + 2]
+    lcc_cur = lcc_plane.view(dtype)
+    lcc_plane.copy_(torch.where(better[:, None], new_lcc_bn,
+                                lcc_cur).view(torch.int32))
+    return slices, torch.where(better, new_lt, lt_post)
+
+
+def _iter_walks_fw(st, beta, update_slices, max_width, log2d_w32, skip_w,
+                   cfg: SweepConfig, uniform_log2, dr):
+    """One iteration on the state dict ``st`` (updated in place)."""
+    S = st['S']
+    w = cfg.n_lanes
+    dtype = log2d_w32.dtype
+    nk = _nk(dtype)
+    pos = st['pos']
+    p = pos.shape[1]
+    up = w  # union-plane count (the plane-slicer path)
+    slices = st['slices']
+
+    pos, ev = _propose_walks(S, pos, dr['leaf'], dr['rand_bit'], cfg,
+                             log2d_w32, uniform_log2, dtype,
+                             slices_wb=slices, with_width=True, u=up)
+    ev['new_width_b'] = _width_bn(ev['new_inds_b'], log2d_w32,
+                                  uniform_log2, dtype)
+    new_sliced_width = _width_bn(ev['new_inds_b'] & ~slices[:, :, None],
+                                 log2d_w32, uniform_log2, dtype)
+    fits = new_sliced_width <= max_width + _WIDTH_EPS
+    accept = _accept_walks(ev, st['lt'], dr['u'], beta) & fits
+    keep = _claim_sequential(accept, ev)
+    _apply_walks(S, ev, keep, cfg, dtype, with_width=True, u=up)
+
+    st['pos'] = ev['a']                     # on_block='advance'
+    st['moves'] += p * pos.shape[0]
+    st['applied'] = st['applied'] + keep.sum(dtype=torch.int64)
+
+    lt_new = _lt_from_S(S, w, nk, cfg.n_leaves, dtype, u=up)
+    if update_slices and bool((slices != 0).any()):
+        slices, lt_new = _reslice(S, slices, lt_new, dr['jitter'],
+                                  max_width, log2d_w32, skip_w, cfg,
+                                  uniform_log2, dtype, up)
+    st['slices'] = slices
+    st['lt'] = lt_new
+
+    improved = lt_new < st['min_lt']
+    st['min_lt'] = torch.where(improved, lt_new, st['min_lt'])
+    st['S_min'] = torch.where(improved[None, :, None], S, st['S_min'])
+    st['min_slices'] = torch.where(improved[None, :], slices,
+                                   st['min_slices'])
+    return ev, keep
+
+
+def _check_options(cfg, dtype, claim, on_block, accept_rule, slicer,
+                   sparse_wb, log2_n_projs, fast_slicer):
+    if claim != 'sequential':
+        raise _not_ported(f"claim={claim!r}")
+    if on_block != 'advance':
+        raise _not_ported(f"on_block={on_block!r}")
+    if accept_rule not in ('round', 'chained'):
+        raise ValueError("accept_rule must be 'round' or 'chained', "
+                         f"got {accept_rule!r}.")
+    if accept_rule == 'chained' and _chains_lt(cfg):
+        raise _not_ported("accept_rule='chained'")
+    if cfg.prob_kind != 'mh':
+        raise _not_ported(f"prob_kind={cfg.prob_kind!r}")
+    if sparse_wb is not None or log2_n_projs is not None:
+        raise _not_ported("Sparse indices")
+    if dtype != torch.float32:
+        raise _not_ported("float64 state (nk=2)")
+    if slicer not in (None, 'plane', 'ref'):
+        raise ValueError(f"slicer must be None, 'plane' or 'ref', "
+                         f"got {slicer!r}.")
+    if slicer == 'ref' or not fast_slicer:
+        raise _not_ported("The reference-shaped slicer (slicer='ref', "
+                          "non-uniform or non-power-of-two dims)")
+
+
+def run_walks_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
+                 log2d_w32, skip_wb, cfg: SweepConfig, pos, sparse_wb=None,
+                 log2_n_projs=None, *, claim='sequential',
+                 on_block='advance', accept_rule='round', uniform_log2=None,
+                 slicer=None, draws=None, generator=None, device=None):
+    """Finite-width chained multi-walk rounds, one per beta.
+
+    Args:
+        batch: :class:`SABatchFW` on ``device``.
+        betas: ``[T]`` inverse temperatures (float32 on the device).
+        update_slices_mask: ``[T]`` host booleans, reslice after step t.
+        max_width: the width cap.
+        log2d_w32: ``float32 [W, 32]`` padded log2 dims.
+        skip_wb: ``int32 [W]`` (or ``[W, 1]``) lanes never sliced.
+        pos: ``int32 [P, B]`` walk positions (-1 = start a fresh walk).
+        draws: optional pre-drawn streams, a dict of per-iteration stacks
+            ``leaf [T, B, P]``, ``rand_bit [T, B, P]``, ``u [T, B, P]``,
+            ``jitter [T, n_bits, B]`` (the tests inject the JAX draws).
+        generator: ``torch.Generator`` on the device, used when ``draws``
+            is None.
+        device: ``None`` means ``'cuda'`` (see :func:`resolve_device`).
+
+    Returns ``(batch, {'moves', 'applied', 'pos'})``.  The batch's
+    tensors are new; the packed working state is updated in place.
+    """
+    dev = resolve_device(device)
+    if batch.c0.device.type != dev.type:
+        raise ValueError(f"batch is on {batch.c0.device}, device={dev}.")
+    w = cfg.n_lanes
+    nl = cfg.n_leaves
+    dtype = log2d_w32.dtype
+    nk = _nk(dtype)
+    fast_slicer = (uniform_log2 is not None and sparse_wb is None
+                   and float(uniform_log2).is_integer())
+    _check_options(cfg, dtype, claim, on_block, accept_rule, slicer,
+                   sparse_wb, log2_n_projs, fast_slicer)
+    if draws is None and generator is None:
+        raise ValueError("Pass draws= or generator=.")
+    betas = torch.as_tensor(
+        betas if isinstance(betas, torch.Tensor) else
+        np.asarray(betas, dtype=np.float32),
+        dtype=torch.float32, device=batch.c0.device)
+    mask = np.asarray(update_slices_mask, dtype=bool)
+    max_width = torch.as_tensor(max_width, dtype=dtype,
+                                device=batch.c0.device)
+    skip_w = skip_wb.reshape(-1)
+    n_bits = w * 32
+    b = batch.c0.shape[1]
+
+    S = _pack_w(batch.c0, batch.c1, batch.par, batch.inds, batch.lcc,
+                width=batch.width)
+    S_min = _pack_w(batch.min_c0, batch.min_c1, batch.min_par,
+                    batch.min_inds, batch.lcc, width=batch.width)
+    # Union planes U = inds[c0] | inds[c1], between the index planes and
+    # c0 so the merged {B, A} apply scatter covers them in one range.
+    c0_pad = S[w].contiguous()
+    c1_pad = S[w + 1].contiguous()
+    U = (gather_gbn(S, c0_pad, planes=(0, w)) |
+         gather_gbn(S, c1_pad, planes=(0, w)))
+    S = torch.cat([S[:w], U, S[w:]], dim=0).contiguous()
+    # S_min's union planes are never read; they keep the snap shapes equal.
+    S_min = torch.cat([S_min[:w], U, S_min[w:]], dim=0).contiguous()
+
+    st = dict(S=S, lt=_lt_from_S(S, w, nk, nl, dtype, u=w),
+              slices=batch.slices.clone(), S_min=S_min,
+              min_slices=batch.min_slices.clone(),
+              min_lt=batch.min_log2_total.clone(),
+              pos=pos.T.contiguous(), moves=0,
+              applied=torch.zeros((), dtype=torch.int64,
+                                  device=batch.c0.device))
+    p = st['pos'].shape[1]
+    for t in range(len(betas)):
+        if draws is None:
+            dr = draw_walks(generator, nl, b, p, n_bits, dtype)
+        else:
+            dr = {k: v[t] for k, v in draws.items()}
+        _iter_walks_fw(st, betas[t], bool(mask[t]), max_width, log2d_w32,
+                       skip_w, cfg, uniform_log2, dr)
+
+    S, lt, S_min = st['S'], st['lt'], st['S_min']
+    improved = lt < st['min_lt']
+    min_lt = torch.where(improved, lt, st['min_lt'])
+    S_min = torch.where(improved[None, :, None], S, S_min)
+    min_slices = torch.where(improved[None, :], st['slices'],
+                             st['min_slices'])
+    n = batch.c0.shape[0]
+    c0, c1, par, inds, lcc, width = _unpack_w(S, w, dtype, n, fw=True, u=w)
+    mc0, mc1, mpar, minds, _ml, _mw = _unpack_w(S_min, w, dtype, n,
+                                                fw=True, u=w)
+    hyper = compute_hyper_b(c0, c1, inds)
+    out = SABatchFW(c0, c1, par, inds, hyper, lcc, width, st['slices'], lt,
+                    min_lt, mc0, mc1, mpar, minds, min_slices,
+                    batch.keys.clone())
+    return out, {'moves': st['moves'], 'applied': st['applied'],
+                 'pos': st['pos'].T.contiguous()}

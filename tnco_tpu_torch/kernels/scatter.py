@@ -1,0 +1,124 @@
+"""K2 and K3: id inversion and the in-place row scatter — the port of
+``tnco_tpu/kernels/pallas_scatter.py`` (``inv_ids``,
+``scatter_rows_inplace``).
+
+- :func:`inv_ids`: ``inv[b, n] = q`` with ``ids[b, q] == n``, else -1;
+  out-of-range ids are ignored and the LAST ``q`` wins on duplicates
+  (the TPU kernel's rule, ``inv_ids(..., interpret=True)``).
+- :func:`scatter_rows_inplace`: ``vals[lo + g, b, ids[b, q]] =
+  upd[g, b, q]`` over the plane range, IN PLACE on the caller's tensor
+  (where JAX donated the buffer); -1 writes nothing, and duplicates keep
+  the last-q-wins result through the inversion.
+
+CUDA tensors go to the hand-written kernels (``csrc/scatter.cu``); CPU
+tensors go to the plain PyTorch versions (spec: ``_inv_xla`` and
+``_scatter_xla``, ``pallas_scatter.py:85-94,167-171``).  No fallback:
+a CUDA call launches the kernel or raises.
+"""
+
+import torch
+
+from tnco_tpu_torch.kernels import build
+from tnco_tpu_torch.kernels.gather import _check, _plane_range
+
+__all__ = ['inv_ids', 'scatter_rows_inplace', 'inv_ids_plain',
+           'scatter_rows_inplace_plain', 'inv_launches', 'scatter_launches']
+
+# Kernel launches since the last reset (the main path's proof of route).
+inv_launches = 0
+scatter_launches = 0
+
+
+def _check_ids(ids):
+    if ids.dim() != 2 or ids.dtype != torch.int32 or \
+            not ids.is_contiguous():
+        raise ValueError("ids must be a contiguous int32 [B, Q] tensor, "
+                         f"got {tuple(ids.shape)} {ids.dtype}.")
+    if ids.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f"Unsupported device: {ids.device}.")
+
+
+def inv_ids_plain(ids, n: int):
+    """Plain PyTorch version: a deterministic ``amax`` scatter of q."""
+    b, q = ids.shape
+    ok = (ids >= 0) & (ids < n)
+    safe = torch.where(ok, ids, n).long()
+    qi = torch.arange(q, dtype=torch.int32, device=ids.device)
+    inv = torch.full((b, n + 1), -1, dtype=torch.int32, device=ids.device)
+    inv.scatter_reduce_(1, safe, qi.expand(b, q), reduce='amax')
+    return inv[:, :n].contiguous()
+
+
+def inv_ids(ids, n: int):
+    """``[B, Q]`` ids -> ``[B, n]`` inverse map (-1 where no id)."""
+    global inv_launches
+    _check_ids(ids)
+    if ids.device.type == 'cpu':
+        return inv_ids_plain(ids, n)
+    b, q = ids.shape
+    inv = torch.empty((b, n), dtype=torch.int32, device=ids.device)
+    if inv.numel() == 0:
+        return inv
+    lib = build.load()
+    stream = torch.cuda.current_stream(ids.device).cuda_stream
+    rc = lib.tnco_inv_ids(ids.data_ptr(), inv.data_ptr(), b, n, q, stream)
+    build.check(rc, 'inv_ids')
+    inv_launches += 1
+    return inv
+
+
+def _check_upd(vals, ids, upd, lo, hi):
+    if upd.dtype != vals.dtype or upd.device != vals.device or \
+            not upd.is_contiguous():
+        raise ValueError("upd must be contiguous, of vals' dtype and "
+                         "device.")
+    want = (hi - lo, vals.shape[1], ids.shape[1])
+    if tuple(upd.shape) != want:
+        raise ValueError(f"upd shape {tuple(upd.shape)} != {want}.")
+
+
+def scatter_rows_inplace_plain(vals, ids, upd, planes=None):
+    """Plain PyTorch version; writes ``vals`` in place and returns it."""
+    lo, hi = _plane_range(planes, vals.shape[0])
+    n, q = vals.shape[2], ids.shape[1]
+    if q == 0 or hi == lo:
+        return vals
+    inv = inv_ids_plain(ids, n)
+    safe = inv.clamp(0, q - 1).long()
+    got = torch.gather(upd.view(torch.int32), 2,
+                       safe[None].expand(hi - lo, -1, -1))
+    region = vals.view(torch.int32)[lo:hi]
+    region.copy_(torch.where((inv >= 0)[None], got, region))
+    return vals
+
+
+def scatter_rows_inplace(vals, ids, upd, *, planes=None):
+    """Row scatter into a plane range of ``vals``, in place.
+
+    ``vals[lo + g, b, ids[b, q]] = upd[g, b, q]`` for the ``planes=(lo,
+    hi)`` range (default: all planes); returns ``vals`` itself.
+    """
+    global scatter_launches
+    _check(vals, ids)
+    lo, hi = _plane_range(planes, vals.shape[0])
+    _check_upd(vals, ids, upd, lo, hi)
+    if vals.device.type == 'cpu':
+        return scatter_rows_inplace_plain(vals, ids, upd, (lo, hi))
+    inv = inv_ids(ids, vals.shape[2])
+    if upd.numel() and vals.shape[2]:
+        _launch_scatter(vals, ids, inv, upd, lo, hi)
+        scatter_launches += 1
+    return vals
+
+
+def _launch_scatter(vals, ids, inv, upd, lo, hi):
+    """One K3 launch with a precomputed inversion (no counting; the
+    wrapper above counts, and timing code calls this directly)."""
+    _, b, n = vals.shape
+    lib = build.load()
+    stream = torch.cuda.current_stream(vals.device).cuda_stream
+    rc = lib.tnco_scatter_rows(vals.data_ptr() + lo * b * n * 4,
+                               ids.data_ptr(), inv.data_ptr(),
+                               upd.data_ptr(), hi - lo, b, n, ids.shape[1],
+                               stream)
+    build.check(rc, 'scatter_rows_inplace')

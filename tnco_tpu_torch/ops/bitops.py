@@ -1,0 +1,73 @@
+"""Bitset-lane primitives on torch tensors.
+
+Index sets are ``int32[..., W]`` lane words holding the bit patterns of
+the reference's ``uint32`` lanes (bit ``j`` of word ``i`` = index
+``32*i + j``).  torch has no popcount and no CPU ``>>`` on uint32, and
+``>>`` on int32 sign-extends, so words stay int32 and every shift is
+followed by a mask.
+"""
+
+import numpy as np
+import torch
+
+__all__ = ['pad_log2_dims', 'device_dtype', 'pairwise_sum_last',
+           'popcount32', 'LANE_BITS']
+
+LANE_BITS = 32
+
+
+def device_dtype(cost_type: str = 'float64') -> torch.dtype:
+    """Device dtype for a reference ``cost_type`` tag.
+
+    The JAX package runs float64 only under JAX x64 mode and float32
+    (with exact host bigint audits) otherwise, which is what its app runs
+    by default; the port runs float32 for every tag (``tnco_tpu/ops/
+    bitops.py:22-40``).
+    """
+    del cost_type
+    return torch.float32
+
+
+def pad_log2_dims(log2_dims, n_lanes: int, dtype=torch.float32,
+                  device='cpu') -> torch.Tensor:
+    """Pads a ``log2_dims[n_inds]`` table to ``[n_lanes * 32]`` with zeros."""
+    log2_dims = np.asarray(log2_dims, dtype=np.float64)
+    out = np.zeros(n_lanes * LANE_BITS, dtype=np.float64)
+    out[:log2_dims.shape[0]] = log2_dims
+    return torch.as_tensor(out, dtype=dtype, device=device)
+
+
+def pairwise_sum_last(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the LAST axis with the pinned pairwise-halving order.
+
+    Pads with exact zeros to a power of two and adds the two halves until
+    one element remains — the same per-element operation tree as
+    ``tnco_tpu.ops.bitops.pairwise_sum_last``.
+    """
+    n = x.shape[-1]
+    if n == 0:
+        return x.new_zeros(x.shape[:-1])
+    p = 1 << (n - 1).bit_length() if n > 1 else 1
+    if p != n:
+        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (p - n,))], dim=-1)
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Per-word set-bit count of int32 bit patterns (SWAR), ``int32``.
+
+    Every shift is masked so the sign extension of ``>>`` on int32 never
+    leaks into the count, and the sign bit is counted apart so no step
+    overflows int32.
+    """
+    sign = (x >> 31) & 1
+    x = x & 0x7FFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = x + (x >> 8)
+    x = x + (x >> 16)
+    return (x & 0x3F) + sign

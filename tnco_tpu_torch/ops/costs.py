@@ -1,0 +1,70 @@
+"""Log2-domain total-cost arithmetic on torch tensors.
+
+Every cost lives in the log2 domain; sums of linear costs are evaluated
+with a max-shifted exponential sum whose reduction order is pinned (the
+pairwise-halving tree of ``tnco_tpu/ops/costs.py:42-64``), so every
+layout of the same values gives the same per-element operation tree.
+Exactness, where required, is restored on the host with Python bigints.
+"""
+
+import torch
+
+from tnco_tpu_torch.ops.bitops import pairwise_sum_last
+
+__all__ = ['pairwise_sum', 'log2_total_from_lcc',
+           'log2_total_from_lcc_last', 'new_total_log2']
+
+# Floor for the scaled linear sum: if the true new total underflows this,
+# the move is a colossal improvement and is accepted regardless.
+_SCALED_FLOOR = 2.0**-60
+
+
+def pairwise_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over axis 0 with the pinned pairwise-halving order."""
+    n = x.shape[0]
+    if n == 0:
+        return x.new_zeros(x.shape[1:])
+    p = 1 << (n - 1).bit_length() if n > 1 else 1
+    if p != n:
+        x = torch.cat([x, x.new_zeros((p - n,) + x.shape[1:])], dim=0)
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        x = x[:h] + x[h:]
+    return x[0]
+
+
+def log2_total_from_lcc(lcc: torch.Tensor, n_leaves: int) -> torch.Tensor:
+    """Stable ``log2(sum_i 2^lcc[i])`` over internal nodes (node axis 0;
+    leaves first, so internal nodes are ``lcc[n_leaves:]``)."""
+    internal = lcc[n_leaves:]
+    if internal.shape[0] == 0:
+        return torch.full(internal.shape[1:], -torch.inf, dtype=lcc.dtype,
+                          device=lcc.device)
+    m = internal.amax(dim=0)
+    s = pairwise_sum(torch.exp2(internal - m[None]))
+    return m + torch.log2(s)
+
+
+def log2_total_from_lcc_last(lcc: torch.Tensor,
+                             n_leaves: int) -> torch.Tensor:
+    """:func:`log2_total_from_lcc` with the node axis LAST (the same
+    element pairing, so value-identical to the transposed form)."""
+    internal = lcc[..., n_leaves:]
+    if internal.shape[-1] == 0:
+        return torch.full(internal.shape[:-1], -torch.inf, dtype=lcc.dtype,
+                          device=lcc.device)
+    m = internal.amax(dim=-1)
+    s = pairwise_sum_last(torch.exp2(internal - m[..., None]))
+    return m + torch.log2(s)
+
+
+def new_total_log2(lt, l_a, l_b, ln_a, ln_b):
+    """log2 of ``total - ccost_A - ccost_B + new_ccost_A + new_ccost_B``.
+
+    Max-shifted linear evaluation with the same operation order as the
+    JAX package; the clamp covers the move-removes-everything edge.
+    """
+    m = torch.maximum(lt, torch.maximum(ln_a, ln_b))
+    s = (torch.exp2(lt - m) - torch.exp2(l_a - m) - torch.exp2(l_b - m) +
+         torch.exp2(ln_a - m) + torch.exp2(ln_b - m))
+    return m + torch.log2(torch.clamp(s, min=_SCALED_FLOOR))

@@ -1,0 +1,5 @@
+"""Replica-batch runtime: many independent SA chains as one device batch."""
+
+from tnco_tpu_torch.parallel.replicas import ReplicaRunnerFW
+
+__all__ = ['ReplicaRunnerFW']

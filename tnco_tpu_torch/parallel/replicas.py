@@ -1,0 +1,250 @@
+"""Finite-width replica runner (the port of
+``tnco_tpu/parallel/replicas.py:ReplicaRunnerFW``, engine 'walks').
+
+Replicas of one connected component share array shapes, so a batch is
+one stacked state on one device; ``run`` anneals it in chunks with a
+wall-clock budget and host callbacks, and re-derives the slice set every
+``update_slices`` steps (reference finite_width/sa.py:228).
+"""
+
+import time
+
+import numpy as np
+import torch
+
+from tnco_tpu_torch.device import resolve_device
+from tnco_tpu_torch.kernels import sa_finite_batched as sfb
+from tnco_tpu_torch.kernels import sa_walks as swk
+from tnco_tpu_torch.kernels.sa_finite import SweepConfigFW
+from tnco_tpu_torch.kernels.sa_fullsweep import uniform_log2_dim
+from tnco_tpu_torch.ops import bitops
+
+__all__ = ['ReplicaRunnerFW']
+
+_ENGINES = ('batched', 'vmapped', 'native', 'multiwalk', 'walker', 'sweep',
+            'walks')
+_PORTED = ('walks',)
+
+
+def _accel_available(device: torch.device) -> bool:
+    """True when the runner's device is the card (the 'auto' rule's
+    "accelerator present"; tests monkeypatch it to pin the routing)."""
+    return device.type == 'cuda'
+
+
+def _native_available() -> bool:
+    """The port has no native C++ engine yet (ROADMAP queue 1, item 7)."""
+    return False
+
+
+def resolve_engine(n_nodes: int, n_lanes: int, *, accel: bool,
+                   native: bool, sparse: bool, max_new_slices: int,
+                   disable_shared_inds: bool, prob_kind) -> str:
+    """The JAX runner's 'auto' rule (``replicas.py:689-708``)."""
+    if n_nodes * n_lanes <= 32768 and max_new_slices == 0:
+        return 'batched'
+    if (accel and not sparse and max_new_slices == 0 and
+            prob_kind in (None, 'mh')):
+        return 'walks'
+    if (native and not sparse and not disable_shared_inds and
+            prob_kind in (None, 'mh')):
+        return 'native'
+    return 'vmapped'
+
+
+def _resolve_walks(n_walks) -> int:
+    """Walks per replica: the JAX runner's FW 'walks' default is 128."""
+    return 128 if n_walks is None else int(n_walks)
+
+
+class ReplicaRunnerFW:
+    """Finite-width replica batch on one device.
+
+    Args:
+        ctrees: One initial ``ContractionTree`` per replica (same shape).
+        seeds: One integer seed per replica (initial slices and the
+            batch's ``torch.Generator``).
+        cmodel: Finite-width cost model (``max_width``).
+        engine: 'auto' or 'walks'.  'auto' resolves by the JAX runner's
+            rule; an engine that is not ported yet raises.
+        n_walks: Walks per replica (default 128).
+        device: ``None`` means ``'cuda'``; pass ``'cpu'`` explicitly.
+    """
+
+    def __init__(self,
+                 ctrees,
+                 seeds,
+                 *,
+                 cmodel,
+                 skip_slices_lanes=None,
+                 disable_shared_inds: bool = False,
+                 prob_kind: str | None = None,
+                 max_number_new_slices: int = 0,
+                 mesh=None,
+                 engine: str = 'auto',
+                 n_walks: int | None = None,
+                 on_block: str | None = None,
+                 accept_rule: str | None = None,
+                 fw_slicer: str | None = None,
+                 dtype=torch.float32,
+                 device=None) -> None:
+        self.device = resolve_device(device)
+        ctrees = list(ctrees)
+        seeds = [int(s) for s in seeds]
+        if len(ctrees) != len(seeds) or not ctrees:
+            raise ValueError("One seed per replica is required.")
+        shapes = {(len(c), c.inds_array.shape[1]) for c in ctrees}
+        if len(shapes) != 1:
+            raise ValueError("All replicas must share the tree shape.")
+        if mesh is not None:
+            raise NotImplementedError(
+                "Multi-device runs are not ported yet (ROADMAP queue 1, "
+                "item 15).")
+        if getattr(cmodel, 'sparse_inds', None):
+            raise NotImplementedError(
+                "Sparse indices are not ported yet (ROADMAP queue 1, "
+                "item 6).")
+
+        self.fw_slicer = fw_slicer
+        self.template = ctrees[0]
+        n_lanes = self.template.inds_array.shape[1]
+        self.log2d = bitops.pad_log2_dims(self.template.log2_dims_array,
+                                          n_lanes, dtype, self.device)
+        self.max_width = torch.tensor(cmodel.max_width, dtype=dtype,
+                                      device=self.device)
+        skip = (np.zeros(n_lanes, dtype=np.uint32)
+                if skip_slices_lanes is None else
+                np.asarray(skip_slices_lanes, dtype=np.uint32))
+        self.skip_lanes = torch.from_numpy(skip.view(np.int32)).to(
+            self.device)
+
+        if engine == 'auto':
+            engine = resolve_engine(
+                len(self.template), n_lanes,
+                accel=_accel_available(self.device),
+                native=_native_available(), sparse=False,
+                max_new_slices=int(max_number_new_slices),
+                disable_shared_inds=disable_shared_inds,
+                prob_kind=prob_kind)
+        if engine not in _ENGINES:
+            raise ValueError(f"Unknown engine: {engine!r}")
+        if engine not in _PORTED:
+            raise NotImplementedError(
+                f"engine={engine!r} is not ported to tnco_tpu_torch yet "
+                f"(ROADMAP queue 1); pass engine='walks' to run the "
+                f"ported chained-walk engine.")
+        if max_number_new_slices:
+            raise ValueError(f"engine={engine!r} does not support "
+                             "max_number_new_slices.")
+        if prob_kind is None:
+            prob_kind = 'mh'
+        self.cfg = SweepConfigFW(n_leaves=self.template.n_leaves,
+                                 n_lanes=n_lanes,
+                                 disable_shared_inds=disable_shared_inds,
+                                 prob_kind=prob_kind,
+                                 max_new_slices=int(max_number_new_slices))
+        self.engine = engine
+        self.n_walks = _resolve_walks(n_walks)
+        self.on_block = 'advance' if on_block is None else on_block
+        self.accept_rule = 'round' if accept_rule is None else accept_rule
+        self.log2d_w32 = self.log2d.reshape(n_lanes, 32)
+        self.uniform_log2 = uniform_log2_dim(self.template.log2_dims_array)
+
+        self.states = sfb.init_batch_fw(
+            ctrees, seeds, float(self.max_width), self.log2d.cpu().numpy(),
+            skip_lanes=skip, dtype=np.float32, device=self.device)
+        self._mw_pos = torch.full((self.n_walks, len(ctrees)), -1,
+                                  dtype=torch.int32, device=self.device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(
+            int(np.random.SeedSequence(seeds).generate_state(1)[0]))
+        self.n_replicas = len(ctrees)
+        self.sweeps_done = 0
+        self.moves_done = 0
+        self.applied_done = None
+
+    def run(self,
+            betas,
+            *,
+            update_slices: int = 10,
+            chunk_size: int = 128,
+            timeout: float | None = None,
+            callback=None,
+            exchange_every: int = 0) -> dict:
+        """Anneals over ``betas`` in chunks of ``chunk_size`` steps
+        (the last chunk padded with its last beta and no reslice, as in
+        the JAX runner), drawing from the batch's generator."""
+        if exchange_every:
+            raise NotImplementedError(
+                "Island exchange is not ported yet (ROADMAP queue 1, "
+                "item 7).")
+        betas = np.asarray(betas, dtype=np.float32)
+        n = len(betas)
+        mask = ((np.arange(n) % max(1, update_slices)) == 0
+                if update_slices else np.zeros(n, dtype=bool))
+        start = time.perf_counter()
+        pos = 0
+        chunk_size = max(1, min(chunk_size, n))
+        while pos < n:
+            if timeout is not None and time.perf_counter() - start > timeout:
+                break
+            chunk = betas[pos:pos + chunk_size]
+            mchunk = mask[pos:pos + chunk_size]
+            if len(chunk) < chunk_size:
+                pad = chunk_size - len(chunk)
+                chunk = np.concatenate(
+                    [chunk, np.repeat(chunk[-1:], pad, axis=0)])
+                mchunk = np.concatenate([mchunk, np.zeros(pad, dtype=bool)])
+            self.states, metrics = swk.run_walks_fw(
+                self.states, chunk, mchunk, self.max_width, self.log2d_w32,
+                self.skip_lanes, self.cfg, self._mw_pos,
+                uniform_log2=self.uniform_log2, on_block=self.on_block,
+                accept_rule=self.accept_rule, slicer=self.fw_slicer,
+                generator=self.generator, device=self.device)
+            self._mw_pos = metrics['pos']
+            self.sweeps_done += chunk_size
+            self.moves_done += int(metrics['moves'])
+            self.applied_done = ((self.applied_done or 0) +
+                                 int(metrics['applied']))
+            pos += chunk_size
+            if callback is not None:
+                callback({
+                    'progress': min(pos, n) / n,
+                    'log2_min_total': self.log2_min_totals(),
+                })
+        return {
+            'log2_min_total': self.log2_min_totals(),
+            'sweeps': self.sweeps_done,
+            'moves': self.moves_done,
+            'applied': self.applied_done,
+            'runtime_s': time.perf_counter() - start,
+        }
+
+    def _host(self, x, replica):
+        return np.ascontiguousarray(x[..., replica].cpu().numpy())
+
+    def _tree_of(self, c0, c1, par, inds, replica):
+        nodes = np.stack([self._host(c0, replica), self._host(c1, replica),
+                          self._host(par, replica)], axis=1)
+        return self.template.replace_arrays(
+            nodes, self._host(inds, replica).view(np.uint32))
+
+    def min_ctree(self, replica: int):
+        s = self.states
+        return self._tree_of(s.min_c0, s.min_c1, s.min_par, s.min_inds,
+                             replica)
+
+    def ctree(self, replica: int):
+        """Current (not best) tree of ``replica``."""
+        s = self.states
+        return self._tree_of(s.c0, s.c1, s.par, s.inds, replica)
+
+    def slices_lanes(self, replica: int) -> np.ndarray:
+        """Current slice lanes of ``replica`` (``uint32 [W]``)."""
+        return self._host(self.states.slices, replica).view(np.uint32)
+
+    def min_slices_lanes(self, replica: int) -> np.ndarray:
+        return self._host(self.states.min_slices, replica).view(np.uint32)
+
+    def log2_min_totals(self) -> np.ndarray:
+        return self.states.min_log2_total.cpu().numpy()
