@@ -8,17 +8,28 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
 Phases, each fatal on failure:
 
 1. the card's name and power limit; build the CUDA kernels from
-   ``tnco_tpu_torch/csrc`` into ``build/kernels/``;
+   ``tnco_tpu_torch/csrc`` into ``build/kernels/`` (one ``nvcc`` per
+   source, all started together);
 2. every kernel against its plain PyTorch version on the card, bitwise,
-   at the main-path shapes plus edge cases;
-3. the main path through the user entry point:
+   at the main-path shapes plus edge cases: K1-K3, then the walker K5
+   against ``run_walker_plain`` on the same pre-drawn streams (a small
+   mixed-dims lattice at B=4, P=8 and the edge cases P=1 and B=1, then
+   the Sycamore shapes at B=64, P=8; two chunks of K=16 each);
+3. the finite-width (FW) path through the user entry point:
    ``Optimizer(max_width=30).optimize`` on the Sycamore-like m=20
    network (N=3241, W=64) with every result audited (valid path, exact
    bigint cost, widths within the cap after slicing), with the kernels'
    launch counts read around it;
-4. the flagship operating point: ``ReplicaRunnerFW`` at B=64 replicas,
-   P=128 walks, reslice every 2 steps, with proposals/s and applied/s;
-5. kernel, plain-version, library-call and bound times at the main-path
+4. the FW flagship: ``ReplicaRunnerFW`` at B=64 replicas, P=128 walks,
+   reslice every 2 steps, with proposals/s and applied/s;
+5. the infinite-memory (IM) path through the user entry point:
+   ``Optimizer().optimize`` (``max_width=None``) on the same network,
+   64 runs of 32 steps, 'auto' resolving to the walker; every result
+   and every replica's best tree audited (valid path, exact bigint cost,
+   device min total within 1e-3 in log2 of the exact one);
+6. the IM flagship: ``ReplicaRunner`` at B=64, P=8 in chunks of 128
+   iterations, with ms per chunk, proposals/s and applied/s;
+7. kernel, plain-version, library-call and bound times at the main-path
    shapes, printed as one ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -40,16 +51,25 @@ REPLACES = {
     'gather_gbn': 'tnco_tpu/kernels/pallas_gather.py:112',
     'inv_ids': 'tnco_tpu/kernels/pallas_scatter.py:116',
     'scatter_rows_inplace': 'tnco_tpu/kernels/pallas_scatter.py:354',
+    'walker_im': 'tnco_tpu/kernels/pallas_walker.py:595',
 }
 SOURCES = {
     'gather_gbn': 'tnco_tpu_torch/csrc/gather.cu',
     'inv_ids': 'tnco_tpu_torch/csrc/scatter.cu',
     'scatter_rows_inplace': 'tnco_tpu_torch/csrc/scatter.cu',
+    'walker_im': 'tnco_tpu_torch/csrc/walker.cu',
 }
+# The kernels each path runs (every one must launch in its phase).
+FW_KERNELS = ('gather_gbn', 'inv_ids', 'scatter_rows_inplace')
+IM_KERNELS = ('gather_gbn', 'walker_im')
 
 # Main-path shapes (Sycamore m=20 at B=64, P=128: W=64 index planes,
 # N padded to 3328, 132 planes below par in the FW state).
 B, P, W, N_PAD, F_APPLY = 64, 128, 64, 3328, 132
+# IM walker: P=8 walks (the runner's default), K5 checked on chunks of
+# K_CHECK iterations and timed on chunks of K_CHUNK (the runner's).
+P_IM, K_CHECK, K_CHUNK = 8, 16, 128
+F32_OPS_PER_S = 67e12  # H100 SXM published float32 rate (no tensor cores)
 
 
 def log(msg):
@@ -246,7 +266,7 @@ def phase_app(torch):
     log(f'app: 64 runs x 16 steps in {wall:.2f} s (runner set-up + '
         f'anneal {res[0].runtime_s:.2f} s; the rest is paths and audits '
         f'on the host); launches {counts}')
-    if not all(v > 0 for v in counts.values()):
+    if not all(counts[k] > 0 for k in FW_KERNELS):
         fail(f'a kernel of the path was never launched: {counts}')
     t0 = time.perf_counter()
     for r in res:
@@ -300,7 +320,7 @@ def phase_flagship(torch, card):
         f'launches {counts}')
     log(f'proposals/s: {moves / dt:.6g} ({card})')
     log(f'applied/s: {applied / dt:.6g} ({card})')
-    if not all(v > 0 for v in counts.values()):
+    if not all(counts[k] > 0 for k in FW_KERNELS):
         fail(f'a kernel of the flagship path was never launched: {counts}')
     # Audit every replica's best state.
     log2d = ctrees[0].log2_dims_array
@@ -335,6 +355,248 @@ def phase_flagship(torch, card):
     log(f'flagship: {B} replicas audited; best log2 total {mins.min():.4f};'
         f' |device - exact| <= {worst:.2e}')
     return counts
+
+
+def _sycamore():
+    """The Sycamore-like m=20 network: ``(ts, out, dims, tn)``."""
+    from tnco_tpu_torch.app.tn import Tensor, TensorNetwork
+    from tnco_tpu_torch.testing.networks import sycamore_like_tn
+
+    ts, out, dims = sycamore_like_tn(20)
+    tn = TensorNetwork([Tensor(xs, tuple(dims[x] for x in xs)) for xs in ts],
+                       output_inds=out)
+    return ts, out, dims, tn
+
+
+def _im_setup(torch, ts, out, dims, path_seeds):
+    """An IM batch on the card from random paths of ``path_seeds`` (one
+    replica each): ``(batch, cfg, log2d_w32)``."""
+    from tnco_tpu_torch.ctree import ContractionTree
+    from tnco_tpu_torch.kernels import sa_batched as sb
+    from tnco_tpu_torch.kernels.sa_infinite import SweepConfig
+    from tnco_tpu_torch.ops import bitops
+    from tnco_tpu_torch.utils.tn import get_random_contraction_path
+
+    dev = torch.device('cuda')
+    trees = {s: ContractionTree(get_random_contraction_path(ts, out, seed=s),
+                                ts, dims, output_inds=out)
+             for s in set(path_seeds)}
+    ctrees = [trees[s] for s in path_seeds]
+    t = ctrees[0]
+    w = t.inds_array.shape[1]
+    log2d = bitops.pad_log2_dims(t.log2_dims_array, w, torch.float32, dev)
+    batch = sb.init_batch(ctrees, list(range(len(ctrees))),
+                          log2d.cpu().numpy(), device=dev)
+    return batch, SweepConfig(n_leaves=t.n_leaves, n_lanes=w), \
+        log2d.reshape(w, 32)
+
+
+def _batch_err(torch, got, want):
+    """Largest word difference over every field of two batches."""
+    return max(_max_abs_err(torch, getattr(got, f), getattr(want, f))
+               for f in type(got).field_names())
+
+
+def phase_walker_checks(torch):
+    """K5 against its plain version on the same pre-drawn streams: state,
+    min state, totals, pos, moves and applied, bitwise, over two chained
+    chunks (the second starts mid-walk)."""
+    import numpy as np
+
+    from tnco_tpu_torch.kernels import sa_multiwalk as smw
+    from tnco_tpu_torch.kernels import walker as kw
+    from tnco_tpu_torch.testing.networks import lattice_2d, sycamore_like_tn
+
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(0)
+    ts, out, dims = lattice_2d(6, 6)
+    mixed = {x: int(rng.integers(2, 6)) for x in sorted(dims)}
+    # (name, network, one path seed per replica, walks); P=1 and B=1 are
+    # the edge cases where a transposed [P, B] tensor needs no copy.
+    cases = [('mixed-dims 6x6 lattice', (ts, out, mixed), [0, 1, 2, 3],
+              P_IM),
+             ('mixed-dims 6x6 lattice', (ts, out, mixed), [0, 1, 2], 1),
+             ('mixed-dims 6x6 lattice', (ts, out, mixed), [0], 40),
+             ('Sycamore m=20', sycamore_like_tn(20), [0, 1, 2, 3] * 16,
+              P_IM)]
+    for name, (ts, out, dims), path_seeds, p in cases:
+        batch, cfg, log2d_w32 = _im_setup(torch, ts, out, dims, path_seeds)
+        n, b = batch.c0.shape
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        pos = torch.full((p, b), -1, dtype=torch.int32, device=dev)
+        applied = 0
+        for chunk in range(2):
+            betas = torch.linspace(10.0 * chunk, 10.0 * chunk + 10.0,
+                                   K_CHECK, device=dev)
+            draws = smw.draw_chunk(gen, cfg.n_leaves, K_CHECK, p, b)
+            pos0 = pos.clone()
+            got, mg = kw.run_walker(batch, betas, log2d_w32, cfg, p, pos,
+                                    draws=draws)
+            want, mw = kw.run_walker_plain(batch, betas, log2d_w32, cfg, p,
+                                           pos, draws=draws)
+            err = max(_batch_err(torch, got, want),
+                      _max_abs_err(torch, mg['pos'], mw['pos']),
+                      _max_abs_err(torch, pos, pos0))
+            if err or mg['moves'] != mw['moves'] or \
+                    int(mg['applied']) != int(mw['applied']):
+                fail(f'walker_im != plain on {name}, chunk {chunk}: word '
+                     f'error {err}, applied {int(mg["applied"])} vs '
+                     f'{int(mw["applied"])}')
+            applied += int(mg['applied'])
+            batch, pos = got, mg['pos']
+        if not applied:
+            fail(f'walker_im check on {name} applied no move')
+        log(f'kernels: walker_im == plain bitwise on {name} (N={n}, '
+            f'W={cfg.n_lanes}, B={b}, P={p}, 2 x K={K_CHECK}, '
+            f'{applied} moves applied)')
+
+
+def _record_runners(module, cls):
+    """Replaces ``module.ReplicaRunner`` by a subclass that records its
+    instances; returns ``(runners, restore)``."""
+    runners = []
+
+    class Recorded(cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            runners.append(self)
+
+    module.ReplicaRunner = Recorded
+    return runners, lambda: setattr(module, 'ReplicaRunner', cls)
+
+
+def _audit_im_runner(runner, what):
+    """Every replica's best tree is valid and its exact bigint cost is
+    within 1e-3 in log2 of the device's min total."""
+    mins = runner.log2_min_totals()
+    worst = 0.0
+    exact = []
+    for r in range(runner.n_replicas):
+        best = runner.min_ctree(r)
+        ok, msg = best.is_valid(return_message=True)
+        if not ok:
+            fail(f'{what}: replica {r}: invalid min tree: {msg}')
+        exact.append(best.total_cost_exact())
+        worst = max(worst, abs(math.log2(exact[-1]) - float(mins[r])))
+    if worst > 1e-3:
+        fail(f'{what}: device min totals differ from the exact recompute '
+             f'by {worst}')
+    return exact, worst
+
+
+def phase_app_im(torch):
+    import numpy as np
+
+    from tnco_tpu_torch.app import Optimizer, load_tn
+    from tnco_tpu_torch.app.infinite_memory import sa as im_sa
+    from tnco_tpu_torch.ctree import ContractionTree
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tnco_tpu_torch.parallel.replicas import resolve_engine
+
+    _, _, _, tn = _sycamore()
+    loaded = load_tn(tn, fuse=0, seed=0)
+    n_nodes = 2 * loaded.n_tensors - 1
+    n_lanes = -(-loaded.n_inds // 32)
+    engine = resolve_engine(n_nodes, n_lanes, accel=True, native=False,
+                            sparse=False, max_new_slices=0,
+                            disable_shared_inds=False, prob_kind=None,
+                            fw=False)
+    log(f'app IM: N={n_nodes} W={n_lanes} -> engine {engine!r}')
+    if engine != 'walker':
+        fail(f"'auto' resolved to {engine!r}, expected 'walker'")
+    runners, restore = _record_runners(im_sa, im_sa.ReplicaRunner)
+    try:
+        opt = Optimizer(seed=0)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        _, res = opt.optimize(tn, betas=(0, 60), n_steps=32, n_runs=64,
+                              fuse=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        restore()
+    (runner,) = runners
+    log(f'app IM: 64 runs x 32 steps in {wall:.2f} s (runner set-up + '
+        f'anneal {res[0].runtime_s:.2f} s); engine {runner.engine!r}, '
+        f'P={runner.n_walks}; launches {counts}')
+    if runner.engine != 'walker':
+        fail(f'app IM runner engine {runner.engine!r}')
+    if not all(counts[k] > 0 for k in IM_KERNELS):
+        fail(f'a kernel of the IM path was never launched: {counts}')
+    t0 = time.perf_counter()
+    for r in res:
+        ctree = ContractionTree(r.path, loaded.ts_inds, loaded.dims,
+                                output_inds=loaded.output_inds)
+        ok, msg = ctree.is_valid(return_message=True)
+        if not ok:
+            fail(f'app IM: invalid path: {msg}')
+        total = ctree.total_cost_exact()
+        if sum(int(c) for c in r.disconnected_costs) != total or \
+                r.cost != Decimal(0) + Decimal(total):
+            fail(f'app IM: cost {r.cost} != exact recompute {total}')
+    exact, worst = _audit_im_runner(runner, 'app IM')
+    # r.cost is a Decimal sum at context precision; the per-component
+    # costs are the exact bigints.
+    if sorted(sum(int(c) for c in r.disconnected_costs) for r in res) != \
+            sorted(exact):
+        fail('app IM: result costs are not the replicas\' best costs')
+    costs = np.asarray([math.log2(int(r.cost)) for r in res])
+    log(f'app IM: 64 results audited in {time.perf_counter() - t0:.1f} s; '
+        f'log2 cost best {costs.min():.4f} median {np.median(costs):.4f}; '
+        f'|device - exact| <= {worst:.2e}')
+    return counts
+
+
+def phase_flagship_im(torch, card):
+    import numpy as np
+
+    from tnco_tpu_torch.app.finite_width.sa import _build_run_paths
+    from tnco_tpu_torch.ctree import ContractionTree
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tnco_tpu_torch.parallel import ReplicaRunner
+
+    ts, out, dims, tn = _sycamore()
+    seeds = list(range(B))
+    t0 = time.perf_counter()
+    paths = _build_run_paths(tn, seeds, -1)
+    ctrees = [ContractionTree(p[0], ts, dims, output_inds=out)
+              for p in paths]
+    runner = ReplicaRunner(ctrees, seeds)
+    setup = time.perf_counter() - t0
+    log(f'flagship IM: N={len(ctrees[0])} W={ctrees[0].inds_array.shape[1]}'
+        f' B={B} P={runner.n_walks} engine={runner.engine!r} set-up '
+        f'{setup:.1f} s')
+    if runner.engine != 'walker' or runner.n_walks != P_IM:
+        fail(f'flagship IM engine {runner.engine!r}, P={runner.n_walks}')
+    betas = np.linspace(0.0, 60.0, 3 * K_CHUNK)
+    runner.run(betas[:K_CHUNK])                      # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    rates = []
+    for i in (1, 2):
+        moves0, applied0 = runner.moves_done, runner.applied_done
+        t0 = time.perf_counter()
+        runner.run(betas[i * K_CHUNK:(i + 1) * K_CHUNK])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        moves = runner.moves_done - moves0
+        applied = runner.applied_done - applied0
+        rates.append((dt, moves / dt, applied / dt))
+        log(f'flagship IM: chunk {i} of {K_CHUNK} iterations in '
+            f'{1e3 * dt:.3f} ms on {card}')
+        log(f'proposals/s IM: {moves / dt:.6g} ({card})')
+        log(f'applied/s IM: {applied / dt:.6g} ({card})')
+    counts = launch_counts()
+    log(f'flagship IM: launches {counts}')
+    if not all(counts[k] > 0 for k in IM_KERNELS):
+        fail(f'a kernel of the IM flagship was never launched: {counts}')
+    _, worst = _audit_im_runner(runner, 'flagship IM')
+    log(f'flagship IM: {B} replicas audited; best log2 total '
+        f'{runner.log2_min_totals().min():.4f}; |device - exact| <= '
+        f'{worst:.2e}')
+    return counts, runner
 
 
 def _time_ms(torch, fn, reps=50, rounds=11):
@@ -376,21 +638,30 @@ def _max_abs_err(torch, got, want):
     return float(d.abs().max()) if d.numel() else 0.0
 
 
-def phase_times(torch, app_counts, flagship_counts):
+def phase_times(torch, counts, im_runner):
+    """Kernel, plain, library and bound times at the main-path shapes;
+    ``counts`` maps each path's phase to its launch counts."""
     from tnco_tpu_torch.kernels import gather as kg
+    from tnco_tpu_torch.kernels import sa_multiwalk as smw
     from tnco_tpu_torch.kernels import scatter as ks
+    from tnco_tpu_torch.kernels import walker as kw
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     rows = []
 
-    def row(name, ms, plain_ms, lib_ms, nbytes, err):
+    def row(name, ms, plain_ms, lib_ms, bound_ms, bound_by, err):
+        path = 'im_app' if name == 'walker_im' else 'fw_app'
         rows.append(dict(
             name=name, route='cuda', source=SOURCES[name],
-            replaces=REPLACES[name], launches=app_counts[name],
-            flagship_launches=flagship_counts[name], max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
-            bound_by='bytes', library_ms=lib_ms))
+            replaces=REPLACES[name], launches=counts[path][name],
+            paths={k: v[name] for k, v in counts.items()}, max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=lib_ms))
+
+    def byte_row(name, ms, plain_ms, lib_ms, nbytes, err):
+        row(name, ms, plain_ms, lib_ms, 1e3 * nbytes / HBM_BYTES_PER_S,
+            'bytes', err)
 
     # K1: the W-plane index gather at {B, A, C, c0(B), c1(B)} (Q = 5P).
     f = 2 * W + 5
@@ -409,7 +680,7 @@ def phase_times(torch, app_counts, flagship_counts):
     ms = _time_ms(torch, lambda: kg.gather_gbn(vals, ids, planes=(0, W)))
     plain = _time_ms(torch, lambda: kg.gather_plain(vals, ids, (0, W)))
     lib = _time_ms(torch, lambda: torch.gather(v0, 2, safe))
-    row('gather_gbn', ms, plain, lib, nbytes, err)
+    byte_row('gather_gbn', ms, plain, lib, nbytes, err)
 
     # K2: ids [64, 256] -> [64, 3328] (the {B, A} merged apply's ids).
     ids = _unique_ids(torch, gen, B, 2 * P, 3241)
@@ -424,7 +695,7 @@ def phase_times(torch, app_counts, flagship_counts):
     ms = _time_ms(torch, lambda: ks.inv_ids(ids, N_PAD))
     plain = _time_ms(torch, lambda: ks.inv_ids_plain(ids, N_PAD))
     lib = _time_ms(torch, lambda: buf.scatter_reduce_(1, safe, qi, 'amax'))
-    row('inv_ids', ms, plain, lib, nbytes, err)
+    byte_row('inv_ids', ms, plain, lib, nbytes, err)
 
     # K3: the merged {B, A} apply, 132 planes, Q = 2P, in place.
     upd = torch.randint(-2**31, 2**31 - 1, (F_APPLY, B, 2 * P),
@@ -447,13 +718,67 @@ def phase_times(torch, app_counts, flagship_counts):
     v3 = vals.clone()
     lib = _time_ms(torch, lambda: v3.index_put_(
         (gi, bi.expand(F_APPLY, -1), ni.expand(F_APPLY, -1)), vals_k))
-    row('scatter_rows_inplace', ms, plain, lib, nbytes, err)
+    byte_row('scatter_rows_inplace', ms, plain, lib, nbytes, err)
+
+    # K5 at the IM flagship's shape and state: B=64, P=8, K=128.  The
+    # launch updates its buffers in place, so the timed launches go on
+    # annealing the flagship's state.  The plain version is timed per
+    # call with events around it: it is eager PyTorch whose host issue
+    # time is part of what it costs.
+    st, pos = im_runner.states, im_runner._mw_pos
+    cfg, log2d_w32 = im_runner.cfg, im_runner.log2d_w32
+    n, b = st.c0.shape
+    w = cfg.n_lanes
+    betas = torch.linspace(0.0, 60.0, K_CHUNK, device=dev)
+    draws = smw.draw_chunk(gen, cfg.n_leaves, K_CHUNK, P_IM, b)
+    got, mg = kw.run_walker(st, betas, log2d_w32, cfg, P_IM, pos,
+                            draws=draws)
+    want, mw = kw.run_walker_plain(st, betas, log2d_w32, cfg, P_IM, pos,
+                                   draws=draws)
+    err = max(_batch_err(torch, got, want),
+              _max_abs_err(torch, mg['pos'], mw['pos']),
+              abs(int(mg['applied']) - int(mw['applied'])))
+    ops = kw.kernel_inputs(st, betas, log2d_w32, pos, draws)
+    ms = _time_ms(torch, lambda: kw.launch_walker(
+        ops['rows'], ops['min_rows'], ops['pos_bp'], ops['min_lt'],
+        ops['applied'], ops['draws'], ops['betas'], ops['log2d'], cfg, n,
+        w), reps=3, rounds=5)
+    plain_times = []
+    for _ in range(3):
+        s0 = torch.cuda.Event(enable_timing=True)
+        e0 = torch.cuda.Event(enable_timing=True)
+        s0.record()
+        kw.run_walker_plain(st, betas, log2d_w32, cfg, P_IM, pos,
+                            draws=draws)
+        e0.record()
+        e0.synchronize()
+        plain_times.append(s0.elapsed_time(e0))
+    plain = sorted(plain_times)[1]
+    # Bound: the rows and the min rows read and written once, the draws
+    # read once; operations: both width trees per walk (W*32 terms and
+    # adds each, over pow2(W) words) and the total's exp2 and adds per
+    # iteration, in float32.
+    r_words = ops['rows'].shape[2]
+    nbytes = 4 * (4 * b * n * r_words + 3 * K_CHUNK * P_IM * b + K_CHUNK +
+                  4 * b * P_IM + 4 * b)
+    wp = 1 << max(0, (w - 1).bit_length())
+    n_int = 1 << max(0, (n - cfg.n_leaves - 1).bit_length())
+    flops = K_CHUNK * b * (P_IM * (2 * 2 * wp * 32 + 16) + 2 * n_int)
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / F32_OPS_PER_S
+    row('walker_im', ms, plain, None, max(t_bytes, t_ops),
+        'bytes' if t_bytes >= t_ops else 'operations', float(err))
+    log(f'time walker_im: bytes {nbytes} ({t_bytes:.4f} ms), float32 '
+        f'operations {flops} ({t_ops:.4f} ms); plain calls (ms) '
+        f'{plain_times}')
     for r in rows:
         if r['max_abs_err'] != 0:
             fail(f"{r['name']}: timing inputs disagree with the plain "
                  "version")
+        lib = 'none' if r['library_ms'] is None else \
+            f"{r['library_ms']:.4f} ms"
         log(f"time {r['name']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"{r['plain_ms']:.4f} ms, library {lib}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
 
@@ -477,9 +802,12 @@ def main() -> int:
     try:
         card = phase_card_and_build(torch)
         phase_kernels(torch)
-        app_counts = phase_app(torch)
-        flagship_counts = phase_flagship(torch, card)
-        rows = phase_times(torch, app_counts, flagship_counts)
+        phase_walker_checks(torch)
+        counts = {'fw_app': phase_app(torch),
+                  'fw_flagship': phase_flagship(torch, card),
+                  'im_app': phase_app_im(torch)}
+        counts['im_flagship'], im_runner = phase_flagship_im(torch, card)
+        rows = phase_times(torch, counts, im_runner)
     finally:
         try:
             from joblib.externals.loky import get_reusable_executor

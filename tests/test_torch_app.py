@@ -149,8 +149,8 @@ def test_optimizer_device_rule_and_unported(monkeypatch):
         Optimizer(max_width=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ReplicaRunnerFW([], [], cmodel=SimpleCostModel(max_width=4))
-    with pytest.raises(NotImplementedError, match='infinite-memory'):
-        Optimizer(device='cpu')
+    from tnco_tpu_torch.app.infinite_memory.sa import Optimizer as IMOpt
+    assert isinstance(Optimizer(device='cpu'), IMOpt)
     with pytest.raises(NotImplementedError, match='QASM'):
         load_tn('OPENQASM 2.0;\nqreg q[1];')
     tn = load_tn([[2, 'a', 'b'], [2, 'b', 'c']], fuse=0)

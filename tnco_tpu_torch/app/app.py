@@ -541,7 +541,7 @@ def Optimizer(method: str = 'sa',
 
     Reference: tnco/app/app.py:798-878.  ``device=None`` means
     ``'cuda'`` and raises without CUDA; pass ``device='cpu'`` for the
-    CPU.  Only the finite-width optimizer is ported so far.
+    CPU.
     """
     opts = dict(max_width=max_width,
                 n_jobs=n_jobs,
@@ -560,11 +560,10 @@ def Optimizer(method: str = 'sa',
                 verbose=verbose,
                 device=device)
 
-    if max_width is None or max_width >= float('inf'):
-        raise NotImplementedError(
-            "The infinite-memory optimizer is not ported to tnco_tpu_torch "
-            "yet (slice 2, ROADMAP queue 1 item 10); pass a finite "
-            "max_width.")
-    module = 'tnco_tpu_torch.app.finite_width.' + str(method)
-    module = import_module(module)
+    module = 'tnco_tpu_torch.app'
+    if max_width is not None and max_width < float('inf'):
+        module += '.finite_width'
+    else:
+        module += '.infinite_memory'
+    module = import_module(module + '.' + str(method))
     return module.Optimizer(**opts)

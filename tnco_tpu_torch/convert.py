@@ -1,42 +1,64 @@
-"""Carries a finite-width batch across from the JAX package's layout.
+"""Carries a batch across from the JAX package's layout.
 
 The state of this system plays the role of a model's weights: tests start
-the JAX engine and the port from one state.  :func:`batch_fw_from_numpy`
-takes the JAX ``SABatchFW`` fields as numpy arrays (``uint32`` words
-become ``int32`` bit patterns) and builds the port's batch on a device;
-:func:`batch_fw_to_numpy` goes back (``int32`` words of the bitset and
-key fields return as ``uint32``).
+the JAX engine and the port from one state.  :func:`batch_from_numpy`
+(infinite memory, ``SABatch``) and :func:`batch_fw_from_numpy` (finite
+width, ``SABatchFW``) take the JAX batch's fields as numpy arrays
+(``uint32`` words become ``int32`` bit patterns) and build the port's
+batch on a device; :func:`batch_to_numpy` and :func:`batch_fw_to_numpy`
+go back (``int32`` words of the bitset and key fields return as
+``uint32``).
 """
 
 import numpy as np
 import torch
 
+from tnco_tpu_torch.kernels.sa_batched import SABatch
 from tnco_tpu_torch.kernels.sa_finite_batched import SABatchFW
 
-__all__ = ['batch_fw_from_numpy', 'batch_fw_to_numpy']
+__all__ = ['batch_from_numpy', 'batch_to_numpy', 'batch_fw_from_numpy',
+           'batch_fw_to_numpy']
 
 # Fields that hold uint32 words in the JAX package.
 _UINT32_FIELDS = ('inds', 'hyper', 'slices', 'min_inds', 'min_slices',
                   'keys')
 
 
-def batch_fw_from_numpy(fields: dict, device) -> SABatchFW:
-    """``{name: np.ndarray}`` (JAX layout) -> :class:`SABatchFW`."""
+def _from_numpy(cls, fields: dict, device):
     out = {}
-    for name in SABatchFW.field_names():
+    for name in cls.field_names():
         x = np.ascontiguousarray(fields[name])
         if x.dtype == np.uint32:
             x = x.view(np.int32)
         out[name] = torch.from_numpy(x.copy()).to(device)
-    return SABatchFW(**out)
+    return cls(**out)
 
 
-def batch_fw_to_numpy(batch: SABatchFW) -> dict:
-    """:class:`SABatchFW` -> ``{name: np.ndarray}`` in the JAX layout."""
+def _to_numpy(batch) -> dict:
     out = {}
-    for name in SABatchFW.field_names():
+    for name in type(batch).field_names():
         x = getattr(batch, name).detach().cpu().numpy()
         if name in _UINT32_FIELDS:
             x = x.view(np.uint32)
         out[name] = x
     return out
+
+
+def batch_from_numpy(fields: dict, device) -> SABatch:
+    """``{name: np.ndarray}`` (JAX ``SABatch`` layout) -> :class:`SABatch`."""
+    return _from_numpy(SABatch, fields, device)
+
+
+def batch_to_numpy(batch: SABatch) -> dict:
+    """:class:`SABatch` -> ``{name: np.ndarray}`` in the JAX layout."""
+    return _to_numpy(batch)
+
+
+def batch_fw_from_numpy(fields: dict, device) -> SABatchFW:
+    """``{name: np.ndarray}`` (JAX layout) -> :class:`SABatchFW`."""
+    return _from_numpy(SABatchFW, fields, device)
+
+
+def batch_fw_to_numpy(batch: SABatchFW) -> dict:
+    """:class:`SABatchFW` -> ``{name: np.ndarray}`` in the JAX layout."""
+    return _to_numpy(batch)

@@ -1,24 +1,26 @@
-"""The SA engine of the FW path and its hand-written Hopper kernels.
+"""The SA engines and their hand-written Hopper kernels.
 
 Kernels (CUDA C++ under ``csrc/``, each beside its plain PyTorch
 version): K1 row gather (:mod:`.gather`), K2 id inversion and K3
-in-place row scatter (:mod:`.scatter`).  Each wrapper counts its
-launches; :func:`launch_counts` reads them and :func:`reset_launch_counts`
-sets them to 0.
+in-place row scatter (:mod:`.scatter`), K5 the IM multi-walk walker
+(:mod:`.walker`).  Each wrapper counts its launches; :func:`launch_counts`
+reads them and :func:`reset_launch_counts` sets them to 0.
 """
 
 __all__ = ['launch_counts', 'reset_launch_counts']
 
 
 def launch_counts() -> dict:
-    from tnco_tpu_torch.kernels import gather, scatter
+    from tnco_tpu_torch.kernels import gather, scatter, walker
     return {'gather_gbn': gather.launches,
             'inv_ids': scatter.inv_launches,
-            'scatter_rows_inplace': scatter.scatter_launches}
+            'scatter_rows_inplace': scatter.scatter_launches,
+            'walker_im': walker.launches}
 
 
 def reset_launch_counts() -> None:
-    from tnco_tpu_torch.kernels import gather, scatter
+    from tnco_tpu_torch.kernels import gather, scatter, walker
     gather.launches = 0
     scatter.inv_launches = 0
     scatter.scatter_launches = 0
+    walker.launches = 0

@@ -19,10 +19,14 @@ __all__ = ['load', 'build', 'nvcc_path', 'BUILD_DIR', 'SOURCES']
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build' / 'kernels'
-SOURCES = ('gather.cu', 'scatter.cu')
+SOURCES = ('gather.cu', 'scatter.cu', 'walker.cu')
 _LIB_NAME = 'libtnco_torch_kernels.so'
+# No --use_fast_math, and -fmad=false: the walker's float expressions
+# must round as its plain version's torch ops do, one operation at a
+# time, with no multiply and add contracted into an FMA (the other
+# kernels move words and do no float arithmetic).
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-Xcompiler', '-fPIC')
+              '-O3', '-fmad=false', '-Xcompiler', '-fPIC')
 
 _lib = None
 # Compiler output of the last build (``-Xptxas -v``: registers, shared
@@ -35,6 +39,7 @@ _SIGNATURES = {
     'tnco_gather_gbn': (_P, _P, _P, _I, _I, _I, _I, _P),
     'tnco_inv_ids': (_P, _P, _I, _I, _I, _P),
     'tnco_scatter_rows': (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    'tnco_walker_im': (_P,) * 10 + (_I,) * 10 + (_P,),
 }
 
 

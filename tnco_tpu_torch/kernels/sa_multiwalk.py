@@ -1,9 +1,48 @@
-"""Walk draws and the acceptance-rule predicate shared by the walk
-engines (from ``tnco_tpu/kernels/sa_multiwalk.py:224,373-383``)."""
+"""Multi-walk SA engine, infinite memory (the port of
+``tnco_tpu/kernels/sa_multiwalk.py:run_multiwalk`` and its helpers
+:55-499), plus the walk draws and the conflict filter that the walks
+engine shares.
 
+Each iteration, ``P`` walks per replica propose the reference uncle swap
+at their node (include/tnco/optimize/infinite_memory/optimizer.hpp:
+117-192), are Metropolis-accepted against the same pre-round total, a
+pairwise-disjoint set is kept (lower walk index wins, only kept walks
+block), the kept moves are applied, and every walk climbs to its parent.
+
+The JAX engine reads and writes rows through ``[P, N, B]`` one-hot masks
+(the TPU's cheap direction); this port reads rows with index gathers and
+writes the kept rows with index scatters on the ``[N, B]`` / ``[N, W, B]``
+tensors.  Kept rows are disjoint, so the writes equal the JAX engine's
+additive updates; float rows are written in its form ``old + (new -
+old)``.  Integer state is bitwise equal on the same state and draws and
+totals agree within the float bound of ``exp2``/``log2`` (tests inject
+the JAX draws through ``draws=``).
+
+This is also the plain version of the walker kernel K5
+(:mod:`tnco_tpu_torch.kernels.walker`), whose results equal it.  The
+scatters route the rows of walks that are not kept to one dump row past
+the last node, so an iteration has no data-dependent shapes and never
+waits on the host.
+"""
+
+import numpy as np
 import torch
 
-__all__ = ['draw_walks']
+from tnco_tpu_torch.kernels.sa_batched import (SABatch, _log2_total_b,
+                                               _width_b, compute_hyper_b)
+from tnco_tpu_torch.ops import costs as costs_ops
+
+__all__ = ['run_multiwalk', 'draw_walks', 'draw_chunk', 'NULL']
+
+NULL = -1
+
+_ON_BLOCK = ('advance', 'restart', 'dedup')
+_PROB_KINDS = ('mh', 'greedy', 'base')
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP queue 1, {item}).")
 
 
 def _chains_lt(cfg) -> bool:
@@ -12,9 +51,33 @@ def _chains_lt(cfg) -> bool:
     return cfg.prob_kind in ('mh', 'greedy')
 
 
+def check_options(cfg, dtype, on_block='advance', accept_rule='round',
+                  sparse_wb=None, log2_n_projs=None) -> None:
+    """Raises on the options of ``run_multiwalk`` this port lacks."""
+    if on_block not in _ON_BLOCK:
+        raise ValueError(f"on_block must be one of {_ON_BLOCK}, "
+                         f"got {on_block!r}.")
+    if on_block != 'advance':
+        raise _not_ported(f"on_block={on_block!r}",
+                          'left out of slice 1, b')
+    if accept_rule not in ('round', 'chained'):
+        raise ValueError("accept_rule must be 'round' or 'chained', "
+                         f"got {accept_rule!r}.")
+    if accept_rule == 'chained' and _chains_lt(cfg):
+        raise _not_ported("accept_rule='chained'", 'left out of slice 1, b')
+    if cfg.prob_kind not in _PROB_KINDS:
+        raise ValueError(f"prob_kind must be one of {_PROB_KINDS} for the "
+                         f"multi-walk engines, got {cfg.prob_kind!r}.")
+    if sparse_wb is not None or log2_n_projs is not None:
+        raise _not_ported('Sparse indices', 'left out of slice 1, e')
+    if dtype != torch.float32:
+        raise _not_ported('float64 state', 'left out of slice 1, d')
+
+
 def draw_walks(generator: torch.Generator, n_leaves: int, b: int, p: int,
                n_bits: int, dtype=torch.float32):
-    """One iteration's draws on the generator's device.
+    """One iteration's draws of the FW walks engine, on the generator's
+    device.
 
     The counterpart of ``sa_multiwalk._draws(keys, n, p, dtype, 5)`` plus
     the reslice jitter: ``leaf [B, P]`` in ``[0, n_leaves)``, ``rand_bit
@@ -31,3 +94,250 @@ def draw_walks(generator: torch.Generator, n_leaves: int, b: int, p: int,
     jitter = torch.rand((n_bits, b), generator=generator, device=dev,
                         dtype=dtype)
     return {'leaf': leaf, 'rand_bit': rand_bit, 'u': u, 'jitter': jitter}
+
+
+def draw_chunk(generator: torch.Generator, n_leaves: int, k: int, p: int,
+               b: int, dtype=torch.float32):
+    """A K-iteration chunk of IM walk draws in the JAX layout: ``leaf``
+    (int32), ``rand_bit`` (bool) and ``u`` (``dtype``), each ``[K, P,
+    B]`` — the streams ``pallas_walker._run_walker`` draws before its
+    launch (``:514-520``), from a ``torch.Generator`` instead."""
+    dev = generator.device
+    leaf = torch.randint(0, n_leaves, (k, p, b), generator=generator,
+                         device=dev, dtype=torch.int32)
+    rand_bit = torch.randint(0, 2, (k, p, b), generator=generator,
+                             device=dev, dtype=torch.int32) != 0
+    u = torch.rand((k, p, b), generator=generator, device=dev, dtype=dtype)
+    return {'leaf': leaf, 'rand_bit': rand_bit, 'u': u}
+
+
+def _take(arr, ids, n):
+    """``arr[ids[b, p], ..., b]`` for ``arr [N', ..., B]`` and ids
+    ``[B, P]``; ids outside ``[0, n)`` read zeros (the JAX engine's masked
+    reductions sum no row for them).  Returns ``[..., B, P]``."""
+    ok = (ids >= 0) & (ids < n)
+    safe = torch.where(ok, ids, 0).long()
+    if arr.dim() == 2:                                     # [N, B]
+        got = torch.gather(arr.T, 1, safe)
+        return torch.where(ok, got, torch.zeros((), dtype=arr.dtype,
+                                                device=arr.device))
+    w = arr.shape[1]                                       # [N, W, B]
+    got = torch.gather(arr.permute(1, 2, 0), 2,
+                       safe[None].expand(w, -1, -1))
+    return torch.where(ok[None], got, torch.zeros((), dtype=arr.dtype,
+                                                  device=arr.device))
+
+
+def _propose(st, pos, leaf, rand_bit, cfg, n):
+    """Proposal geometry of all walks (``[B, P]`` ids, ``[W, B, P]``
+    lane sets): restart finished walks at a fresh leaf's parent, gather
+    the {A, B, C, D, E} neighbourhood, pick D/E with the shared-index
+    rule and build ``new_inds_b`` with on-the-fly hyper rows
+    (``sa_multiwalk.py:73-123``)."""
+    c0, c1, par, inds, lcc = st['c0'], st['c1'], st['par'], st['inds'], \
+        st['lcc']
+    par_pos = _take(par, pos.clamp(min=0), n)
+    at_boundary = (pos == NULL) | (par_pos == NULL)
+    b = torch.where(at_boundary, _take(par, leaf, n), pos)
+    a = torch.where(b == NULL, NULL, _take(par, b, n))  # trivial-tree guard
+    c0b, c1b = _take(c0, b, n), _take(c1, b, n)
+    c0a, c1a = _take(c0, a, n), _take(c1, a, n)
+    c = torch.where(c0a == b, c1a, c0a)
+
+    inds_c = _take(inds, c, n)
+    inds0 = _take(inds, c0b, n)
+    inds1 = _take(inds, c1b, n)
+    inds_a = _take(inds, a, n)
+    inds_b = _take(inds, b, n)
+    i0 = ((inds0 & inds_c) != 0).any(dim=0)
+    i1 = ((inds1 & inds_c) != 0).any(dim=0)
+    take0 = rand_bit if cfg.disable_shared_inds else \
+        torch.where(i0 & i1, rand_bit, i0)
+    t0 = take0[None]
+    inds_d = torch.where(t0, inds0, inds1)
+    inds_e = torch.where(t0, inds1, inds0)
+    new_inds_b = ((inds_d ^ inds_c) | (inds_a & inds_b & inds_c) |
+                  (inds_b & inds0 & inds1))
+    return dict(a=a, b=b, c=c, d=torch.where(take0, c0b, c1b),
+                e=torch.where(take0, c1b, c0b), c0a=c0a, c1a=c1a, c0b=c0b,
+                c1b=c1b, inds_d=inds_d, inds_e=inds_e, inds_c=inds_c,
+                new_inds_b=new_inds_b, l_a=_take(lcc, a, n),
+                l_b=_take(lcc, b, n))
+
+
+def _accept(cfg, u, beta, l_new, lt, ev):
+    """The acceptance rule of every walk against the pre-round total;
+    root-adjacent walks (no uncle) only advance."""
+    if cfg.prob_kind == 'mh':
+        acc = torch.log2(u) <= -beta * (l_new - lt[:, None])
+    elif cfg.prob_kind == 'greedy':
+        acc = l_new <= lt[:, None]
+    else:
+        acc = torch.ones_like(l_new, dtype=torch.bool)
+    return acc & (ev['b'] != NULL) & (ev['a'] != NULL)
+
+
+def _claim_disjoint(accept, ev):
+    """Conflict filter: walk i is kept iff accepted and none of its 5
+    nodes {A, B, C, D, E} meets a node of a KEPT walk of lower index
+    (``sa_multiwalk.py:282-302``).  ``accept`` and the ids are ``[B, P]``.
+
+    The symmetric conflict matrix ``M[b, p, q]`` is built once; the scan
+    then runs walk by walk, the same boolean decisions as the JAX scan.
+    """
+    nodes5 = [ev[k] for k in ('a', 'b', 'c', 'd', 'e')]
+    b, p = accept.shape
+    confl = torch.zeros((b, p, p), dtype=torch.bool, device=accept.device)
+    for x in nodes5:
+        for y in nodes5:
+            confl |= x[:, :, None] == y[:, None, :]
+    keep = torch.zeros_like(accept)
+    for i in range(p):
+        blocked = (keep & confl[:, i, :]).any(dim=1)
+        keep[:, i] = accept[:, i] & ~blocked
+    return keep
+
+
+def _apply_kept(st, keep, ev, n):
+    """Writes the 4 touched rows of every kept walk into the padded
+    state ``st`` (one dump row at index ``n`` takes the rest)."""
+    b_, p = keep.shape
+    ri = torch.arange(b_, device=keep.device)[:, None].expand(b_, p)
+
+    def put(arr, ids, vals):
+        rows = torch.where(keep, ids, n)
+        arr.index_put_((rows.reshape(-1), ri.reshape(-1)),
+                       vals.reshape(-1))
+
+    a, b, c, e = ev['a'], ev['b'], ev['c'], ev['e']
+    put(st['c0'], b, torch.where(ev['c0b'] == e, c, ev['c0b']))
+    put(st['c1'], b, torch.where(ev['c1b'] == e, c, ev['c1b']))
+    put(st['c0'], a, torch.where(ev['c0a'] == c, e, ev['c0a']))
+    put(st['c1'], a, torch.where(ev['c1a'] == c, e, ev['c1a']))
+    put(st['par'], b, a)
+    put(st['par'], c, b)
+    put(st['par'], e, a)
+    put(st['lcc'], b, ev['l_b'] + (ev['ln_b'] - ev['l_b']))
+    put(st['lcc'], a, ev['l_a'] + (ev['ln_a'] - ev['l_a']))
+    rows = torch.where(keep, b, n).reshape(-1)
+    w = st['inds'].shape[1]
+    st['inds'][rows, :, ri.reshape(-1)] = \
+        ev['new_inds_b'].reshape(w, -1).T
+
+
+def _iter_multiwalk(st, beta, dr, log2d_w32, cfg, uniform_log2, n):
+    """One iteration on the padded state dict ``st`` (updated in place).
+    ``dr`` holds this iteration's ``[B, P]`` draws."""
+    lt = _log2_total_b(st['lcc'][:n], cfg.n_leaves)
+    ev = _propose(st, st['pos'], dr['leaf'], dr['rand_bit'], cfg, n)
+    ev['ln_b'] = _width_b(ev['inds_d'] | ev['inds_c'], log2d_w32,
+                          uniform_log2=uniform_log2)
+    ev['ln_a'] = _width_b(ev['new_inds_b'] | ev['inds_e'], log2d_w32,
+                          uniform_log2=uniform_log2)
+    l_new = costs_ops.new_total_log2(lt[:, None], ev['l_a'], ev['l_b'],
+                                     ev['ln_a'], ev['ln_b'])
+    accept = _accept(cfg, dr['u'], beta, l_new, lt, ev)
+    keep = _claim_disjoint(accept, ev)
+    _apply_kept(st, keep, ev, n)
+
+    st['pos'] = ev['a']                     # on_block='advance'
+    st['moves'] += keep.numel()
+    st['applied'] = st['applied'] + keep.sum(dtype=torch.int64)
+
+    lt_new = _log2_total_b(st['lcc'][:n], cfg.n_leaves)
+    improved = lt_new < st['min_lt']
+    st['min_lt'] = torch.where(improved, lt_new, st['min_lt'])
+    for k in ('c0', 'c1', 'par', 'inds'):
+        cur = st[k][:n]
+        st['min_' + k] = torch.where(
+            improved.reshape((1,) * (cur.dim() - 1) + (-1,)), cur,
+            st['min_' + k])
+
+
+def finish_batch(c0, c1, par, inds, lcc, min_lt, min_c0, min_c1, min_par,
+                 min_inds, keys, n_leaves) -> SABatch:
+    """Final min check and hyper refresh (``sa_multiwalk.py:487-498``):
+    the batch a chunk returns, with ``hyper`` rebuilt through K1."""
+    lt = _log2_total_b(lcc, n_leaves)
+    improved = lt < min_lt
+    min_lt = torch.where(improved, lt, min_lt)
+    impn, impw = improved[None, :], improved[None, None, :]
+    min_c0 = torch.where(impn, c0, min_c0)
+    min_c1 = torch.where(impn, c1, min_c1)
+    min_par = torch.where(impn, par, min_par)
+    min_inds = torch.where(impw, inds, min_inds)
+    hyper = compute_hyper_b(c0, c1, inds)
+    return SABatch(c0, c1, par, inds, hyper, lcc, lt, min_lt, min_c0,
+                   min_c1, min_par, min_inds, keys)
+
+
+def as_betas(betas, device) -> torch.Tensor:
+    """``[K]`` float32 betas on ``device`` (a host sequence is copied)."""
+    betas = torch.as_tensor(
+        betas if isinstance(betas, torch.Tensor) else
+        np.asarray(betas, dtype=np.float32),
+        dtype=torch.float32, device=device)
+    if betas.dim() != 1:
+        raise ValueError(f"betas must be 1-D, got {tuple(betas.shape)}.")
+    return betas
+
+
+def run_multiwalk(batch: SABatch, betas, log2d_w32, cfg, n_walks: int, pos,
+                  sparse_wb=None, log2_n_projs=None, uniform_log2=None,
+                  on_block='advance', accept_rule='round', *, draws=None,
+                  generator=None):
+    """Runs one multi-walk iteration per beta (``P`` proposals per
+    replica per iteration) on the batch's device.
+
+    Args:
+        batch: :class:`SABatch`.
+        betas: ``[K]`` inverse temperatures.
+        log2d_w32: ``float32 [W, 32]`` padded log2 dims.
+        cfg: :class:`~tnco_tpu_torch.kernels.sa_infinite.SweepConfig`.
+        n_walks: walks per replica ``P``.
+        pos: ``int32 [P, B]`` walk positions (-1 = start a fresh walk).
+        draws: optional pre-drawn streams ``leaf``, ``rand_bit``, ``u``,
+            each ``[K, P, B]`` (the JAX layout; tests inject the JAX
+            draws).
+        generator: ``torch.Generator`` on the batch's device, used when
+            ``draws`` is None (:func:`draw_chunk`).
+
+    Returns ``(batch, {'moves', 'applied', 'pos'})`` with ``pos`` as
+    ``int32 [P, B]``.  The input batch is not modified.
+    """
+    dtype = log2d_w32.dtype
+    check_options(cfg, dtype, on_block, accept_rule, sparse_wb,
+                  log2_n_projs)
+    dev = batch.c0.device
+    n, b = batch.c0.shape
+    if tuple(pos.shape) != (n_walks, b):
+        raise ValueError(f"pos must be [{n_walks}, {b}], got "
+                         f"{tuple(pos.shape)}.")
+    betas = as_betas(betas, dev)
+    k = betas.shape[0]
+    if draws is None:
+        if generator is None:
+            raise ValueError("Pass draws= or generator=.")
+        draws = draw_chunk(generator, cfg.n_leaves, k, n_walks, b, dtype)
+
+    def pad1(x, fill):
+        return torch.cat([x, x.new_full((1,) + x.shape[1:], fill)])
+
+    st = dict(c0=pad1(batch.c0, NULL), c1=pad1(batch.c1, NULL),
+              par=pad1(batch.par, NULL), inds=pad1(batch.inds, 0),
+              lcc=pad1(batch.lcc, -torch.inf),
+              min_c0=batch.min_c0, min_c1=batch.min_c1,
+              min_par=batch.min_par, min_inds=batch.min_inds,
+              min_lt=batch.min_log2_total, pos=pos.T, moves=0,
+              applied=torch.zeros((), dtype=torch.int64, device=dev))
+    for t in range(k):
+        dr = {name: draws[name][t].T for name in ('leaf', 'rand_bit', 'u')}
+        dr['rand_bit'] = dr['rand_bit'] != 0
+        _iter_multiwalk(st, betas[t], dr, log2d_w32, cfg, uniform_log2, n)
+
+    out = finish_batch(st['c0'][:n], st['c1'][:n], st['par'][:n],
+                       st['inds'][:n], st['lcc'][:n], st['min_lt'],
+                       st['min_c0'], st['min_c1'], st['min_par'],
+                       st['min_inds'], batch.keys.clone(), cfg.n_leaves)
+    return out, {'moves': st['moves'], 'applied': st['applied'],
+                 'pos': st['pos'].T.contiguous()}

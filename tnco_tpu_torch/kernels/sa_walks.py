@@ -43,6 +43,9 @@ from tnco_tpu_torch.kernels.sa_fullsweep import (_join_f, _nk, _split_f,
                                                  _width_bn)
 from tnco_tpu_torch.kernels.sa_infinite import SweepConfig
 from tnco_tpu_torch.kernels.sa_multiwalk import _chains_lt, draw_walks
+# The walks engine's conflict filter is the multi-walk engine's.
+from tnco_tpu_torch.kernels.sa_multiwalk import \
+    _claim_disjoint as _claim_sequential
 from tnco_tpu_torch.kernels.scatter import scatter_rows_inplace
 from tnco_tpu_torch.ops import costs as costs_ops
 
@@ -199,27 +202,6 @@ def _accept_walks(ev, lt, u, beta):
                                      ev['ln_a'], ev['ln_b'])
     accept = torch.log2(u) <= -beta * (l_new - lt[:, None])
     return accept & (ev['b'] != NULL) & (ev['a'] != NULL)
-
-
-def _claim_sequential(accept, ev):
-    """Conflict filter: walk i is kept iff accepted and none of its 5
-    nodes {A, B, C, D, E} meets a node of a KEPT walk of lower index.
-
-    The symmetric conflict matrix ``M[b, p, q]`` is built once; the scan
-    then runs walk by walk — the same boolean decisions as the JAX
-    engine's blocked scan, so the kept sets are bitwise equal.
-    """
-    nodes5 = [ev[k] for k in ('a', 'b', 'c', 'd', 'e')]
-    b, p = accept.shape
-    confl = torch.zeros((b, p, p), dtype=torch.bool, device=accept.device)
-    for x in nodes5:
-        for y in nodes5:
-            confl |= x[:, :, None] == y[:, None, :]
-    keep = torch.zeros_like(accept)
-    for i in range(p):
-        blocked = (keep & confl[:, i, :]).any(dim=1)
-        keep[:, i] = accept[:, i] & ~blocked
-    return keep
 
 
 def _apply_walks(S, ev, kept, cfg: SweepConfig, dtype, with_width=False,

@@ -1,10 +1,13 @@
-"""Finite-width replica runner (the port of
-``tnco_tpu/parallel/replicas.py:ReplicaRunnerFW``, engine 'walks').
+"""Replica runners (the port of ``tnco_tpu/parallel/replicas.py``):
+:class:`ReplicaRunner` (infinite memory, engines 'walker' and
+'multiwalk') and :class:`ReplicaRunnerFW` (finite width, engine
+'walks').
 
 Replicas of one connected component share array shapes, so a batch is
 one stacked state on one device; ``run`` anneals it in chunks with a
-wall-clock budget and host callbacks, and re-derives the slice set every
-``update_slices`` steps (reference finite_width/sa.py:228).
+wall-clock budget and host callbacks (and, finite width, re-derives the
+slice set every ``update_slices`` steps, reference finite_width/sa.py:
+228).
 """
 
 import time
@@ -13,17 +16,25 @@ import numpy as np
 import torch
 
 from tnco_tpu_torch.device import resolve_device
+from tnco_tpu_torch.kernels import sa_batched as sb
 from tnco_tpu_torch.kernels import sa_finite_batched as sfb
+from tnco_tpu_torch.kernels import sa_multiwalk as smw
 from tnco_tpu_torch.kernels import sa_walks as swk
+from tnco_tpu_torch.kernels import walker as kwalker
 from tnco_tpu_torch.kernels.sa_finite import SweepConfigFW
 from tnco_tpu_torch.kernels.sa_fullsweep import uniform_log2_dim
+from tnco_tpu_torch.kernels.sa_infinite import SweepConfig
 from tnco_tpu_torch.ops import bitops
 
-__all__ = ['ReplicaRunnerFW']
+__all__ = ['ReplicaRunner', 'ReplicaRunnerFW']
 
 _ENGINES = ('batched', 'vmapped', 'native', 'multiwalk', 'walker', 'sweep',
             'walks')
 _PORTED = ('walks',)
+_PORTED_IM = ('walker', 'multiwalk')
+# ROADMAP queue 1 items of the IM engines that are not ported yet.
+_IM_ITEMS = {'batched': 'item 9', 'vmapped': 'item 12', 'native': 'item 10',
+             'walks': 'item 10', 'sweep': 'item 13'}
 
 
 def _accel_available(device: torch.device) -> bool:
@@ -39,22 +50,234 @@ def _native_available() -> bool:
 
 def resolve_engine(n_nodes: int, n_lanes: int, *, accel: bool,
                    native: bool, sparse: bool, max_new_slices: int,
-                   disable_shared_inds: bool, prob_kind) -> str:
-    """The JAX runner's 'auto' rule (``replicas.py:689-708``)."""
+                   disable_shared_inds: bool, prob_kind,
+                   fw: bool = True) -> str:
+    """The JAX runners' 'auto' rule (``replicas.py:689-708`` finite
+    width, ``:282-301`` infinite memory with ``fw=False``): small states
+    go to 'batched', large ones on a device to 'walks' (FW) or 'walker'
+    (IM)."""
     if n_nodes * n_lanes <= 32768 and max_new_slices == 0:
         return 'batched'
     if (accel and not sparse and max_new_slices == 0 and
             prob_kind in (None, 'mh')):
-        return 'walks'
+        return 'walks' if fw else 'walker'
     if (native and not sparse and not disable_shared_inds and
             prob_kind in (None, 'mh')):
         return 'native'
     return 'vmapped'
 
 
-def _resolve_walks(n_walks) -> int:
-    """Walks per replica: the JAX runner's FW 'walks' default is 128."""
-    return 128 if n_walks is None else int(n_walks)
+def _resolve_walks(engine: str, n_walks, fw: bool = False) -> int:
+    """Walks per replica, the JAX runners' defaults (``replicas.py:
+    135-149``): 'walks' 128 finite width and 32 infinite memory, every
+    other walk engine ('walker', 'multiwalk') 8."""
+    if n_walks is not None:
+        return int(n_walks)
+    if engine == 'walks':
+        return 128 if fw else 32
+    return 8
+
+
+class ReplicaRunner:
+    """Infinite-memory replica batch on one device.
+
+    Args:
+        ctrees: One initial ``ContractionTree`` per replica (same shape).
+        seeds: One integer seed per replica (the batch's
+            ``torch.Generator`` is seeded from all of them).
+        cmodel: Infinite-memory cost model (sparse indices raise).
+        disable_shared_inds, prob_kind: Kernel flags; ``prob_kind`` None
+            means 'mh'.
+        engine: 'auto', 'walker' or 'multiwalk'.  'auto' resolves by the
+            JAX runner's rule (``replicas.py:282-301``); an engine that is
+            not ported yet raises, naming its ROADMAP item.
+        n_walks: Walks per replica (default 8).
+        on_block, accept_rule: 'multiwalk' options (see
+            :func:`~tnco_tpu_torch.kernels.sa_multiwalk.run_multiwalk`).
+        device: ``None`` means ``'cuda'``; pass ``'cpu'`` explicitly.
+    """
+
+    def __init__(self,
+                 ctrees,
+                 seeds,
+                 *,
+                 cmodel=None,
+                 disable_shared_inds: bool = False,
+                 prob_kind: str | None = None,
+                 mesh=None,
+                 engine: str = 'auto',
+                 n_walks: int | None = None,
+                 on_block: str | None = None,
+                 accept_rule: str | None = None,
+                 dtype=torch.float32,
+                 device=None) -> None:
+        self.device = resolve_device(device)
+        ctrees = list(ctrees)
+        seeds = [int(s) for s in seeds]
+        if len(ctrees) != len(seeds):
+            raise ValueError("One seed per replica is required.")
+        if not ctrees:
+            raise ValueError("'ctrees' cannot be empty.")
+        shapes = {(len(c), c.inds_array.shape[1]) for c in ctrees}
+        if len(shapes) != 1:
+            raise ValueError("All replicas must share the tree shape.")
+        if mesh is not None:
+            raise NotImplementedError(
+                "Multi-device runs are not ported yet (ROADMAP queue 1, "
+                "item 15).")
+        if cmodel is not None and getattr(cmodel, 'sparse_inds', None):
+            raise NotImplementedError(
+                "Sparse indices are not ported yet (ROADMAP queue 1, left "
+                "out of slice 1, e).")
+
+        self.template = ctrees[0]
+        n_lanes = self.template.inds_array.shape[1]
+        if engine == 'auto':
+            engine = resolve_engine(
+                len(self.template), n_lanes,
+                accel=_accel_available(self.device),
+                native=_native_available(), sparse=False, max_new_slices=0,
+                disable_shared_inds=disable_shared_inds,
+                prob_kind=prob_kind, fw=False)
+        if engine not in _ENGINES:
+            raise ValueError(f"Unknown engine: {engine!r}")
+        if engine not in _PORTED_IM:
+            raise NotImplementedError(
+                f"engine={engine!r} is not ported to tnco_tpu_torch yet "
+                f"(ROADMAP queue 1, {_IM_ITEMS[engine]}); pass "
+                "engine='walker' or engine='multiwalk'.")
+        if prob_kind is None:
+            prob_kind = 'mh'
+        on_block = 'advance' if on_block is None else on_block
+        accept_rule = 'round' if accept_rule is None else accept_rule
+        if engine == 'walker' and not kwalker.walker_supported(
+                len(self.template), self.template.n_leaves, n_lanes):
+            raise ValueError(
+                f"engine='walker' does not run on N={len(self.template)}, "
+                f"W={n_lanes} (kernels.walker.walker_supported).")
+        if engine == 'walker' and (on_block, accept_rule) != ('advance',
+                                                              'round'):
+            raise ValueError(
+                "on_block and accept_rule other than 'advance' and 'round' "
+                "are only supported by the 'multiwalk' and 'walks' "
+                "engines (engine='walker').")
+        self.cfg = SweepConfig(n_leaves=self.template.n_leaves,
+                               n_lanes=n_lanes,
+                               disable_shared_inds=disable_shared_inds,
+                               prob_kind=prob_kind)
+        smw.check_options(self.cfg, dtype, on_block, accept_rule)
+        self.engine = engine
+        self.n_walks = _resolve_walks(engine, n_walks)
+        self.on_block = on_block
+        self.accept_rule = accept_rule
+        self.log2d = bitops.pad_log2_dims(self.template.log2_dims_array,
+                                          n_lanes, dtype, self.device)
+        self.log2d_w32 = self.log2d.reshape(n_lanes, 32)
+        self.uniform_log2 = uniform_log2_dim(self.template.log2_dims_array)
+
+        self.states = sb.init_batch(ctrees, seeds, self.log2d.cpu().numpy(),
+                                    dtype=np.float32, device=self.device)
+        self._mw_pos = torch.full((self.n_walks, len(ctrees)), -1,
+                                  dtype=torch.int32, device=self.device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(
+            int(np.random.SeedSequence(seeds).generate_state(1)[0]))
+        self.n_replicas = len(ctrees)
+        self.sweeps_done = 0
+        self.moves_done = 0
+        self.applied_done = None
+
+    def run(self,
+            betas,
+            *,
+            chunk_size: int = 128,
+            timeout: float | None = None,
+            callback=None,
+            exchange_every: int = 0) -> dict:
+        """Runs one iteration per beta in chunks of ``chunk_size`` (the
+        last chunk padded with its last beta, as in the JAX runner),
+        drawing each chunk's streams from the batch's generator.  After
+        each chunk the host checks the wall-clock budget and calls
+        ``callback``.  Island exchange is not ported yet."""
+        if exchange_every:
+            raise NotImplementedError(
+                "Island exchange is not ported yet (ROADMAP queue 1, "
+                "item 10).")
+        betas = np.asarray(betas, dtype=np.float32)
+        start = time.perf_counter()
+        n = len(betas)
+        pos = 0
+        chunk_size = max(1, min(chunk_size, n))
+        while pos < n:
+            if timeout is not None and time.perf_counter() - start > timeout:
+                break
+            chunk = betas[pos:pos + chunk_size]
+            if len(chunk) < chunk_size:
+                chunk = np.concatenate(
+                    [chunk,
+                     np.repeat(chunk[-1:], chunk_size - len(chunk), axis=0)])
+            chunk = torch.from_numpy(chunk).to(self.device)
+            if self.engine == 'walker':
+                self.states, metrics = kwalker.run_walker(
+                    self.states, chunk, self.log2d_w32, self.cfg,
+                    self.n_walks, self._mw_pos, generator=self.generator)
+            else:
+                self.states, metrics = smw.run_multiwalk(
+                    self.states, chunk, self.log2d_w32, self.cfg,
+                    self.n_walks, self._mw_pos,
+                    uniform_log2=self.uniform_log2, on_block=self.on_block,
+                    accept_rule=self.accept_rule, generator=self.generator)
+            self._mw_pos = metrics['pos']
+            self.sweeps_done += chunk_size
+            self.moves_done += int(metrics['moves'])
+            self.applied_done = ((self.applied_done or 0) +
+                                 int(metrics['applied']))
+            pos += chunk_size
+            if callback is not None:
+                callback({
+                    'progress': min(pos, n) / n,
+                    'log2_min_total': self.log2_min_totals(),
+                })
+        return {
+            'log2_min_total': self.log2_min_totals(),
+            'sweeps': self.sweeps_done,
+            'moves': self.moves_done,
+            'applied': self.applied_done,
+            'runtime_s': time.perf_counter() - start,
+        }
+
+    def best(self) -> tuple[int, float]:
+        """(replica index, log2 cost) of the best replica."""
+        mins = self.log2_min_totals()
+        idx = int(np.argmin(mins))
+        return idx, float(mins[idx])
+
+    def min_ctree(self, replica: int):
+        """Best tree found by ``replica`` as a host ``ContractionTree``."""
+        s = self.states
+        return _tree_of(self.template, s.min_c0, s.min_c1, s.min_par,
+                        s.min_inds, replica)
+
+    def ctree(self, replica: int):
+        """Current (not best) tree of ``replica``."""
+        s = self.states
+        return _tree_of(self.template, s.c0, s.c1, s.par, s.inds, replica)
+
+    def log2_min_totals(self) -> np.ndarray:
+        return self.states.min_log2_total.cpu().numpy()
+
+
+def _host(x, replica):
+    return np.ascontiguousarray(x[..., replica].cpu().numpy())
+
+
+def _tree_of(template, c0, c1, par, inds, replica):
+    """Replica ``replica`` of replica-minor device arrays as a host
+    ``ContractionTree`` (``uint32`` words back from int32 bit patterns)."""
+    nodes = np.stack([_host(c0, replica), _host(c1, replica),
+                      _host(par, replica)], axis=1)
+    return template.replace_arrays(nodes,
+                                   _host(inds, replica).view(np.uint32))
 
 
 class ReplicaRunnerFW:
@@ -144,7 +367,7 @@ class ReplicaRunnerFW:
                                  prob_kind=prob_kind,
                                  max_new_slices=int(max_number_new_slices))
         self.engine = engine
-        self.n_walks = _resolve_walks(n_walks)
+        self.n_walks = _resolve_walks(engine, n_walks, fw=True)
         self.on_block = 'advance' if on_block is None else on_block
         self.accept_rule = 'round' if accept_rule is None else accept_rule
         self.log2d_w32 = self.log2d.reshape(n_lanes, 32)
@@ -220,31 +443,22 @@ class ReplicaRunnerFW:
             'runtime_s': time.perf_counter() - start,
         }
 
-    def _host(self, x, replica):
-        return np.ascontiguousarray(x[..., replica].cpu().numpy())
-
-    def _tree_of(self, c0, c1, par, inds, replica):
-        nodes = np.stack([self._host(c0, replica), self._host(c1, replica),
-                          self._host(par, replica)], axis=1)
-        return self.template.replace_arrays(
-            nodes, self._host(inds, replica).view(np.uint32))
-
     def min_ctree(self, replica: int):
         s = self.states
-        return self._tree_of(s.min_c0, s.min_c1, s.min_par, s.min_inds,
-                             replica)
+        return _tree_of(self.template, s.min_c0, s.min_c1, s.min_par,
+                        s.min_inds, replica)
 
     def ctree(self, replica: int):
         """Current (not best) tree of ``replica``."""
         s = self.states
-        return self._tree_of(s.c0, s.c1, s.par, s.inds, replica)
+        return _tree_of(self.template, s.c0, s.c1, s.par, s.inds, replica)
 
     def slices_lanes(self, replica: int) -> np.ndarray:
         """Current slice lanes of ``replica`` (``uint32 [W]``)."""
-        return self._host(self.states.slices, replica).view(np.uint32)
+        return _host(self.states.slices, replica).view(np.uint32)
 
     def min_slices_lanes(self, replica: int) -> np.ndarray:
-        return self._host(self.states.min_slices, replica).view(np.uint32)
+        return _host(self.states.min_slices, replica).view(np.uint32)
 
     def log2_min_totals(self) -> np.ndarray:
         return self.states.min_log2_total.cpu().numpy()
