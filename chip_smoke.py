@@ -11,10 +11,13 @@ Phases, each fatal on failure:
    ``tnco_tpu_torch/csrc`` into ``build/kernels/`` (one ``nvcc`` per
    source, all started together);
 2. every kernel against its plain PyTorch version on the card, bitwise,
-   at the main-path shapes plus edge cases: K1-K3, then the walker K5
+   at the main-path shapes plus edge cases: K1-K3, then the walker K5-IM
    against ``run_walker_plain`` on the same pre-drawn streams (a small
    mixed-dims lattice at B=4, P=8 and the edge cases P=1 and B=1, then
-   the Sycamore shapes at B=64, P=8; two chunks of K=16 each);
+   the Sycamore shapes at B=64, P=8; two chunks of K=16 each), then the
+   finite-width walker K5-FW against ``run_walker_fw_plain`` the same
+   way (reslices inside the chunks: every 5 steps on the lattice with
+   max_width 10, every 10 on Sycamore with max_width 30);
 3. the finite-width (FW) path through the user entry point:
    ``Optimizer(max_width=30).optimize`` on the Sycamore-like m=20
    network (N=3241, W=64) with every result audited (valid path, exact
@@ -29,7 +32,15 @@ Phases, each fatal on failure:
    device min total within 1e-3 in log2 of the exact one);
 6. the IM flagship: ``ReplicaRunner`` at B=64, P=8 in chunks of 128
    iterations, with ms per chunk, proposals/s and applied/s;
-7. kernel, plain-version, library-call and bound times at the main-path
+7. the FW walker path through the user entry point:
+   ``Optimizer(max_width=30, engine='walker')``, 64 runs of 32 steps,
+   reslice every 10, every result and every replica's best state
+   audited as in phases 3 and 5;
+8. the FW walker flagship: ``ReplicaRunnerFW(engine='walker')`` at B=64,
+   P=8, reslice every 10 steps, chunks of 128 iterations: ms per chunk,
+   proposals/s, applied/s and the chunk's split between kernel segments
+   and reslices (CUDA events);
+9. kernel, plain-version, library-call and bound times at the main-path
    shapes, printed as one ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -52,16 +63,19 @@ REPLACES = {
     'inv_ids': 'tnco_tpu/kernels/pallas_scatter.py:116',
     'scatter_rows_inplace': 'tnco_tpu/kernels/pallas_scatter.py:354',
     'walker_im': 'tnco_tpu/kernels/pallas_walker.py:595',
+    'walker_fw': 'tnco_tpu/kernels/pallas_walker.py:802',
 }
 SOURCES = {
     'gather_gbn': 'tnco_tpu_torch/csrc/gather.cu',
     'inv_ids': 'tnco_tpu_torch/csrc/scatter.cu',
     'scatter_rows_inplace': 'tnco_tpu_torch/csrc/scatter.cu',
     'walker_im': 'tnco_tpu_torch/csrc/walker.cu',
+    'walker_fw': 'tnco_tpu_torch/csrc/walker.cu',
 }
 # The kernels each path runs (every one must launch in its phase).
 FW_KERNELS = ('gather_gbn', 'inv_ids', 'scatter_rows_inplace')
 IM_KERNELS = ('gather_gbn', 'walker_im')
+FW_WALKER_KERNELS = ('gather_gbn', 'walker_fw')
 
 # Main-path shapes (Sycamore m=20 at B=64, P=128: W=64 index planes,
 # N padded to 3328, 132 planes below par in the FW state).
@@ -69,6 +83,9 @@ B, P, W, N_PAD, F_APPLY = 64, 128, 64, 3328, 132
 # IM walker: P=8 walks (the runner's default), K5 checked on chunks of
 # K_CHECK iterations and timed on chunks of K_CHUNK (the runner's).
 P_IM, K_CHECK, K_CHUNK = 8, 16, 128
+# FW walker: reslice every 10 steps (the app's default); K5-FW timed on
+# a segment of that length.
+UPDATE_SLICES = 10
 F32_OPS_PER_S = 67e12  # H100 SXM published float32 rate (no tensor cores)
 
 
@@ -277,6 +294,45 @@ def phase_app(torch):
     return counts
 
 
+def _audit_fw_runner(runner, max_width, what):
+    """Every replica's best tree is valid, fits the cap after its min
+    slices, and its exact sliced bigint total is within 1e-3 in log2 of
+    the device's min total.  Returns the largest difference."""
+    import numpy as np
+
+    log2d = runner.template.log2_dims_array
+    mins = runner.log2_min_totals()
+    worst = 0.0
+    for r in range(runner.n_replicas):
+        best = runner.min_ctree(r)
+        ok, msg = best.is_valid(return_message=True)
+        if not ok:
+            fail(f'{what}: replica {r}: invalid min tree: {msg}')
+        lanes = runner.min_slices_lanes(r)
+        sl_bits = np.unpackbits(lanes.view(np.uint8),
+                                bitorder='little')[:len(log2d)].astype(bool)
+        bits = np.unpackbits(best.inds_array.view(np.uint8), axis=1,
+                             bitorder='little')[:, :len(log2d)].astype(bool)
+        if ((bits & ~sl_bits) @ log2d).max() > max_width + 1e-9:
+            fail(f'{what}: replica {r}: width over the cap after slicing')
+        # Exact sliced total, as a float log2, against the device total.
+        dims_l = best.dims_array
+        sl_mul = math.prod(int(d) for d, s in zip(dims_l, sl_bits) if s)
+        nodes = best.nodes_array
+        total = 0
+        for pos in range(len(nodes)):
+            if nodes[pos, 0] < 0:
+                continue
+            u = bits[nodes[pos, 0]] | bits[nodes[pos, 1]]
+            total += math.prod(int(d) for d in dims_l[u & ~sl_bits])
+        exact = math.log2(total * sl_mul)
+        worst = max(worst, abs(exact - float(mins[r])))
+    if worst > 1e-3:
+        fail(f'{what}: device min totals differ from the exact recompute by '
+             f'{worst}')
+    return worst
+
+
 def phase_flagship(torch, card):
     import numpy as np
 
@@ -322,36 +378,8 @@ def phase_flagship(torch, card):
     log(f'applied/s: {applied / dt:.6g} ({card})')
     if not all(counts[k] > 0 for k in FW_KERNELS):
         fail(f'a kernel of the flagship path was never launched: {counts}')
-    # Audit every replica's best state.
-    log2d = ctrees[0].log2_dims_array
+    worst = _audit_fw_runner(runner, 30, 'flagship')
     mins = runner.log2_min_totals()
-    worst = 0.0
-    for r in range(B):
-        best = runner.min_ctree(r)
-        ok, msg = best.is_valid(return_message=True)
-        if not ok:
-            fail(f'replica {r}: invalid min tree: {msg}')
-        lanes = runner.min_slices_lanes(r)
-        sl_bits = np.unpackbits(lanes.view(np.uint8),
-                                bitorder='little')[:len(log2d)].astype(bool)
-        bits = np.unpackbits(best.inds_array.view(np.uint8), axis=1,
-                             bitorder='little')[:, :len(log2d)].astype(bool)
-        if ((bits & ~sl_bits) @ log2d).max() > 30 + 1e-9:
-            fail(f'replica {r}: width over the cap after slicing')
-        # Exact sliced total, as a float log2, against the device total.
-        dims_l = best.dims_array
-        sl_mul = math.prod(int(d) for d, s in zip(dims_l, sl_bits) if s)
-        nodes = best.nodes_array
-        total = 0
-        for pos in range(len(nodes)):
-            if nodes[pos, 0] < 0:
-                continue
-            u = bits[nodes[pos, 0]] | bits[nodes[pos, 1]]
-            total += math.prod(int(d) for d in dims_l[u & ~sl_bits])
-        exact = math.log2(total * sl_mul)
-        worst = max(worst, abs(exact - float(mins[r])))
-    if worst > 1e-3:
-        fail(f'device min totals differ from the exact recompute by {worst}')
     log(f'flagship: {B} replicas audited; best log2 total {mins.min():.4f};'
         f' |device - exact| <= {worst:.2e}')
     return counts
@@ -452,9 +480,10 @@ def phase_walker_checks(torch):
             f'{applied} moves applied)')
 
 
-def _record_runners(module, cls):
-    """Replaces ``module.ReplicaRunner`` by a subclass that records its
-    instances; returns ``(runners, restore)``."""
+def _record_runners(module, name):
+    """Replaces the runner class ``module.<name>`` by a subclass that
+    records its instances; returns ``(runners, restore)``."""
+    cls = getattr(module, name)
     runners = []
 
     class Recorded(cls):
@@ -462,8 +491,8 @@ def _record_runners(module, cls):
             super().__init__(*args, **kwargs)
             runners.append(self)
 
-    module.ReplicaRunner = Recorded
-    return runners, lambda: setattr(module, 'ReplicaRunner', cls)
+    setattr(module, name, Recorded)
+    return runners, lambda: setattr(module, name, cls)
 
 
 def _audit_im_runner(runner, what):
@@ -505,7 +534,7 @@ def phase_app_im(torch):
     log(f'app IM: N={n_nodes} W={n_lanes} -> engine {engine!r}')
     if engine != 'walker':
         fail(f"'auto' resolved to {engine!r}, expected 'walker'")
-    runners, restore = _record_runners(im_sa, im_sa.ReplicaRunner)
+    runners, restore = _record_runners(im_sa, 'ReplicaRunner')
     try:
         opt = Optimizer(seed=0)
         reset_launch_counts()
@@ -599,6 +628,244 @@ def phase_flagship_im(torch, card):
     return counts, runner
 
 
+def _fw_setup(torch, ts, out, dims, path_seeds, max_width):
+    """An FW batch on the card from random paths of ``path_seeds`` (one
+    replica each): ``(batch, cfg, log2d_w32, uniform_log2)``."""
+    from tnco_tpu_torch.ctree import ContractionTree
+    from tnco_tpu_torch.kernels import sa_finite_batched as sfb
+    from tnco_tpu_torch.kernels.sa_finite import SweepConfigFW
+    from tnco_tpu_torch.kernels.sa_fullsweep import uniform_log2_dim
+    from tnco_tpu_torch.ops import bitops
+    from tnco_tpu_torch.utils.tn import get_random_contraction_path
+
+    dev = torch.device('cuda')
+    trees = {s: ContractionTree(get_random_contraction_path(ts, out, seed=s),
+                                ts, dims, output_inds=out)
+             for s in set(path_seeds)}
+    ctrees = [trees[s] for s in path_seeds]
+    t = ctrees[0]
+    w = t.inds_array.shape[1]
+    log2d = bitops.pad_log2_dims(t.log2_dims_array, w, torch.float32, dev)
+    batch = sfb.init_batch_fw(ctrees, list(range(len(ctrees))), max_width,
+                              log2d.cpu().numpy(), device=dev)
+    return (batch, SweepConfigFW(n_leaves=t.n_leaves, n_lanes=w),
+            log2d.reshape(w, 32), uniform_log2_dim(t.log2_dims_array))
+
+
+def _count_reslices(kw):
+    """Wraps ``kw.walker_fw_reslice`` to count the reslices run and the
+    replicas whose slices changed; returns ``(stats, restore)``."""
+    orig = kw.walker_fw_reslice
+    stats = {'reslices': 0, 'taken': 0}
+
+    def counted(seg, *args, **kwargs):
+        n = seg['rows'].shape[1] - 1
+        before = seg['rows'][:, n].clone()
+        orig(seg, *args, **kwargs)
+        stats['reslices'] += 1
+        stats['taken'] += int((seg['rows'][:, n] != before).any(dim=1).sum())
+
+    kw.walker_fw_reslice = counted
+    return stats, lambda: setattr(kw, 'walker_fw_reslice', orig)
+
+
+def phase_walker_fw_checks(torch):
+    """K5-FW against its plain version on the same pre-drawn streams:
+    state, min state, widths, slices, min slices, totals, pos, moves and
+    applied, bitwise, over two chained chunks with reslices inside."""
+    import numpy as np
+
+    from tnco_tpu_torch.kernels import sa_multiwalk as smw
+    from tnco_tpu_torch.kernels import walker as kw
+    from tnco_tpu_torch.testing.networks import lattice_2d, sycamore_like_tn
+
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(0)
+    ts, out, dims = lattice_2d(6, 6)
+    mixed = {x: int(rng.integers(2, 6)) for x in sorted(dims)}
+    # (name, network, path seeds, walks, max_width, reslice every)
+    cases = [('mixed-dims 6x6 lattice', (ts, out, mixed), [0, 1, 2, 3],
+              P_IM, 10.0, 5),
+             ('mixed-dims 6x6 lattice', (ts, out, mixed), [0, 1, 2], 1,
+              10.0, 5),
+             ('mixed-dims 6x6 lattice', (ts, out, mixed), [0], 40, 10.0, 5),
+             ('Sycamore m=20', sycamore_like_tn(20), [0, 1, 2, 3] * 16,
+              P_IM, 30.0, UPDATE_SLICES)]
+    stats, restore = _count_reslices(kw)
+    try:
+        for name, (ts, out, dims), path_seeds, p, mw, upd in cases:
+            batch, cfg, log2d_w32, ul = _fw_setup(torch, ts, out, dims,
+                                                  path_seeds, mw)
+            n, b = batch.c0.shape
+            skip = torch.zeros(cfg.n_lanes, dtype=torch.int32, device=dev)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            pos = torch.full((p, b), -1, dtype=torch.int32, device=dev)
+            applied = 0
+            stats.update(reslices=0, taken=0)
+            for chunk in range(2):
+                it = np.arange(chunk * K_CHECK, (chunk + 1) * K_CHECK)
+                mask = it % upd == 0
+                betas = torch.linspace(10.0 * chunk, 10.0 * chunk + 10.0,
+                                       K_CHECK, device=dev)
+                draws = smw.draw_chunk_fw(gen, cfg.n_leaves, K_CHECK, p, b,
+                                          cfg.n_lanes * 32,
+                                          int(mask.sum()))
+                pos0 = pos.clone()
+                args = (batch, betas, mask, mw, log2d_w32, skip, cfg, p, pos)
+                got, mg = kw.run_walker_fw(*args, uniform_log2=ul,
+                                           draws=draws)
+                want, mw_ = kw.run_walker_fw_plain(*args, uniform_log2=ul,
+                                                   draws=draws)
+                err = max(_batch_err(torch, got, want),
+                          _max_abs_err(torch, mg['pos'], mw_['pos']),
+                          _max_abs_err(torch, pos, pos0))
+                if err or mg['moves'] != mw_['moves'] or \
+                        int(mg['applied']) != int(mw_['applied']):
+                    fail(f'walker_fw != plain on {name}, chunk {chunk}: word '
+                         f'error {err}, applied {int(mg["applied"])} vs '
+                         f'{int(mw_["applied"])}')
+                applied += int(mg['applied'])
+                batch, pos = got, mg['pos']
+            if not applied:
+                fail(f'walker_fw check on {name} applied no move')
+            if not stats['reslices']:
+                fail(f'walker_fw check on {name} ran no reslice')
+            log(f'kernels: walker_fw == plain bitwise on {name} (N={n}, '
+                f'W={cfg.n_lanes}, B={b}, P={p}, max_width {mw}, 2 x '
+                f'K={K_CHECK}, reslice every {upd}: {stats["reslices"]} '
+                f'reslices run, {stats["taken"]} replica reslices taken; '
+                f'{applied} moves applied)')
+    finally:
+        restore()
+
+
+def phase_app_fw_walker(torch):
+    import numpy as np
+
+    from tnco_tpu_torch.app import Optimizer, load_tn
+    from tnco_tpu_torch.app.finite_width import sa as fw_sa
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    _, _, _, tn = _sycamore()
+    loaded = load_tn(tn, fuse=0, seed=0)
+    runners, restore = _record_runners(fw_sa, 'ReplicaRunnerFW')
+    try:
+        opt = Optimizer(max_width=30, engine='walker', seed=0)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        _, res = opt.optimize(tn, betas=(0, 60), n_steps=32, n_runs=64,
+                              update_slices=UPDATE_SLICES, fuse=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        restore()
+    (runner,) = runners
+    log(f'app FW walker: 64 runs x 32 steps in {wall:.2f} s (runner set-up '
+        f'+ anneal {res[0].runtime_s:.2f} s); engine {runner.engine!r}, '
+        f'P={runner.n_walks}; launches {counts}')
+    if runner.engine != 'walker':
+        fail(f'app FW walker runner engine {runner.engine!r}')
+    if not all(counts[k] > 0 for k in FW_WALKER_KERNELS):
+        fail(f'a kernel of the FW walker path was never launched: {counts}')
+    t0 = time.perf_counter()
+    for r in res:
+        _audit_result(r, loaded, 30)
+    worst = _audit_fw_runner(runner, 30, 'app FW walker')
+    costs = np.asarray([math.log2(int(r.cost)) for r in res])
+    log(f'app FW walker: 64 results audited in {time.perf_counter() - t0:.1f}'
+        f' s; log2 cost best {costs.min():.4f} median {np.median(costs):.4f};'
+        f' |device - exact| <= {worst:.2e}')
+    return counts
+
+
+def phase_flagship_fw_walker(torch, card):
+    import numpy as np
+
+    from tnco_tpu_torch.app.finite_width.sa import _build_run_paths
+    from tnco_tpu_torch.ctree import ContractionTree
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tnco_tpu_torch.kernels import walker as kw
+    from tnco_tpu_torch.optimize.finite_width import SimpleCostModel
+    from tnco_tpu_torch.parallel import ReplicaRunnerFW
+
+    ts, out, dims, tn = _sycamore()
+    seeds = list(range(B))
+    t0 = time.perf_counter()
+    paths = _build_run_paths(tn, seeds, -1)
+    ctrees = [ContractionTree(p[0], ts, dims, output_inds=out)
+              for p in paths]
+    t1 = time.perf_counter()
+    runner = ReplicaRunnerFW(ctrees, seeds, cmodel=SimpleCostModel(
+        max_width=30), engine='walker')
+    setup = time.perf_counter() - t1
+    log(f'flagship FW walker: N={len(ctrees[0])} '
+        f'W={ctrees[0].inds_array.shape[1]} B={B} P={runner.n_walks} '
+        f'update_slices={UPDATE_SLICES} set-up {setup:.1f} s (+ '
+        f'{t1 - t0:.1f} s of initial paths)')
+    if runner.engine != 'walker' or runner.n_walks != P_IM:
+        fail(f'flagship FW walker engine {runner.engine!r}, '
+             f'P={runner.n_walks}')
+
+    # CUDA events around each segment and each reslice of a chunk.
+    spans = {'segment': [], 'reslice': []}
+    originals = {'segment': kw.walker_fw_segment,
+                 'reslice': kw.walker_fw_reslice}
+
+    def timed(name):
+        def fn(*args, **kwargs):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            originals[name](*args, **kwargs)
+            e.record()
+            spans[name].append((s, e))
+        return fn
+
+    betas = np.linspace(0.0, 60.0, 3 * K_CHUNK)
+    runner.run(betas[:K_CHUNK], update_slices=UPDATE_SLICES)      # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    kw.walker_fw_segment = timed('segment')
+    kw.walker_fw_reslice = timed('reslice')
+    try:
+        for i in (1, 2):
+            for v in spans.values():
+                v.clear()
+            moves0, applied0 = runner.moves_done, runner.applied_done
+            t0 = time.perf_counter()
+            runner.run(betas[i * K_CHUNK:(i + 1) * K_CHUNK],
+                       update_slices=UPDATE_SLICES)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            split = {k: sum(s.elapsed_time(e) for s, e in v)
+                     for k, v in spans.items()}
+            moves = runner.moves_done - moves0
+            applied = runner.applied_done - applied0
+            log(f'flagship FW walker: chunk {i} of {K_CHUNK} iterations in '
+                f'{1e3 * dt:.3f} ms on {card}: kernel segments '
+                f'{split["segment"]:.3f} ms ({len(spans["segment"])}), '
+                f'reslices {split["reslice"]:.3f} ms '
+                f'({len(spans["reslice"])}), rest '
+                f'{1e3 * dt - split["segment"] - split["reslice"]:.3f} ms')
+            log(f'proposals/s FW walker: {moves / dt:.6g} ({card})')
+            log(f'applied/s FW walker: {applied / dt:.6g} ({card})')
+    finally:
+        kw.walker_fw_segment = originals['segment']
+        kw.walker_fw_reslice = originals['reslice']
+    counts = launch_counts()
+    log(f'flagship FW walker: launches {counts} (2 chunks)')
+    if not all(counts[k] > 0 for k in FW_WALKER_KERNELS):
+        fail(f'a kernel of the FW walker flagship was never launched: '
+             f'{counts}')
+    worst = _audit_fw_runner(runner, 30, 'flagship FW walker')
+    log(f'flagship FW walker: {B} replicas audited; best log2 total '
+        f'{runner.log2_min_totals().min():.4f}; |device - exact| <= '
+        f'{worst:.2e}')
+    return counts, runner
+
+
 def _time_ms(torch, fn, reps=50, rounds=11):
     """Device ms of one call of ``fn``: ``reps`` calls captured in one
     CUDA graph, replayed between two events, median over ``rounds``.
@@ -638,7 +905,7 @@ def _max_abs_err(torch, got, want):
     return float(d.abs().max()) if d.numel() else 0.0
 
 
-def phase_times(torch, counts, im_runner):
+def phase_times(torch, counts, im_runner, fw_runner):
     """Kernel, plain, library and bound times at the main-path shapes;
     ``counts`` maps each path's phase to its launch counts."""
     from tnco_tpu_torch.kernels import gather as kg
@@ -651,7 +918,8 @@ def phase_times(torch, counts, im_runner):
     rows = []
 
     def row(name, ms, plain_ms, lib_ms, bound_ms, bound_by, err):
-        path = 'im_app' if name == 'walker_im' else 'fw_app'
+        path = {'walker_im': 'im_app',
+                'walker_fw': 'fw_walker_app'}.get(name, 'fw_app')
         rows.append(dict(
             name=name, route='cuda', source=SOURCES[name],
             replaces=REPLACES[name], launches=counts[path][name],
@@ -771,6 +1039,63 @@ def phase_times(torch, counts, im_runner):
     log(f'time walker_im: bytes {nbytes} ({t_bytes:.4f} ms), float32 '
         f'operations {flops} ({t_ops:.4f} ms); plain calls (ms) '
         f'{plain_times}')
+
+    # K5-FW at the FW walker flagship's state: one segment of
+    # UPDATE_SLICES iterations (the segment between two reslices), B=64,
+    # P=8, no deferred snapshot.  Timed like K5-IM; the plain segment is
+    # eager PyTorch, timed per call between CUDA events.
+    st, pos = fw_runner.states, fw_runner._mw_pos
+    cfg, log2d_w32 = fw_runner.cfg, fw_runner.log2d_w32
+    n, b = st.c0.shape
+    w = cfg.n_lanes
+    k = UPDATE_SLICES
+    betas = torch.linspace(30.0, 60.0, k, device=dev)
+    dr = {name: x.to(torch.float32 if name == 'u' else torch.int32)
+          .contiguous() for name, x in
+          smw.draw_chunk(gen, cfg.n_leaves, k, P_IM, b).items()}
+    mw = float(fw_runner.max_width)
+    seg_k = kw.kernel_inputs_fw(st, pos)
+    seg_p = kw.kernel_inputs_fw(st, pos)
+    kw.launch_walker_fw(seg_k, dr, betas, log2d_w32, cfg, mw, False)
+    kw.walker_fw_segment_plain(seg_p, dr, betas, log2d_w32, cfg, mw, False,
+                               fw_runner.uniform_log2)
+    err = max(_max_abs_err(torch, seg_k[x], seg_p[x])
+              for x in ('rows', 'pos_bp', 'min_lt', 'applied'))
+    got = kw.unpack_rows_fw(seg_k['min_rows'], w)
+    want = kw.unpack_rows_fw(seg_p['min_rows'], w)
+    err = max([err] + [_max_abs_err(torch, got[i], want[i])
+                       for i in (0, 1, 2, 4, 6)])
+    seg_t = kw.kernel_inputs_fw(st, pos)
+    ms = _time_ms(torch, lambda: kw.launch_walker_fw(
+        seg_t, dr, betas, log2d_w32, cfg, mw, False), reps=3, rounds=5)
+    plain_times = []
+    for _ in range(3):
+        s0 = torch.cuda.Event(enable_timing=True)
+        e0 = torch.cuda.Event(enable_timing=True)
+        s0.record()
+        kw.walker_fw_segment_plain(seg_p, dr, betas, log2d_w32, cfg, mw,
+                                   False, fw_runner.uniform_log2)
+        e0.record()
+        e0.synchronize()
+        plain_times.append(s0.elapsed_time(e0))
+    plain = sorted(plain_times)[1]
+    # Bound: as K5-IM on the FW rows (N + 1 rows of R words), with four
+    # width trees per walk (new, sliced new, and the two costs).
+    n1, r_words = seg_t['rows'].shape[1:]
+    nbytes = 4 * (4 * b * n1 * r_words + 3 * k * P_IM * b + k +
+                  4 * b * P_IM + 4 * b)
+    wp = 1 << max(0, (w - 1).bit_length())
+    n_int = 1 << max(0, (n - cfg.n_leaves - 1).bit_length())
+    flops = k * b * (P_IM * (4 * 2 * wp * 32 + 16) + 2 * n_int)
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / F32_OPS_PER_S
+    row('walker_fw', ms, plain, None, max(t_bytes, t_ops),
+        'bytes' if t_bytes >= t_ops else 'operations', float(err))
+    log(f'time walker_fw: K={k}, bytes {nbytes} ({t_bytes:.4f} ms), '
+        f'float32 operations {flops} ({t_ops:.4f} ms); plain calls (ms) '
+        f'{plain_times}; launches per app phase '
+        f'{counts["fw_walker_app"]["walker_fw"]}, per flagship chunk '
+        f'{counts["fw_walker_flagship"]["walker_fw"] / 2}')
     for r in rows:
         if r['max_abs_err'] != 0:
             fail(f"{r['name']}: timing inputs disagree with the plain "
@@ -803,11 +1128,15 @@ def main() -> int:
         card = phase_card_and_build(torch)
         phase_kernels(torch)
         phase_walker_checks(torch)
+        phase_walker_fw_checks(torch)
         counts = {'fw_app': phase_app(torch),
                   'fw_flagship': phase_flagship(torch, card),
                   'im_app': phase_app_im(torch)}
         counts['im_flagship'], im_runner = phase_flagship_im(torch, card)
-        rows = phase_times(torch, counts, im_runner)
+        counts['fw_walker_app'] = phase_app_fw_walker(torch)
+        counts['fw_walker_flagship'], fw_runner = phase_flagship_fw_walker(
+            torch, card)
+        rows = phase_times(torch, counts, im_runner, fw_runner)
     finally:
         try:
             from joblib.externals.loky import get_reusable_executor

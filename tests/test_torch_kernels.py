@@ -136,7 +136,8 @@ def test_plain_versions_do_not_count_launches():
     ks.scatter_rows_inplace(vals, ids, torch.ones((2, 3, 2),
                                                   dtype=torch.int32))
     assert launch_counts() == {'gather_gbn': 0, 'inv_ids': 0,
-                               'scatter_rows_inplace': 0, 'walker_im': 0}
+                               'scatter_rows_inplace': 0, 'walker_im': 0,
+                               'walker_fw': 0}
 
 
 @pytest.mark.parametrize('case', ['meta', 'ids_dtype', 'rows', 'planes',

@@ -1,6 +1,9 @@
-// K5: the multi-walk SA walker, infinite memory — the port's counterpart
-// of the TPU kernel tnco_tpu/kernels/pallas_walker.py:_make_kernel
-// (fw=False), launched by _run_walker (entry point run_walker).
+// K5: the multi-walk SA walker — the port's counterpart of the TPU kernel
+// tnco_tpu/kernels/pallas_walker.py:_make_kernel, in its infinite-memory
+// form (fw=False, launched by _run_walker; entry point tnco_walker_im) and
+// its finite-width form (fw=True, launched once per segment by
+// _walker_fw_segment; entry point tnco_walker_fw).  Both are one template,
+// walker_kernel<FW>, sharing every device function.
 //
 // One CTA runs one replica through K iterations of P-walk SA in one
 // launch.  Each iteration, for every walk p < P:
@@ -17,35 +20,51 @@
 // then keep a pairwise-disjoint set (lower walk index wins, only kept
 // walks block), write the kept rows, advance every walk to A, recompute
 // the exact total with the pinned tree and snapshot the state into the
-// min buffer on a strict improvement.  The results equal
-// tnco_tpu_torch.kernels.sa_multiwalk.run_multiwalk (the plain version)
-// bitwise on the same draws: the float expressions are evaluated in the
-// same order with exp2f/log2f, which round as torch's CUDA exp2/log2,
-// and this file is built with -fmad=false (no contraction).
+// min buffer on a strict improvement.
+//
+// Finite width adds, per walk, the replica's slice lanes sl (kept in
+// registers for the launch): new_width_b = width(new_inds_b), the sliced
+// width(new_inds_b & ~sl) against the cap (fits = sliced <= max_width +
+// 1e-4f, folded into the acceptance), slice-aware costs ln_b = width(d | c
+// | sl) and ln_a = width(new_inds_b | e | sl), and the kept walk's
+// pre-slicing width of B written as w_b + (new_width_b - w_b).  With
+// defer_last the last iteration takes no snapshot: the caller reslices
+// after it and snapshots itself.  The reslice runs between launches.
+//
+// The results equal the plain versions in tnco_tpu_torch.kernels.
+// sa_multiwalk (run_multiwalk; the FW segment iterations of
+// run_multiwalk_fw) bitwise on the same draws: the float expressions are
+// evaluated in the same order with exp2f/log2f, which round as torch's
+// CUDA exp2/log2, and this file is built with -fmad=false (no
+// contraction).
 //
 // Layout (the port's own; the TPU's 128-lane rows, transposed column
 // cache and equality-matrix scatter exist only because lane-dynamic
 // indexing is expensive there):
-//   rows     int32 [B, N, R]: c0, c1, par, lcc bits, inds[0..W), 0 pad;
-//            R = 4 + W rounded up to a multiple of 4 (16-byte rows).
-//   min_rows int32 [B, N, R]: the min state (its lcc word is not used).
+//   rows     int32 [B, N', R]: c0, c1, par, lcc bits, then (FW) the
+//            pre-slicing width bits, then inds[0..W), 0 pad; R = header + W
+//            rounded up to a multiple of 4 (16-byte rows).  IM: N' = N.
+//            FW: N' = N + 1, and row N holds the replica's slice lanes in
+//            the inds words, so the snapshot copies them with the state.
+//   min_rows int32 [B, N', R]: the min state (its lcc and width words are
+//            not used).
 //   pos      int32 [B, P]; min_lt float [B]; applied int32 [B] (kept
-//            moves); leaf, rand_bit int32 and u float [K, P, B];
-//   betas float [K]; log2d float [W * 32].
-// rows, min_rows, pos and min_lt are updated in place.
+//            moves, accumulated over launches); leaf, rand_bit int32 and u
+//            float [K, P, B]; betas float [K]; log2d float [W * 32].
+// rows, min_rows, pos, min_lt and applied are updated in place.
 //
 // Bound on an H100: memory latency, not bandwidth or arithmetic.  The
-// replica's state (3241 x 68 words = 0.88 MB at Sycamore m=20) does not
-// fit an SM's 228 KB of shared memory, so rows stay in global memory
-// (L2); only the lcc column (N floats), the pinned-tree buffer, the
-// log2 dims and the per-walk scalars live in shared memory, which makes
-// the per-iteration total a shared-memory pass.  Per iteration a walk
-// reads 5 rows (one warp per walk, lanes over the index words), the
-// claim scan is sequential over P in one warp, and kept walks write
-// their B and A rows and the par of C and E directly (kept sets are
-// disjoint).  A snapshot copies the replica's rows with 16-byte loads.
-// One CTA per replica leaves 68 of 132 SMs idle at B=64; wgmma, TMA and
-// several replicas per CTA are later work.
+// replica's state (3241 x 68 words = 0.88 MB at Sycamore m=20, 3242 x 72
+// in the FW layout) does not fit an SM's 228 KB of shared memory, so rows
+// stay in global memory (L2); only the lcc column (N floats), the
+// pinned-tree buffer, the log2 dims and the per-walk scalars live in
+// shared memory, which makes the per-iteration total a shared-memory
+// pass.  Per iteration a walk reads 5 rows (one warp per walk, lanes over
+// the index words), the claim scan is sequential over P in one warp, and
+// kept walks write their B and A rows and the par of C and E directly
+// (kept sets are disjoint).  A snapshot copies the replica's rows with
+// 16-byte loads.  One CTA per replica leaves 68 of 132 SMs idle at B=64;
+// wgmma, TMA and several replicas per CTA are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,6 +78,8 @@ constexpr int kMaxWords = 4;  // index words per lane: W <= 128
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNull = -1;
 constexpr int kC0 = 0, kC1 = 1, kPar = 2, kLcc = 3, kInds = 4;
+// Finite-width rows: the pre-slicing width at kWpre, inds from kIndsFw.
+constexpr int kWpre = 4, kIndsFw = 5;
 enum { kMh = 0, kGreedy = 1, kBase = 2 };
 
 struct Params {
@@ -73,12 +94,14 @@ struct Params {
   const float* betas;
   const float* log2d;
   int b, n, n_leaves, w, r, p, k, n_int_pad, prob_kind, disable_shared;
+  float max_width;  // FW only
+  int defer_last;   // FW only: no snapshot at the last iteration
 };
 
 // Per-walk scalars kept in shared memory between the phases.
 struct Walk {
-  int b, a, c, d, e, c0a, c1a, c0b, c1b, take0, acc, keep;
-  float l_a, l_b, ln_a, ln_b;
+  int b, a, c, d, e, c0a, c1a, c0b, c1b, take0, acc, keep, fits;
+  float l_a, l_b, ln_a, ln_b, new_width_b;
 };
 
 __device__ __forceinline__ int field(const int32_t* rows, const Params& q,
@@ -86,6 +109,7 @@ __device__ __forceinline__ int field(const int32_t* rows, const Params& q,
   return (id >= 0 && id < q.n) ? rows[(size_t)id * q.r + f] : 0;
 }
 
+template <int IO>
 __device__ __forceinline__ void load_words(const int32_t* rows,
                                            const Params& q, int id, int lane,
                                            uint32_t (&out)[kMaxWords]) {
@@ -93,7 +117,7 @@ __device__ __forceinline__ void load_words(const int32_t* rows,
 #pragma unroll
   for (int j = 0; j < kMaxWords; ++j) {
     const int w = lane + 32 * j;
-    out[j] = (ok && w < q.w) ? (uint32_t)rows[(size_t)id * q.r + kInds + w]
+    out[j] = (ok && w < q.w) ? (uint32_t)rows[(size_t)id * q.r + IO + w]
                              : 0u;
   }
 }
@@ -174,14 +198,15 @@ struct Words {
       x1[kMaxWords];
 };
 
+template <int IO>
 __device__ __forceinline__ void walk_words(const int32_t* rows,
                                            const Params& q, const Walk& wk,
                                            int lane, Words& v) {
-  load_words(rows, q, wk.b, lane, v.b);
-  load_words(rows, q, wk.a, lane, v.a);
-  load_words(rows, q, wk.c, lane, v.c);
-  load_words(rows, q, wk.c0b, lane, v.x0);
-  load_words(rows, q, wk.c1b, lane, v.x1);
+  load_words<IO>(rows, q, wk.b, lane, v.b);
+  load_words<IO>(rows, q, wk.a, lane, v.a);
+  load_words<IO>(rows, q, wk.c, lane, v.c);
+  load_words<IO>(rows, q, wk.c0b, lane, v.x0);
+  load_words<IO>(rows, q, wk.c1b, lane, v.x1);
 }
 
 __device__ __forceinline__ uint32_t new_inds_b(const Words& v, int take0,
@@ -191,12 +216,16 @@ __device__ __forceinline__ uint32_t new_inds_b(const Words& v, int take0,
          (v.b[j] & v.x0[j] & v.x1[j]);
 }
 
-__global__ void __launch_bounds__(kThreads) walker_im_kernel(Params q) {
+template <bool FW>
+__global__ void __launch_bounds__(kThreads) walker_kernel(Params q) {
+  constexpr int kIo = FW ? kIndsFw : kInds;
   extern __shared__ float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rep = blockIdx.x;
-  int32_t* rows = q.rows + (size_t)rep * q.n * q.r;
-  int32_t* mrows = q.min_rows + (size_t)rep * q.n * q.r;
+  // FW rows carry the slice row N after the N node rows.
+  const size_t rep_words = (size_t)(q.n + (FW ? 1 : 0)) * q.r;
+  int32_t* rows = q.rows + rep * rep_words;
+  int32_t* mrows = q.min_rows + rep * rep_words;
 
   float* s_lcc = smem;                                   // [N]
   float* s_red = s_lcc + q.n;                            // [n_int_pad / 2]
@@ -209,6 +238,15 @@ __global__ void __launch_bounds__(kThreads) walker_im_kernel(Params q) {
     s_lcc[i] = __int_as_float(rows[(size_t)i * q.r + kLcc]);
   for (int i = tid; i < q.w * 32; i += kThreads) s_log2d[i] = q.log2d[i];
   for (int i = tid; i < q.p; i += kThreads) s_pos[i] = q.pos[rep * q.p + i];
+  // The replica's slice lanes, word lane + 32 j in sl[j] (FW).
+  uint32_t sl[kMaxWords];
+#pragma unroll
+  for (int j = 0; j < kMaxWords; ++j) {
+    const int w = lane + 32 * j;
+    sl[j] = (FW && w < q.w) ? (uint32_t)rows[(size_t)q.n * q.r + kIo + w]
+                            : 0u;
+  }
+  const float width_cap = q.max_width + 1e-4f;
   __syncthreads();
 
   int wp = 1;
@@ -235,7 +273,7 @@ __global__ void __launch_bounds__(kThreads) walker_im_kernel(Params q) {
       wk.c1a = field(rows, q, wk.a, kC1);
       wk.c = wk.c0a == b ? wk.c1a : wk.c0a;
       Words v;
-      walk_words(rows, q, wk, lane, v);
+      walk_words<kIo>(rows, q, wk, lane, v);
       uint32_t or0 = 0, or1 = 0;
 #pragma unroll
       for (int j = 0; j < kMaxWords; ++j) {
@@ -248,13 +286,23 @@ __global__ void __launch_bounds__(kThreads) walker_im_kernel(Params q) {
                                                   : i0;
       wk.d = wk.take0 ? wk.c0b : wk.c1b;
       wk.e = wk.take0 ? wk.c1b : wk.c0b;
-      uint32_t set_b[kMaxWords], set_a[kMaxWords];
+      uint32_t set_b[kMaxWords], set_a[kMaxWords], nib[kMaxWords];
 #pragma unroll
       for (int j = 0; j < kMaxWords; ++j) {
         const uint32_t d = wk.take0 ? v.x0[j] : v.x1[j];
         const uint32_t e = wk.take0 ? v.x1[j] : v.x0[j];
-        set_b[j] = d | v.c[j];
-        set_a[j] = new_inds_b(v, wk.take0, j) | e;
+        nib[j] = new_inds_b(v, wk.take0, j);
+        set_b[j] = (d | v.c[j]) | sl[j];      // sl is 0 without FW
+        set_a[j] = (nib[j] | e) | sl[j];
+      }
+      wk.fits = 1;
+      wk.new_width_b = 0.0f;
+      if constexpr (FW) {
+        uint32_t sliced[kMaxWords];
+#pragma unroll
+        for (int j = 0; j < kMaxWords; ++j) sliced[j] = nib[j] & ~sl[j];
+        wk.new_width_b = warp_width(nib, s_log2d, q.w, wp, lane);
+        wk.fits = warp_width(sliced, s_log2d, q.w, wp, lane) <= width_cap;
       }
       wk.ln_b = warp_width(set_b, s_log2d, q.w, wp, lane);
       wk.ln_a = warp_width(set_a, s_log2d, q.w, wp, lane);
@@ -284,7 +332,7 @@ __global__ void __launch_bounds__(kThreads) walker_im_kernel(Params q) {
       } else {
         acc = true;
       }
-      wk.acc = acc && wk.b != kNull && wk.a != kNull;
+      wk.acc = acc && wk.b != kNull && wk.a != kNull && wk.fits;
       s_pos[p] = wk.a;
     }
     __syncthreads();
@@ -321,18 +369,22 @@ __global__ void __launch_bounds__(kThreads) walker_im_kernel(Params q) {
       const Walk wk = s_walk[p];
       if (!wk.keep) continue;
       Words v;
-      walk_words(rows, q, wk, lane, v);
+      walk_words<kIo>(rows, q, wk, lane, v);
       int32_t* row_b = rows + (size_t)wk.b * q.r;
 #pragma unroll
       for (int j = 0; j < kMaxWords; ++j) {
         const int w = lane + 32 * j;
-        if (w < q.w) row_b[kInds + w] = (int32_t)new_inds_b(v, wk.take0, j);
+        if (w < q.w) row_b[kIo + w] = (int32_t)new_inds_b(v, wk.take0, j);
       }
       if (lane == 0) {
         int32_t* row_a = rows + (size_t)wk.a * q.r;
         row_b[kC0] = wk.c0b == wk.e ? wk.c : wk.c0b;
         row_b[kC1] = wk.c1b == wk.e ? wk.c : wk.c1b;
         row_b[kPar] = wk.a;
+        if constexpr (FW) {
+          const float w_b = __int_as_float(row_b[kWpre]);
+          row_b[kWpre] = __float_as_int(w_b + (wk.new_width_b - w_b));
+        }
         row_a[kC0] = wk.c0a == wk.c ? wk.e : wk.c0a;
         row_a[kC1] = wk.c1a == wk.c ? wk.e : wk.c1a;
         rows[(size_t)wk.c * q.r + kPar] = wk.b;
@@ -343,13 +395,16 @@ __global__ void __launch_bounds__(kThreads) walker_im_kernel(Params q) {
     }
     __syncthreads();
 
-    // ---- Exact total and the min snapshot on a strict improvement.
+    // ---- Exact total and the min snapshot on a strict improvement
+    // (deferred at the last iteration of a segment that ends in a
+    // reslice: the caller snapshots after it).
     lt = block_log2_total(s_lcc, s_red, s_scal, q);
-    if (lt < min_lt) {
+    const bool deferred = FW && q.defer_last && it == q.k - 1;
+    if (lt < min_lt && !deferred) {
       min_lt = lt;
       const int4* src = reinterpret_cast<const int4*>(rows);
       int4* dst = reinterpret_cast<int4*>(mrows);
-      const size_t n4 = (size_t)q.n * q.r / 4;
+      const size_t n4 = rep_words / 4;
       for (size_t i = tid; i < n4; i += kThreads) dst[i] = src[i];
     }
   }
@@ -360,7 +415,7 @@ __global__ void __launch_bounds__(kThreads) walker_im_kernel(Params q) {
   for (int i = tid; i < q.p; i += kThreads) q.pos[rep * q.p + i] = s_pos[i];
   if (tid == 0) {
     q.min_lt[rep] = min_lt;
-    q.applied[rep] = applied;
+    q.applied[rep] += applied;
   }
 }
 
@@ -368,6 +423,28 @@ size_t smem_bytes(int n, int n_int_pad, int w, int p) {
   return sizeof(float) * ((size_t)n + (n_int_pad > 1 ? n_int_pad / 2 : 1) +
                           (size_t)w * 32 + kWarps) +
          sizeof(Walk) * (size_t)p + sizeof(int) * (size_t)p;
+}
+
+template <bool FW>
+int launch(const Params& q, void* stream) {
+  if (q.b <= 0 || q.k <= 0) return 0;
+  const int io = FW ? kIndsFw : kInds;
+  if (q.w > 32 * kMaxWords || q.w + io > 128 || q.r % 4 || q.r < io + q.w ||
+      q.p < 1 || q.n <= q.n_leaves)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(q.n, q.n_int_pad, q.w, q.p);
+  // Raise the kernel's dynamic shared-memory limit once per new size, so
+  // that launches captured into a CUDA graph make no attribute call.
+  static size_t smem_allowed = 48 * 1024;
+  if (smem > smem_allowed) {
+    cudaError_t err = cudaFuncSetAttribute(
+        walker_kernel<FW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_allowed = smem;
+  }
+  walker_kernel<FW><<<q.b, kThreads, smem, (cudaStream_t)stream>>>(q);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -380,25 +457,28 @@ extern "C" int tnco_walker_im(void* rows, void* min_rows, void* pos,
                               int n, int n_leaves, int w, int r, int p, int k,
                               int n_int_pad, int prob_kind,
                               int disable_shared, void* stream) {
-  if (b <= 0 || k <= 0) return 0;
-  if (w > 32 * kMaxWords || r % 4 || r < 4 + w || p < 1 || n <= n_leaves)
-    return (int)cudaErrorInvalidValue;
-  Params q{(int32_t*)rows, (int32_t*)min_rows, (int32_t*)pos,
-           (float*)min_lt, (int32_t*)applied, (const int32_t*)leaf,
-           (const int32_t*)rand_bit, (const float*)u, (const float*)betas,
-           (const float*)log2d, b, n, n_leaves, w, r, p, k, n_int_pad,
-           prob_kind, disable_shared};
-  const size_t smem = smem_bytes(n, n_int_pad, w, p);
-  // Raise the kernel's dynamic shared-memory limit once per new size, so
-  // that launches captured into a CUDA graph make no attribute call.
-  static size_t smem_allowed = 48 * 1024;
-  if (smem > smem_allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        walker_im_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_allowed = smem;
-  }
-  walker_im_kernel<<<b, kThreads, smem, (cudaStream_t)stream>>>(q);
-  return (int)cudaGetLastError();
+  const Params q{(int32_t*)rows, (int32_t*)min_rows, (int32_t*)pos,
+                 (float*)min_lt, (int32_t*)applied, (const int32_t*)leaf,
+                 (const int32_t*)rand_bit, (const float*)u,
+                 (const float*)betas, (const float*)log2d, b, n, n_leaves, w,
+                 r, p, k, n_int_pad, prob_kind, disable_shared, 0.0f, 0};
+  return launch<false>(q, stream);
+}
+
+extern "C" int tnco_walker_fw(void* rows, void* min_rows, void* pos,
+                              void* min_lt, void* applied,
+                              const void* leaf,
+                              const void* rand_bit, const void* u,
+                              const void* betas, const void* log2d, int b,
+                              int n, int n_leaves, int w, int r, int p, int k,
+                              int n_int_pad, int prob_kind,
+                              int disable_shared, float max_width,
+                              int defer_last, void* stream) {
+  const Params q{(int32_t*)rows, (int32_t*)min_rows, (int32_t*)pos,
+                 (float*)min_lt, (int32_t*)applied, (const int32_t*)leaf,
+                 (const int32_t*)rand_bit, (const float*)u,
+                 (const float*)betas, (const float*)log2d, b, n, n_leaves, w,
+                 r, p, k, n_int_pad, prob_kind, disable_shared, max_width,
+                 defer_last};
+  return launch<true>(q, stream);
 }

@@ -2,9 +2,10 @@
 
 Kernels (CUDA C++ under ``csrc/``, each beside its plain PyTorch
 version): K1 row gather (:mod:`.gather`), K2 id inversion and K3
-in-place row scatter (:mod:`.scatter`), K5 the IM multi-walk walker
-(:mod:`.walker`).  Each wrapper counts its launches; :func:`launch_counts`
-reads them and :func:`reset_launch_counts` sets them to 0.
+in-place row scatter (:mod:`.scatter`), K5 the multi-walk walker
+(:mod:`.walker`), infinite memory (K5-IM) and finite width (K5-FW).
+Each wrapper counts its launches; :func:`launch_counts` reads them and
+:func:`reset_launch_counts` sets them to 0.
 """
 
 __all__ = ['launch_counts', 'reset_launch_counts']
@@ -15,7 +16,8 @@ def launch_counts() -> dict:
     return {'gather_gbn': gather.launches,
             'inv_ids': scatter.inv_launches,
             'scatter_rows_inplace': scatter.scatter_launches,
-            'walker_im': walker.launches}
+            'walker_im': walker.launches,
+            'walker_fw': walker.launches_fw}
 
 
 def reset_launch_counts() -> None:
@@ -24,3 +26,4 @@ def reset_launch_counts() -> None:
     scatter.inv_launches = 0
     scatter.scatter_launches = 0
     walker.launches = 0
+    walker.launches_fw = 0

@@ -1,6 +1,7 @@
-"""Finite-width batch state, its host initializer and the plane slicer
-(from ``tnco_tpu/kernels/sa_finite_batched.py``: ``SABatchFW`` :28,
-``_pc_width`` :102, ``_greedy_slices_fast`` :163-325,
+"""Finite-width batch state, its host initializer, the slice-aware cost
+and the greedy slicers (from ``tnco_tpu/kernels/sa_finite_batched.py``:
+``SABatchFW`` :28, ``_pc_width`` :102, ``_lcc_fw_b`` :125-160,
+``_greedy_slices_fast`` :163-325, ``_greedy_slices_b`` :328-508,
 ``init_batch_fw`` :783-883).
 
 Layout is the reference's replica-minor one (replica axis LAST; ``keys``
@@ -14,10 +15,14 @@ import numpy as np
 import torch
 
 from tnco_tpu_torch.kernels.gather import gather_bn, gather_gbn
+from tnco_tpu_torch.kernels.sa_batched import _width_b
 from tnco_tpu_torch.kernels.sa_finite import _WIDTH_EPS, greedy_slices_host
 from tnco_tpu_torch.ops.bitops import popcount32
 
 __all__ = ['SABatchFW', 'init_batch_fw']
+
+_SPARSE = ('Sparse indices are not ported yet (ROADMAP queue 1, left out '
+           'of slice 1, e).')
 
 
 @dataclass
@@ -167,10 +172,190 @@ def _greedy_slices_fast(vals, vals_planes, width, jitter, max_width,
     # Back to lane space: lane bit j of replica b = sl[b, inv[j, b]].
     lane_bits = gather_bn(sl.to(torch.int32).contiguous(),
                           inv.T.to(torch.int32).contiguous())  # [b, n_bits]
-    lb = lane_bits.reshape(b, w, 32).to(torch.int64)
-    packed = (lb << shifts.to(torch.int64)).sum(dim=2)       # < 2**32
+    return _pack_bits(lane_bits.reshape(b, w, 32), 2).T.contiguous()
+
+
+def _pack_bits(bits, axis):
+    """0/1 bits with 32 entries on ``axis`` -> int32 bit-pattern words."""
+    shape = [1] * bits.dim()
+    shape[axis] = 32
+    sh = torch.arange(32, dtype=torch.int64, device=bits.device)
+    packed = (bits.to(torch.int64) << sh.reshape(shape)).sum(dim=axis)
     packed = torch.where(packed >= 2**31, packed - 2**32, packed)
-    return packed.to(torch.int32).T.contiguous()             # [w, b]
+    return packed.to(torch.int32)
+
+
+def _lcc_fw_b(c0, c1, inds, slices, log2d_w32, sparse_wb=None,
+              log2_n_projs=None, uniform_log2=None):
+    """``[N, B]`` slice-aware log2 cost per node (leaves -> -inf): the
+    width of ``inds[c0] | inds[c1] | slices``.
+
+    With ``uniform_log2`` the child rows are read through K1
+    (:func:`gather_gbn`) and the width is the popcount times the common
+    log2 dim; otherwise each node's width is the pinned tree of
+    :func:`_width_b`.  ``inds: [N, W, B]`` may be a strided view.
+    """
+    if sparse_wb is not None or log2_n_projs is not None:
+        raise NotImplementedError(_SPARSE)
+    internal = c0 != -1
+    dtype = log2d_w32.dtype
+    if uniform_log2 is not None:
+        inds_wbn = inds.permute(1, 2, 0).contiguous()         # [W, B, N]
+        ids0 = torch.where(internal, c0, -1).T.contiguous()    # [B, N]
+        ids1 = torch.where(internal, c1, -1).T.contiguous()
+        union = (gather_gbn(inds_wbn, ids0) | gather_gbn(inds_wbn, ids1) |
+                 slices[:, :, None])                           # [W, B, N]
+        lcc = _pc_width(union, uniform_log2, dtype, word_axis=0).T
+    else:
+        w = inds.shape[1]
+
+        def rows(ids):
+            ids = torch.where(internal, ids, 0).long()
+            return torch.gather(inds, 0, ids[:, None, :].expand(-1, w, -1))
+
+        lcc = _width_nodes(rows(c0) | rows(c1) | slices[None], log2d_w32)
+    return torch.where(internal, lcc, -torch.inf).to(dtype)
+
+
+def _cumsum_blocked(x, base=16):
+    """Inclusive float sum along axis 0 in the order XLA gives
+    ``jnp.cumsum`` on the CPU: blocks of ``base`` summed one term at a
+    time, each block offset by the exclusive scan of the block totals
+    (recursively).  torch's ``cumsum`` sums in double on the CPU and in
+    parallel on the card; this order makes the slicer's prefix widths
+    equal the JAX package's bitwise on both."""
+    n = x.shape[0]
+    if n <= base:
+        out = [x[0]]
+        for i in range(1, n):
+            out.append(out[-1] + x[i])
+        return torch.stack(out)
+    nb = -(-n // base)
+    xp = torch.cat([x, x.new_zeros((nb * base - n,) + x.shape[1:])])
+    blocks = xp.reshape((nb, base) + x.shape[1:])
+    within = [blocks[:, 0]]
+    for i in range(1, base):
+        within.append(within[-1] + blocks[:, i])
+    within = torch.stack(within, dim=1)
+    inc = _cumsum_blocked(within[:, -1], base)
+    excl = torch.cat([torch.zeros_like(inc[:1]), inc[:-1]])
+    out = within + excl[:, None]
+    return out.reshape((nb * base,) + x.shape[1:])[:n]
+
+
+def _greedy_slices_b(c0, inds, width, jitter, max_width, log2d_w32,
+                     skip_wb, sparse_wb=None, log2_n_projs=None,
+                     uniform_log2=None):
+    """Lane-major greedy slicer, the reference path of the JAX package's
+    ``_greedy_slices_b`` (reference finite_width/greedy/utils.hpp:24-125).
+
+    Bits are ranked once per call by ``n_big * 1e6 + log2 dim + 1e-4 *
+    jitter`` (``n_big``: over-width nodes holding the bit; a STABLE
+    argsort, as ``jnp.argsort``).  Then, round by round, the first
+    over-width node not yet processed takes, in rank order, every
+    candidate bit while the node's width before that bit (its sliced
+    width less the candidates ranked ahead of it) is over the cap.
+    Without ``uniform_log2`` a round processes one node and recomputes
+    every node's sliced width with the pinned tree; with it, a round
+    processes 8 nodes on popcount widths (output-identical).  Uniform
+    INTEGER log2 dims go to :func:`_greedy_slices_fast`, which gives the
+    same slices.
+
+    ``inds: [N, W, B]`` (may be a strided view), ``width: [N, B]``
+    pre-slicing widths, ``jitter: [n_bits, B]`` (the caller draws it),
+    ``skip_wb``: int32 ``[W]`` or ``[W, 1]`` lanes never sliced.  ``c0``
+    is unused (the reference's signature).  Returns int32 ``[W, B]``.
+    """
+    del c0
+    if sparse_wb is not None or log2_n_projs is not None:
+        raise NotImplementedError(_SPARSE)
+    if uniform_log2 is not None and float(uniform_log2).is_integer():
+        vals = inds.permute(1, 2, 0).contiguous()             # [W, B, N]
+        return _greedy_slices_fast(vals, (0, vals.shape[0]), width, jitter,
+                                   max_width, log2d_w32, skip_wb.reshape(-1),
+                                   uniform_log2)
+    n, w, b = inds.shape
+    dev = inds.device
+    n_bits = w * 32
+    dtype = log2d_w32.dtype
+    log2d_flat = log2d_w32.reshape(n_bits)
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)
+    thr = torch.as_tensor(max_width, dtype=dtype, device=dev) + _WIDTH_EPS
+
+    def expand(lanes_wb):  # [w, b] -> [n_bits, b] bits as floats
+        bits = (lanes_wb[:, None, :] >> shifts[None, :, None]) & 1
+        return bits.reshape(n_bits, b).to(dtype)
+
+    # n_big[j, b] = #over-width nodes holding bit j (exact integers).
+    big = (width > thr).to(torch.int32)                       # [n, b]
+    n_big = torch.cat([
+        (((inds[:, word, None, :] >> shifts[None, :, None]) & 1) *
+         big[:, None, :]).sum(dim=0, dtype=torch.int32)
+        for word in range(w)]).to(dtype)                       # [n_bits, b]
+    score = n_big * 1e6 + log2d_flat[:, None] + 1e-4 * jitter
+    order = torch.argsort(-score, dim=0, stable=True)        # [n_bits, b]
+    log2d_sorted = log2d_flat[order]
+    skip_sorted = torch.gather(
+        expand(skip_wb.reshape(w, 1).expand(w, b)), 0, order)
+
+    def all_sw(slices):
+        sliced = inds & ~slices[None]
+        if uniform_log2 is not None:
+            return _pc_width(sliced, uniform_log2, dtype, word_axis=1)
+        return _width_nodes(sliced, log2d_w32)
+
+    def select_at(slices, t_star, sw, active):
+        xs = torch.gather(inds, 0, t_star[None, None, :].expand(1, w, b))[0]
+        cand_sorted = (torch.gather(expand(xs & ~slices), 0, order) *
+                       (1.0 - skip_sorted))
+        removed = cand_sorted * log2d_sorted
+        cum = _cumsum_blocked(removed) - removed
+        w_before = sw[None, :] - cum
+        selected_sorted = (cand_sorted > 0) & (w_before > thr) & \
+            active[None, :]
+        selected = torch.zeros((n_bits, b), dtype=torch.bool, device=dev)
+        selected.scatter_(0, order, selected_sorted)
+        return slices | _pack_bits(selected.reshape(w, 32, b), 1)
+
+    # First-over node per round (output-identical to one pass over all N
+    # nodes: slices only grow, so widths only shrink).
+    slices = torch.zeros((w, b), dtype=torch.int32, device=dev)
+    processed = torch.zeros((n, b), dtype=torch.bool, device=dev)
+    iota = torch.arange(n, device=dev)[:, None]
+    k_batch = 8 if uniform_log2 is not None else 1
+    w_cur = all_sw(slices)
+    r = 0
+    while r < n and bool(((~processed) & (w_cur > thr)).any()):
+        for _ in range(k_batch):
+            over = (~processed) & (w_cur > thr)
+            any_over = over.any(dim=0)
+            t_star = over.to(torch.uint8).argmax(dim=0)       # first over
+            if uniform_log2 is not None:
+                xs = torch.gather(inds, 0,
+                                  t_star[None, None, :].expand(1, w, b))[0]
+                sw = _pc_width(xs & ~slices, uniform_log2, dtype,
+                               word_axis=0)
+                active = any_over & (sw > thr)
+            else:
+                sw = w_cur.gather(0, t_star[None])[0]
+                active = any_over
+            slices = select_at(slices, t_star, sw, active)
+            processed |= (iota == t_star[None]) & any_over[None]
+        w_cur = all_sw(slices)
+        r += k_batch
+    return slices
+
+
+def _width_nodes(lanes_nwb, log2d_w32, chunk=64):
+    """Pinned-tree width of ``[N, W, B]`` lane sets -> ``[N, B]``,
+    ``chunk`` nodes at a time so the expanded-bit temporaries stay
+    bounded (elementwise, so the values do not depend on the chunks)."""
+    n, _, b = lanes_nwb.shape
+    out = torch.empty((n, b), dtype=log2d_w32.dtype, device=lanes_nwb.device)
+    for s in range(0, n, chunk):
+        out[s:s + chunk] = _width_b(lanes_nwb[s:s + chunk].permute(1, 0, 2),
+                                    log2d_w32)
+    return out
 
 
 def init_batch_fw(ctrees, seeds, max_width, log2_dims_padded, *,

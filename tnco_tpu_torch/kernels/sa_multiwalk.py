@@ -1,7 +1,7 @@
-"""Multi-walk SA engine, infinite memory (the port of
-``tnco_tpu/kernels/sa_multiwalk.py:run_multiwalk`` and its helpers
-:55-499), plus the walk draws and the conflict filter that the walks
-engine shares.
+"""Multi-walk SA engines, infinite memory and finite width (the port of
+``tnco_tpu/kernels/sa_multiwalk.py``: ``run_multiwalk`` and its helpers
+:55-499, ``run_multiwalk_fw`` :502-649), plus the walk draws and the
+conflict filter that the walks engine shares.
 
 Each iteration, ``P`` walks per replica propose the reference uncle swap
 at their node (include/tnco/optimize/infinite_memory/optimizer.hpp:
@@ -18,11 +18,15 @@ old)``.  Integer state is bitwise equal on the same state and draws and
 totals agree within the float bound of ``exp2``/``log2`` (tests inject
 the JAX draws through ``draws=``).
 
-This is also the plain version of the walker kernel K5
-(:mod:`tnco_tpu_torch.kernels.walker`), whose results equal it.  The
+The finite-width iteration adds the width cap against the replica's
+slice lanes (``fits``), slice-aware costs, the pre-slicing width of B
+and, where the mask says so, the greedy reslice-if-better.
+
+These are also the plain versions of the walker kernels K5-IM and K5-FW
+(:mod:`tnco_tpu_torch.kernels.walker`), whose results equal them.  The
 scatters route the rows of walks that are not kept to one dump row past
 the last node, so an iteration has no data-dependent shapes and never
-waits on the host.
+waits on the host (the reslice does: its slicer loops on the host).
 """
 
 import numpy as np
@@ -30,9 +34,14 @@ import torch
 
 from tnco_tpu_torch.kernels.sa_batched import (SABatch, _log2_total_b,
                                                _width_b, compute_hyper_b)
+from tnco_tpu_torch.kernels.sa_finite import _WIDTH_EPS
+from tnco_tpu_torch.kernels.sa_finite_batched import (SABatchFW,
+                                                      _greedy_slices_b,
+                                                      _lcc_fw_b)
 from tnco_tpu_torch.ops import costs as costs_ops
 
-__all__ = ['run_multiwalk', 'draw_walks', 'draw_chunk', 'NULL']
+__all__ = ['run_multiwalk', 'run_multiwalk_fw', 'draw_walks', 'draw_chunk',
+           'draw_chunk_fw', 'NULL']
 
 NULL = -1
 
@@ -109,6 +118,17 @@ def draw_chunk(generator: torch.Generator, n_leaves: int, k: int, p: int,
                              device=dev, dtype=torch.int32) != 0
     u = torch.rand((k, p, b), generator=generator, device=dev, dtype=dtype)
     return {'leaf': leaf, 'rand_bit': rand_bit, 'u': u}
+
+
+def draw_chunk_fw(generator: torch.Generator, n_leaves: int, k: int, p: int,
+                  b: int, n_bits: int, n_reslices: int, dtype=torch.float32):
+    """A K-iteration chunk of FW walk draws: :func:`draw_chunk`'s
+    streams plus ``jitter [R, n_bits, B]`` in ``[0, 1)``, one slicer
+    jitter per reslice point of the chunk (true mask entry), in order."""
+    dr = draw_chunk(generator, n_leaves, k, p, b, dtype)
+    dr['jitter'] = torch.rand((n_reslices, n_bits, b), generator=generator,
+                              device=generator.device, dtype=dtype)
+    return dr
 
 
 def _take(arr, ids, n):
@@ -200,7 +220,9 @@ def _claim_disjoint(accept, ev):
 
 def _apply_kept(st, keep, ev, n):
     """Writes the 4 touched rows of every kept walk into the padded
-    state ``st`` (one dump row at index ``n`` takes the rest)."""
+    state ``st`` (one dump row at index ``n`` takes the rest); with a
+    ``width`` entry (finite width), B's pre-slicing width follows the
+    rewrite as ``w_b + (new_width_b - w_b)``."""
     b_, p = keep.shape
     ri = torch.arange(b_, device=keep.device)[:, None].expand(b_, p)
 
@@ -210,6 +232,9 @@ def _apply_kept(st, keep, ev, n):
                        vals.reshape(-1))
 
     a, b, c, e = ev['a'], ev['b'], ev['c'], ev['e']
+    if 'width' in st:
+        w_b = _take(st['width'], b, n)
+        put(st['width'], b, w_b + (ev['new_width_b'] - w_b))
     put(st['c0'], b, torch.where(ev['c0b'] == e, c, ev['c0b']))
     put(st['c1'], b, torch.where(ev['c1b'] == e, c, ev['c1b']))
     put(st['c0'], a, torch.where(ev['c0a'] == c, e, ev['c0a']))
@@ -243,15 +268,68 @@ def _iter_multiwalk(st, beta, dr, log2d_w32, cfg, uniform_log2, n):
     st['pos'] = ev['a']                     # on_block='advance'
     st['moves'] += keep.numel()
     st['applied'] = st['applied'] + keep.sum(dtype=torch.int64)
+    _snapshot(st, n, cfg.n_leaves)
 
-    lt_new = _log2_total_b(st['lcc'][:n], cfg.n_leaves)
+
+def _snapshot(st, n, n_leaves):
+    """Min tracking: replicas whose exact total is strictly below their
+    min take the current state (and slices, finite width) as their min."""
+    lt_new = _log2_total_b(st['lcc'][:n], n_leaves)
     improved = lt_new < st['min_lt']
     st['min_lt'] = torch.where(improved, lt_new, st['min_lt'])
-    for k in ('c0', 'c1', 'par', 'inds'):
-        cur = st[k][:n]
+    for k in ('c0', 'c1', 'par', 'inds', 'slices'):
+        if k not in st:
+            continue
+        cur = st[k] if k == 'slices' else st[k][:n]
         st['min_' + k] = torch.where(
             improved.reshape((1,) * (cur.dim() - 1) + (-1,)), cur,
             st['min_' + k])
+
+
+def _iter_multiwalk_fw(st, beta, dr, max_width, log2d_w32, cfg,
+                       uniform_log2, n):
+    """One finite-width iteration on the padded state dict ``st``
+    (updated in place), WITHOUT the reslice and the min snapshot, which
+    the callers order (``sa_multiwalk.py:502-598``): proposals are
+    costed against the slice lanes, and one whose sliced width exceeds
+    the cap is not accepted.  Returns the kept mask ``[B, P]``."""
+    lt = _log2_total_b(st['lcc'][:n], cfg.n_leaves)
+    ev = _propose(st, st['pos'], dr['leaf'], dr['rand_bit'], cfg, n)
+    sl = st['slices'][:, :, None]           # [W, B, 1] over the walks
+
+    def width(lanes):
+        return _width_b(lanes, log2d_w32, uniform_log2=uniform_log2)
+
+    ev['new_width_b'] = width(ev['new_inds_b'])
+    fits = width(ev['new_inds_b'] & ~sl) <= max_width + _WIDTH_EPS
+    ev['ln_b'] = width((ev['inds_d'] | ev['inds_c']) | sl)
+    ev['ln_a'] = width((ev['new_inds_b'] | ev['inds_e']) | sl)
+    l_new = costs_ops.new_total_log2(lt[:, None], ev['l_a'], ev['l_b'],
+                                     ev['ln_a'], ev['ln_b'])
+    accept = _accept(cfg, dr['u'], beta, l_new, lt, ev) & fits
+    keep = _claim_disjoint(accept, ev)
+    _apply_kept(st, keep, ev, n)
+
+    st['pos'] = ev['a']                     # on_block='advance'
+    st['moves'] += keep.numel()
+    st['applied'] = st['applied'] + keep.sum(dtype=torch.int64)
+    return keep
+
+
+def reslice_if_better(c0, c1, inds, width, slices, lcc, jitter, max_width,
+                      log2d_w32, skip_wb, n_leaves, uniform_log2=None):
+    """The periodic greedy reslice: new slices from the pre-slicing
+    widths, kept by the replicas whose total improves.  Returns
+    ``(slices, lcc)``.  Callers skip it when no replica has a slice
+    (the reference's ``has_slices``, global over the batch)."""
+    new_slices = _greedy_slices_b(c0, inds, width, jitter, max_width,
+                                  log2d_w32, skip_wb,
+                                  uniform_log2=uniform_log2)
+    new_lcc = _lcc_fw_b(c0, c1, inds, new_slices, log2d_w32,
+                        uniform_log2=uniform_log2)
+    better = _log2_total_b(new_lcc, n_leaves) < _log2_total_b(lcc, n_leaves)
+    return (torch.where(better[None, :], new_slices, slices),
+            torch.where(better[None, :], new_lcc, lcc))
 
 
 def finish_batch(c0, c1, par, inds, lcc, min_lt, min_c0, min_c1, min_par,
@@ -269,6 +347,34 @@ def finish_batch(c0, c1, par, inds, lcc, min_lt, min_c0, min_c1, min_par,
     hyper = compute_hyper_b(c0, c1, inds)
     return SABatch(c0, c1, par, inds, hyper, lcc, lt, min_lt, min_c0,
                    min_c1, min_par, min_inds, keys)
+
+
+def finish_batch_fw(c0, c1, par, inds, lcc, width, slices, min_lt, min_c0,
+                    min_c1, min_par, min_inds, min_slices, keys,
+                    n_leaves) -> SABatchFW:
+    """:func:`finish_batch` for finite width (``sa_multiwalk.py:
+    636-649``): the final min check also takes the slices."""
+    improved = _log2_total_b(lcc, n_leaves) < min_lt
+    min_slices = torch.where(improved[None, :], slices, min_slices)
+    im = finish_batch(c0, c1, par, inds, lcc, min_lt, min_c0, min_c1,
+                      min_par, min_inds, keys, n_leaves)
+    return SABatchFW(im.c0, im.c1, im.par, im.inds, im.hyper, im.lcc, width,
+                     slices, im.log2_total, im.min_log2_total, im.min_c0,
+                     im.min_c1, im.min_par, im.min_inds, min_slices, keys)
+
+
+def padded_state(c0, c1, par, inds, lcc, width=None) -> dict:
+    """The engines' working state: the node-axis tensors with one inert
+    dump row appended (children and parent NULL, no index bits, lcc
+    -inf, width 0)."""
+    def pad1(x, fill):
+        return torch.cat([x, x.new_full((1,) + x.shape[1:], fill)])
+
+    st = dict(c0=pad1(c0, NULL), c1=pad1(c1, NULL), par=pad1(par, NULL),
+              inds=pad1(inds, 0), lcc=pad1(lcc, -torch.inf))
+    if width is not None:
+        st['width'] = pad1(width, 0.0)
+    return st
 
 
 def as_betas(betas, device) -> torch.Tensor:
@@ -320,13 +426,8 @@ def run_multiwalk(batch: SABatch, betas, log2d_w32, cfg, n_walks: int, pos,
             raise ValueError("Pass draws= or generator=.")
         draws = draw_chunk(generator, cfg.n_leaves, k, n_walks, b, dtype)
 
-    def pad1(x, fill):
-        return torch.cat([x, x.new_full((1,) + x.shape[1:], fill)])
-
-    st = dict(c0=pad1(batch.c0, NULL), c1=pad1(batch.c1, NULL),
-              par=pad1(batch.par, NULL), inds=pad1(batch.inds, 0),
-              lcc=pad1(batch.lcc, -torch.inf),
-              min_c0=batch.min_c0, min_c1=batch.min_c1,
+    st = padded_state(batch.c0, batch.c1, batch.par, batch.inds, batch.lcc)
+    st.update(min_c0=batch.min_c0, min_c1=batch.min_c1,
               min_par=batch.min_par, min_inds=batch.min_inds,
               min_lt=batch.min_log2_total, pos=pos.T, moves=0,
               applied=torch.zeros((), dtype=torch.int64, device=dev))
@@ -339,5 +440,106 @@ def run_multiwalk(batch: SABatch, betas, log2d_w32, cfg, n_walks: int, pos,
                        st['inds'][:n], st['lcc'][:n], st['min_lt'],
                        st['min_c0'], st['min_c1'], st['min_par'],
                        st['min_inds'], batch.keys.clone(), cfg.n_leaves)
+    return out, {'moves': st['moves'], 'applied': st['applied'],
+                 'pos': st['pos'].T.contiguous()}
+
+
+def fw_draws(draws, generator, mask, cfg, n_walks, b, dtype, device):
+    """The FW chunk's draws, checked (or drawn from ``generator``):
+    ``leaf``, ``rand_bit``, ``u`` ``[K, P, B]`` and ``jitter [R, n_bits,
+    B]`` with ``R`` the number of true entries of ``mask``."""
+    k, r = len(mask), int(np.count_nonzero(mask))
+    n_bits = cfg.n_lanes * 32
+    if draws is None:
+        if generator is None:
+            raise ValueError("Pass draws= or generator=.")
+        return draw_chunk_fw(generator, cfg.n_leaves, k, n_walks, b, n_bits,
+                             r, dtype)
+    want = {'leaf': (k, n_walks, b), 'rand_bit': (k, n_walks, b),
+            'u': (k, n_walks, b), 'jitter': (r, n_bits, b)}
+    for name, shape in want.items():
+        x = draws[name]
+        if tuple(x.shape) != shape or x.device != device:
+            raise ValueError(f"draws[{name!r}] must be {list(shape)} on "
+                             f"{device}, got {tuple(x.shape)} on {x.device}.")
+    return draws
+
+
+def run_multiwalk_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
+                     log2d_w32, skip_wb, cfg, n_walks: int, pos,
+                     sparse_wb=None, log2_n_projs=None, uniform_log2=None,
+                     on_block='advance', accept_rule='round', *, draws=None,
+                     generator=None):
+    """Finite-width multi-walk: one iteration per beta on the batch's
+    device (``sa_multiwalk.py:502-649``).
+
+    Args:
+        batch: :class:`~tnco_tpu_torch.kernels.sa_finite_batched.SABatchFW`.
+        betas: ``[K]`` inverse temperatures.
+        update_slices_mask: ``[K]`` host booleans; iteration ``t`` ends
+            with the greedy reslice-if-better where it is true (and some
+            replica has a slice).
+        max_width: the width cap.
+        log2d_w32: ``float32 [W, 32]`` padded log2 dims.
+        skip_wb: ``int32 [W]`` (or ``[W, 1]``) lanes never sliced.
+        cfg: a config with ``n_leaves``, ``n_lanes``, ``prob_kind`` and
+            ``disable_shared_inds`` (``SweepConfigFW``).
+        n_walks: walks per replica ``P``.
+        pos: ``int32 [P, B]`` walk positions (-1 = start a fresh walk).
+        uniform_log2: the common log2 dim, or None (popcount widths and
+            the fast slicer where it is an integer).
+        draws: optional ``leaf``, ``rand_bit``, ``u`` ``[K, P, B]`` and
+            ``jitter [R, n_bits, B]``, one jitter per true mask entry in
+            order (tests inject the JAX draws).
+        generator: ``torch.Generator`` on the batch's device, used when
+            ``draws`` is None (:func:`draw_chunk_fw`).
+
+    Returns ``(batch, {'moves', 'applied', 'pos'})``.  The input batch
+    is not modified.
+    """
+    dtype = log2d_w32.dtype
+    check_options(cfg, dtype, on_block, accept_rule, sparse_wb,
+                  log2_n_projs)
+    dev = batch.c0.device
+    n, b = batch.c0.shape
+    if tuple(pos.shape) != (n_walks, b):
+        raise ValueError(f"pos must be [{n_walks}, {b}], got "
+                         f"{tuple(pos.shape)}.")
+    betas = as_betas(betas, dev)
+    mask = np.asarray(update_slices_mask, dtype=bool)
+    if mask.shape != (betas.shape[0],):
+        raise ValueError("update_slices_mask must match betas, got "
+                         f"{mask.shape} for {betas.shape[0]} betas.")
+    draws = fw_draws(draws, generator, mask, cfg, n_walks, b, dtype, dev)
+    max_width = torch.as_tensor(max_width, dtype=dtype, device=dev)
+
+    st = padded_state(batch.c0, batch.c1, batch.par, batch.inds, batch.lcc,
+                      batch.width)
+    st.update(slices=batch.slices, min_c0=batch.min_c0, min_c1=batch.min_c1,
+              min_par=batch.min_par, min_inds=batch.min_inds,
+              min_slices=batch.min_slices, min_lt=batch.min_log2_total,
+              pos=pos.T, moves=0,
+              applied=torch.zeros((), dtype=torch.int64, device=dev))
+    r = 0
+    for t in range(len(mask)):
+        dr = {name: draws[name][t].T for name in ('leaf', 'rand_bit', 'u')}
+        dr['rand_bit'] = dr['rand_bit'] != 0
+        _iter_multiwalk_fw(st, betas[t], dr, max_width, log2d_w32, cfg,
+                           uniform_log2, n)
+        if mask[t]:
+            if bool((st['slices'] != 0).any()):
+                st['slices'], st['lcc'][:n] = reslice_if_better(
+                    st['c0'][:n], st['c1'][:n], st['inds'][:n],
+                    st['width'][:n], st['slices'], st['lcc'][:n],
+                    draws['jitter'][r], max_width, log2d_w32, skip_wb,
+                    cfg.n_leaves, uniform_log2)
+            r += 1
+        _snapshot(st, n, cfg.n_leaves)
+
+    out = finish_batch_fw(
+        st['c0'][:n], st['c1'][:n], st['par'][:n], st['inds'][:n],
+        st['lcc'][:n], st['width'][:n], st['slices'], st['min_lt'],
+        st['min_c0'], st['min_c1'], st['min_par'], st['min_inds'],
+        st['min_slices'], batch.keys.clone(), cfg.n_leaves)
     return out, {'moves': st['moves'], 'applied': st['applied'],
                  'pos': st['pos'].T.contiguous()}

@@ -1,7 +1,7 @@
 """Replica runners (the port of ``tnco_tpu/parallel/replicas.py``):
 :class:`ReplicaRunner` (infinite memory, engines 'walker' and
-'multiwalk') and :class:`ReplicaRunnerFW` (finite width, engine
-'walks').
+'multiwalk') and :class:`ReplicaRunnerFW` (finite width, engines
+'walks', 'walker' and 'multiwalk').
 
 Replicas of one connected component share array shapes, so a batch is
 one stacked state on one device; ``run`` anneals it in chunks with a
@@ -30,7 +30,7 @@ __all__ = ['ReplicaRunner', 'ReplicaRunnerFW']
 
 _ENGINES = ('batched', 'vmapped', 'native', 'multiwalk', 'walker', 'sweep',
             'walks')
-_PORTED = ('walks',)
+_PORTED = ('walks', 'walker', 'multiwalk')
 _PORTED_IM = ('walker', 'multiwalk')
 # ROADMAP queue 1 items of the IM engines that are not ported yet.
 _IM_ITEMS = {'batched': 'item 9', 'vmapped': 'item 12', 'native': 'item 10',
@@ -288,9 +288,14 @@ class ReplicaRunnerFW:
         seeds: One integer seed per replica (initial slices and the
             batch's ``torch.Generator``).
         cmodel: Finite-width cost model (``max_width``).
-        engine: 'auto' or 'walks'.  'auto' resolves by the JAX runner's
-            rule; an engine that is not ported yet raises.
-        n_walks: Walks per replica (default 128).
+        engine: 'auto', 'walks', 'walker' or 'multiwalk'.  'auto'
+            resolves by the JAX runner's rule (``replicas.py:689-708``),
+            which never picks 'walker'; an engine that is not ported yet
+            raises.
+        n_walks: Walks per replica (default 128 for 'walks', 8 for
+            'walker' and 'multiwalk').
+        on_block, accept_rule: 'walks' and 'multiwalk' options ('walker'
+            takes only 'advance' and 'round').
         device: ``None`` means ``'cuda'``; pass ``'cpu'`` explicitly.
     """
 
@@ -354,22 +359,36 @@ class ReplicaRunnerFW:
         if engine not in _PORTED:
             raise NotImplementedError(
                 f"engine={engine!r} is not ported to tnco_tpu_torch yet "
-                f"(ROADMAP queue 1); pass engine='walks' to run the "
-                f"ported chained-walk engine.")
+                f"(ROADMAP queue 1); pass engine='walks', engine='walker' "
+                f"or engine='multiwalk'.")
         if max_number_new_slices:
             raise ValueError(f"engine={engine!r} does not support "
                              "max_number_new_slices.")
         if prob_kind is None:
             prob_kind = 'mh'
+        self.on_block = 'advance' if on_block is None else on_block
+        self.accept_rule = 'round' if accept_rule is None else accept_rule
+        if engine == 'walker' and not kwalker.walker_supported_fw(
+                len(self.template), self.template.n_leaves, n_lanes):
+            raise ValueError(
+                f"engine='walker' does not run on N={len(self.template)}, "
+                f"W={n_lanes} (kernels.walker.walker_supported_fw).")
+        if engine == 'walker' and (self.on_block, self.accept_rule) != (
+                'advance', 'round'):
+            raise ValueError(
+                "on_block and accept_rule other than 'advance' and 'round' "
+                "are only supported by the 'multiwalk' and 'walks' "
+                "engines (engine='walker').")
         self.cfg = SweepConfigFW(n_leaves=self.template.n_leaves,
                                  n_lanes=n_lanes,
                                  disable_shared_inds=disable_shared_inds,
                                  prob_kind=prob_kind,
                                  max_new_slices=int(max_number_new_slices))
+        if engine != 'walks':
+            smw.check_options(self.cfg, dtype, self.on_block,
+                              self.accept_rule)
         self.engine = engine
         self.n_walks = _resolve_walks(engine, n_walks, fw=True)
-        self.on_block = 'advance' if on_block is None else on_block
-        self.accept_rule = 'round' if accept_rule is None else accept_rule
         self.log2d_w32 = self.log2d.reshape(n_lanes, 32)
         self.uniform_log2 = uniform_log2_dim(self.template.log2_dims_array)
 
@@ -396,7 +415,8 @@ class ReplicaRunnerFW:
             exchange_every: int = 0) -> dict:
         """Anneals over ``betas`` in chunks of ``chunk_size`` steps
         (the last chunk padded with its last beta and no reslice, as in
-        the JAX runner), drawing from the batch's generator."""
+        the JAX runner), drawing from the batch's generator.  The reslice
+        mask is global (``step % update_slices == 0``), cut per chunk."""
         if exchange_every:
             raise NotImplementedError(
                 "Island exchange is not ported yet (ROADMAP queue 1, "
@@ -418,12 +438,26 @@ class ReplicaRunnerFW:
                 chunk = np.concatenate(
                     [chunk, np.repeat(chunk[-1:], pad, axis=0)])
                 mchunk = np.concatenate([mchunk, np.zeros(pad, dtype=bool)])
-            self.states, metrics = swk.run_walks_fw(
-                self.states, chunk, mchunk, self.max_width, self.log2d_w32,
-                self.skip_lanes, self.cfg, self._mw_pos,
-                uniform_log2=self.uniform_log2, on_block=self.on_block,
-                accept_rule=self.accept_rule, slicer=self.fw_slicer,
-                generator=self.generator, device=self.device)
+            if self.engine == 'walks':
+                self.states, metrics = swk.run_walks_fw(
+                    self.states, chunk, mchunk, self.max_width,
+                    self.log2d_w32, self.skip_lanes, self.cfg, self._mw_pos,
+                    uniform_log2=self.uniform_log2, on_block=self.on_block,
+                    accept_rule=self.accept_rule, slicer=self.fw_slicer,
+                    generator=self.generator, device=self.device)
+            elif self.engine == 'walker':
+                self.states, metrics = kwalker.run_walker_fw(
+                    self.states, chunk, mchunk, self.max_width,
+                    self.log2d_w32, self.skip_lanes, self.cfg, self.n_walks,
+                    self._mw_pos, uniform_log2=self.uniform_log2,
+                    generator=self.generator)
+            else:
+                self.states, metrics = smw.run_multiwalk_fw(
+                    self.states, chunk, mchunk, self.max_width,
+                    self.log2d_w32, self.skip_lanes, self.cfg, self.n_walks,
+                    self._mw_pos, uniform_log2=self.uniform_log2,
+                    on_block=self.on_block, accept_rule=self.accept_rule,
+                    generator=self.generator)
             self._mw_pos = metrics['pos']
             self.sweeps_done += chunk_size
             self.moves_done += int(metrics['moves'])
