@@ -17,7 +17,10 @@ Phases, each fatal on failure:
    the Sycamore shapes at B=64, P=8; two chunks of K=16 each), then the
    finite-width walker K5-FW against ``run_walker_fw_plain`` the same
    way (reslices inside the chunks: every 5 steps on the lattice with
-   max_width 10, every 10 on Sycamore with max_width 30);
+   max_width 10, every 10 on Sycamore with max_width 30), then the
+   out-of-place row scatter K4 (132 planes of [64, 3328], a plane range,
+   float32 NaN payloads, B=1/Q=1 on a ragged N, duplicate ids; the
+   caller's planes unchanged) and the row-read probe P1, both impls;
 3. the finite-width (FW) path through the user entry point:
    ``Optimizer(max_width=30).optimize`` on the Sycamore-like m=20
    network (N=3241, W=64) with every result audited (valid path, exact
@@ -40,7 +43,11 @@ Phases, each fatal on failure:
    P=8, reslice every 10 steps, chunks of 128 iterations: ms per chunk,
    proposals/s, applied/s and the chunk's split between kernel segments
    and reslices (CUDA events);
-9. kernel, plain-version, library-call and bound times at the main-path
+9. the bench path: ``tnco_tpu_torch.bench.main()`` at its card sizes
+   (8x8 lattice, B=8192, P=16, 512 iterations) with its kernel identity
+   check (K5-IM, K1, K4 against their plain versions), then the row-read
+   probe's ``main()`` (ns per row op);
+10. kernel, plain-version, library-call and bound times at the main-path
    shapes, printed as one ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
@@ -51,7 +58,6 @@ result.
 from decimal import Decimal
 import json
 import math
-import subprocess
 import sys
 import time
 
@@ -64,6 +70,9 @@ REPLACES = {
     'scatter_rows_inplace': 'tnco_tpu/kernels/pallas_scatter.py:354',
     'walker_im': 'tnco_tpu/kernels/pallas_walker.py:595',
     'walker_fw': 'tnco_tpu/kernels/pallas_walker.py:802',
+    'scatter_rows_gbn': 'tnco_tpu/kernels/pallas_scatter.py:228,248',
+    'probe_loop': 'benchmarks/pallas_gather_probe.py:70',
+    'probe_take': 'benchmarks/pallas_gather_probe.py:82',
 }
 SOURCES = {
     'gather_gbn': 'tnco_tpu_torch/csrc/gather.cu',
@@ -71,11 +80,16 @@ SOURCES = {
     'scatter_rows_inplace': 'tnco_tpu_torch/csrc/scatter.cu',
     'walker_im': 'tnco_tpu_torch/csrc/walker.cu',
     'walker_fw': 'tnco_tpu_torch/csrc/walker.cu',
+    'scatter_rows_gbn': 'tnco_tpu_torch/csrc/scatter.cu',
+    'probe_loop': 'tnco_tpu_torch/csrc/probe.cu',
+    'probe_take': 'tnco_tpu_torch/csrc/probe.cu',
 }
 # The kernels each path runs (every one must launch in its phase).
 FW_KERNELS = ('gather_gbn', 'inv_ids', 'scatter_rows_inplace')
 IM_KERNELS = ('gather_gbn', 'walker_im')
 FW_WALKER_KERNELS = ('gather_gbn', 'walker_fw')
+BENCH_KERNELS = ('gather_gbn', 'inv_ids', 'scatter_rows_gbn', 'walker_im',
+                 'probe_loop', 'probe_take')
 
 # Main-path shapes (Sycamore m=20 at B=64, P=128: W=64 index planes,
 # N padded to 3328, 132 planes below par in the FW state).
@@ -86,6 +100,9 @@ P_IM, K_CHECK, K_CHUNK = 8, 16, 128
 # FW walker: reslice every 10 steps (the app's default); K5-FW timed on
 # a segment of that length.
 UPDATE_SLICES = 10
+# P1: the probe's Sycamore-sized state [3328, 128] and its default P=128
+# row ops per round over R=256 rounds.
+PROBE_P, PROBE_R = 128, 256
 F32_OPS_PER_S = 67e12  # H100 SXM published float32 rate (no tensor cores)
 
 
@@ -99,11 +116,9 @@ def fail(msg):
 
 
 def phase_card_and_build(torch):
+    from tnco_tpu_torch.device import card_info
     from tnco_tpu_torch.kernels import build
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = ', '.join(card_info(torch.device('cuda')).values())
     log(f'card: {smi}')
     t0 = time.perf_counter()
     build.load()
@@ -740,6 +755,97 @@ def phase_walker_fw_checks(torch):
         restore()
 
 
+def phase_k4_p1_checks(torch):
+    """K4 and P1 against their plain versions on the card, bitwise."""
+    from tnco_tpu_torch.benchmarks import gather_probe as gp
+    from tnco_tpu_torch.kernels import scatter as ks
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+
+    def rand_words(shape, nan_payloads=False):
+        x = torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                          device=dev, dtype=torch.int32)
+        if not nan_payloads:
+            return x
+        # quiet and signalling NaNs with payloads, -inf, -0
+        special = torch.tensor([0x7FC12345, 0x7F800001, 0xFF800000 - 2**32,
+                                0x80000000 - 2**32], device=dev,
+                               dtype=torch.int32)
+        k = min(4, shape[-1])
+        x[..., :k] = special[:k]
+        return x.view(torch.float32)
+
+    q = 2 * P
+    ids = _unique_ids(torch, gen, B, q, N_PAD, keep=0.9)
+    r = torch.rand((B, q), generator=gen, device=dev)
+    ids = torch.where(r < 0.05, N_PAD + 7, ids).contiguous()
+    dup = ids.clone()
+    dup[:, q // 2:] = dup[:, :q // 2]
+    tiny = torch.randint(0, 3241, (1, 1), generator=gen, device=dev,
+                         dtype=torch.int32)
+    # (what, G, B, N, ids, planes, NaN payloads)
+    cases = [('main shape', F_APPLY, B, N_PAD, ids, None, False),
+             ('plane range', F_APPLY, B, N_PAD, ids, (5, 40), False),
+             ('float32', F_APPLY, B, N_PAD, ids, (0, 8), True),
+             ('B=1 Q=1 N=3241', 3, 1, 3241, tiny, None, True),
+             ('duplicate ids', 8, B, N_PAD, dup, None, False)]
+    for what, g, b, n, ids_, planes, nan in cases:
+        lo, hi = (0, g) if planes is None else planes
+        vals = rand_words((g, b, n), nan)
+        upd = rand_words((hi - lo, b, ids_.shape[1]), nan)
+        before = vals.clone()
+        got = ks.scatter_rows_gbn(vals, ids_, upd, planes=planes)
+        want = ks.scatter_rows_gbn_plain(vals, ids_, upd, planes)
+        err = max(_max_abs_err(torch, got, want),
+                  _max_abs_err(torch, vals, before))
+        if err or got.shape != (hi - lo, b, n) or got.dtype != vals.dtype:
+            fail(f'scatter_rows_gbn != plain ({what}): word error {err}, '
+                 f'shape {tuple(got.shape)} {got.dtype}')
+    log(f'kernels: scatter_rows_gbn == plain bitwise in {len(cases)} cases '
+        '(the caller\'s planes unchanged)')
+    for n_p, n_r in ((PROBE_P, PROBE_R), (1, 1)):
+        state = torch.randint(0, 1 << 20, (N_PAD, gp.COLS), generator=gen,
+                              device=dev, dtype=torch.int32)
+        ids_ = torch.randint(0, N_PAD, (n_r, n_p), generator=gen, device=dev,
+                             dtype=torch.int32)
+        before = state.clone()
+        for impl in gp.IMPLS:
+            got = gp.probe(state, ids_, impl)
+            err = max(_max_abs_err(torch, got, gp.probe_plain(state, ids_,
+                                                              impl)),
+                      _max_abs_err(torch, state, before))
+            if err:
+                fail(f'probe {impl} != plain at P={n_p} R={n_r}: word error '
+                     f'{err}')
+    log(f'kernels: probe loop and take == plain bitwise at N={N_PAD}, '
+        f'P={PROBE_P}, R={PROBE_R} (repeated ids) and P=1, R=1')
+
+
+def phase_bench(torch):
+    """The bench path: ``tnco_tpu_torch.bench.main()`` (its kernel
+    identity check must read "ok") and the probe's ``main()``."""
+    from tnco_tpu_torch import bench
+    from tnco_tpu_torch.benchmarks import gather_probe
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    line = bench.main()
+    t1 = time.perf_counter()
+    gather_probe.main([])
+    t2 = time.perf_counter()
+    counts = launch_counts()
+    log(f'bench: {t1 - t0:.1f} s, probe {t2 - t1:.1f} s; launches {counts}')
+    if line.get('kernel_identity') != 'ok':
+        fail(f"bench kernel identity: {line.get('kernel_identity')}")
+    if 'vs_baseline' in line or 'vs_prev_round' in line:
+        fail('the bench line compares with TPU figures')
+    if not all(counts[k] > 0 for k in BENCH_KERNELS):
+        fail(f'a kernel of the bench path was never launched: {counts}')
+    return counts
+
+
 def phase_app_fw_walker(torch):
     import numpy as np
 
@@ -918,8 +1024,9 @@ def phase_times(torch, counts, im_runner, fw_runner):
     rows = []
 
     def row(name, ms, plain_ms, lib_ms, bound_ms, bound_by, err):
-        path = {'walker_im': 'im_app',
-                'walker_fw': 'fw_walker_app'}.get(name, 'fw_app')
+        path = {'walker_im': 'im_app', 'walker_fw': 'fw_walker_app',
+                'scatter_rows_gbn': 'bench', 'probe_loop': 'bench',
+                'probe_take': 'bench'}.get(name, 'fw_app')
         rows.append(dict(
             name=name, route='cuda', source=SOURCES[name],
             replaces=REPLACES[name], launches=counts[path][name],
@@ -987,6 +1094,53 @@ def phase_times(torch, counts, im_runner, fw_runner):
     lib = _time_ms(torch, lambda: v3.index_put_(
         (gi, bi.expand(F_APPLY, -1), ni.expand(F_APPLY, -1)), vals_k))
     byte_row('scatter_rows_inplace', ms, plain, lib, nbytes, err)
+
+    # K4: the same 132 planes out of place, on NULL-free unique ids (so
+    # that one index_put, out of place, computes the same function).  The
+    # kernel is timed with its inversion precomputed, as K3 is.
+    ids = _unique_ids(torch, gen, B, 2 * P, N_PAD, keep=1.0)
+    inv = ks.inv_ids(ids, N_PAD)
+    v4 = vals[:F_APPLY]
+    out = torch.empty_like(v4)
+    got = ks.scatter_rows_gbn(vals, ids, upd, planes=(0, F_APPLY))
+    err = _max_abs_err(torch, got, ks.scatter_rows_gbn_plain(
+        vals, ids, upd, (0, F_APPLY)))
+    nbytes = 4 * (2 * F_APPLY * B * N_PAD + B * N_PAD + F_APPLY * B * 2 * P +
+                  B * 2 * P)
+    ms = _time_ms(torch, lambda: ks._launch_scatter_gbn(vals, inv, upd, out,
+                                                        0))
+    plain = _time_ms(torch, lambda: ks.scatter_rows_gbn_plain(
+        vals, ids, upd, (0, F_APPLY)))
+    bi = torch.arange(B, device=dev)[:, None].expand(B, 2 * P).reshape(-1)
+    ni = ids.reshape(-1).long()
+    gi = torch.arange(F_APPLY, device=dev)[:, None].expand(-1, bi.numel())
+    vals_k = upd.reshape(F_APPLY, -1)
+    idx = (gi, bi.expand(F_APPLY, -1), ni.expand(F_APPLY, -1))
+    err = max(err, _max_abs_err(torch, v4.index_put(idx, vals_k), got))
+    lib = _time_ms(torch, lambda: v4.index_put(idx, vals_k))
+    byte_row('scatter_rows_gbn', ms, plain, lib, nbytes, err)
+    log(f'time scatter_rows_gbn: bytes {nbytes}')
+
+    # P1 at the probe's default shape: state [3328, 128], ids [256, 128]
+    # with repeats.  Bound: the state, the ids and the output once each;
+    # the probe's own figure is ns per row op (loop 2 R P, take R P).
+    from tnco_tpu_torch.benchmarks import gather_probe as gp
+    state = torch.randint(0, 1 << 20, (N_PAD, gp.COLS), generator=gen,
+                          device=dev, dtype=torch.int32)
+    pids = torch.randint(0, N_PAD, (PROBE_R, PROBE_P), generator=gen,
+                         device=dev, dtype=torch.int32)
+    nbytes = 4 * (N_PAD * gp.COLS + PROBE_R * PROBE_P + PROBE_P * gp.COLS)
+    for impl, reps in (('loop', 5), ('take', 50)):
+        err = _max_abs_err(torch, gp.probe(state, pids, impl),
+                           gp.probe_plain(state, pids, impl))
+        ms = _time_ms(torch, lambda: gp.probe(state, pids, impl), reps=reps,
+                      rounds=5)
+        plain = _time_ms(torch, lambda: gp.probe_plain(state, pids, impl),
+                         reps=reps if impl == 'take' else 1, rounds=5)
+        byte_row(f'probe_{impl}', ms, plain, None, nbytes, err)
+        n_ops = PROBE_R * PROBE_P * (2 if impl == 'loop' else 1)
+        log(f'time probe_{impl}: {n_ops} row ops, {1e6 * ms / n_ops:.4f} '
+            f'ns/row; bytes {nbytes}')
 
     # K5 at the IM flagship's shape and state: B=64, P=8, K=128.  The
     # launch updates its buffers in place, so the timed launches go on
@@ -1129,6 +1283,7 @@ def main() -> int:
         phase_kernels(torch)
         phase_walker_checks(torch)
         phase_walker_fw_checks(torch)
+        phase_k4_p1_checks(torch)
         counts = {'fw_app': phase_app(torch),
                   'fw_flagship': phase_flagship(torch, card),
                   'im_app': phase_app_im(torch)}
@@ -1136,6 +1291,7 @@ def main() -> int:
         counts['fw_walker_app'] = phase_app_fw_walker(torch)
         counts['fw_walker_flagship'], fw_runner = phase_flagship_fw_walker(
             torch, card)
+        counts['bench'] = phase_bench(torch)
         rows = phase_times(torch, counts, im_runner, fw_runner)
     finally:
         try:

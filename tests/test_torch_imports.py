@@ -1,6 +1,7 @@
-"""The port imports neither ``jax`` nor anything of ``tnco_tpu``.
+"""The port imports neither ``jax`` nor anything of ``tnco_tpu`` or
+``benchmarks``.
 
-In a fresh interpreter where both are blocked (``sys.modules[name] =
+In a fresh interpreter where all three are blocked (``sys.modules[name] =
 None`` makes any import of them fail), every module of
 ``tnco_tpu_torch`` and ``chip_smoke.py`` must import.
 """
@@ -15,6 +16,7 @@ _SCRIPT = r'''
 import importlib, pkgutil, sys
 sys.modules['jax'] = None
 sys.modules['tnco_tpu'] = None
+sys.modules['benchmarks'] = None
 import tnco_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(tnco_tpu_torch.__path__,
                                                'tnco_tpu_torch.')]
@@ -22,7 +24,7 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'tnco_tpu')
+             if m.split('.')[0] in ('jax', 'jaxlib', 'tnco_tpu', 'benchmarks')
              and sys.modules[m] is not None)
 assert not bad, bad
 print(len(names))
@@ -40,5 +42,6 @@ def test_port_sources_name_no_jax_import():
     for path in (_ROOT / 'tnco_tpu_torch').rglob('*.py'):
         text = path.read_text()
         for bad in ('import jax', 'from jax', 'import tnco_tpu\n',
-                    'from tnco_tpu.', 'from tnco_tpu import'):
+                    'from tnco_tpu.', 'from tnco_tpu import',
+                    'import benchmarks', 'from benchmarks'):
             assert bad not in text, (path, bad)

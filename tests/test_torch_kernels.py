@@ -135,9 +135,12 @@ def test_plain_versions_do_not_count_launches():
     kg.gather_gbn(vals, ids)
     ks.scatter_rows_inplace(vals, ids, torch.ones((2, 3, 2),
                                                   dtype=torch.int32))
+    ks.scatter_rows_gbn(vals, ids, torch.ones((2, 3, 2), dtype=torch.int32))
     assert launch_counts() == {'gather_gbn': 0, 'inv_ids': 0,
-                               'scatter_rows_inplace': 0, 'walker_im': 0,
-                               'walker_fw': 0}
+                               'scatter_rows_inplace': 0,
+                               'scatter_rows_gbn': 0, 'walker_im': 0,
+                               'walker_fw': 0, 'probe_loop': 0,
+                               'probe_take': 0}
 
 
 @pytest.mark.parametrize('case', ['meta', 'ids_dtype', 'rows', 'planes',

@@ -1,8 +1,10 @@
 """The port's device rule: the card unless the caller asks for the CPU."""
 
+import subprocess
+
 import torch
 
-__all__ = ['resolve_device']
+__all__ = ['resolve_device', 'card_info']
 
 
 def resolve_device(device=None) -> torch.device:
@@ -19,3 +21,17 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ('cuda', 'cpu'):
         raise ValueError(f"Unsupported device: {dev}.")
     return dev
+
+
+def card_info(dev: torch.device) -> dict:
+    """``{'name', 'power_limit'}`` of the card as ``nvidia-smi
+    --query-gpu=name,power.limit`` prints them (the first card), or
+    ``{'name': 'cpu'}`` for the CPU."""
+    if dev.type == 'cpu':
+        return {'name': 'cpu'}
+    line = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    name, limit = (x.strip() for x in line.rsplit(',', 1))
+    return {'name': name, 'power_limit': limit}

@@ -19,7 +19,7 @@ __all__ = ['load', 'build', 'nvcc_path', 'BUILD_DIR', 'SOURCES']
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build' / 'kernels'
-SOURCES = ('gather.cu', 'scatter.cu', 'walker.cu')
+SOURCES = ('gather.cu', 'scatter.cu', 'walker.cu', 'probe.cu')
 _LIB_NAME = 'libtnco_torch_kernels.so'
 # No --use_fast_math, and -fmad=false: the walker's float expressions
 # must round as its plain version's torch ops do, one operation at a
@@ -40,6 +40,9 @@ _SIGNATURES = {
     'tnco_gather_gbn': (_P, _P, _P, _I, _I, _I, _I, _P),
     'tnco_inv_ids': (_P, _P, _I, _I, _I, _P),
     'tnco_scatter_rows': (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    'tnco_scatter_gbn': (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    'tnco_probe_loop': (_P, _P, _P, _P, _I, _I, _I, _P),
+    'tnco_probe_take': (_P, _P, _P, _I, _I, _I, _P),
     'tnco_walker_im': (_P,) * 10 + (_I,) * 10 + (_P,),
     'tnco_walker_fw': (_P,) * 10 + (_I,) * 10 + (_F, _I, _P),
 }

@@ -1,6 +1,6 @@
-"""K2 and K3: id inversion and the in-place row scatter — the port of
-``tnco_tpu/kernels/pallas_scatter.py`` (``inv_ids``,
-``scatter_rows_inplace``).
+"""K2, K3 and K4: id inversion and the in-place and out-of-place row
+scatters — the port of ``tnco_tpu/kernels/pallas_scatter.py``
+(``inv_ids``, ``scatter_rows_inplace``, ``scatter_rows_gbn``).
 
 - :func:`inv_ids`: ``inv[b, n] = q`` with ``ids[b, q] == n``, else -1;
   out-of-range ids are ignored and the LAST ``q`` wins on duplicates
@@ -9,10 +9,14 @@
   upd[g, b, q]`` over the plane range, IN PLACE on the caller's tensor
   (where JAX donated the buffer); -1 writes nothing, and duplicates keep
   the last-q-wins result through the inversion.
+- :func:`scatter_rows_gbn`: the same scatter OUT OF PLACE: a new
+  ``[hi - lo, B, N]`` tensor; the caller's ``vals`` is never written
+  (JAX reuses its buffer only when the caller donates it).
 
 CUDA tensors go to the hand-written kernels (``csrc/scatter.cu``); CPU
 tensors go to the plain PyTorch versions (spec: ``_inv_xla`` and
-``_scatter_xla``, ``pallas_scatter.py:85-94,167-171``).  No fallback:
+``_scatter_xla`` composed with the inversion, ``pallas_scatter.py:85-94,
+167-171``).  No fallback:
 a CUDA call launches the kernel or raises.
 """
 
@@ -21,12 +25,15 @@ import torch
 from tnco_tpu_torch.kernels import build
 from tnco_tpu_torch.kernels.gather import _check, _plane_range
 
-__all__ = ['inv_ids', 'scatter_rows_inplace', 'inv_ids_plain',
-           'scatter_rows_inplace_plain', 'inv_launches', 'scatter_launches']
+__all__ = ['inv_ids', 'scatter_rows_inplace', 'scatter_rows_gbn',
+           'inv_ids_plain', 'scatter_rows_inplace_plain',
+           'scatter_rows_gbn_plain', 'inv_launches', 'scatter_launches',
+           'gbn_launches']
 
 # Kernel launches since the last reset (the main path's proof of route).
 inv_launches = 0
 scatter_launches = 0
+gbn_launches = 0
 
 
 def _check_ids(ids):
@@ -77,18 +84,25 @@ def _check_upd(vals, ids, upd, lo, hi):
         raise ValueError(f"upd shape {tuple(upd.shape)} != {want}.")
 
 
-def scatter_rows_inplace_plain(vals, ids, upd, planes=None):
-    """Plain PyTorch version; writes ``vals`` in place and returns it."""
+def scatter_rows_gbn_plain(vals, ids, upd, planes=None):
+    """Plain PyTorch version of :func:`scatter_rows_gbn` (a new tensor)."""
     lo, hi = _plane_range(planes, vals.shape[0])
     n, q = vals.shape[2], ids.shape[1]
-    if q == 0 or hi == lo:
-        return vals
+    region = vals.view(torch.int32)[lo:hi]
+    if q == 0:
+        return region.clone().view(vals.dtype)
     inv = inv_ids_plain(ids, n)
     safe = inv.clamp(0, q - 1).long()
     got = torch.gather(upd.view(torch.int32), 2,
                        safe[None].expand(hi - lo, -1, -1))
-    region = vals.view(torch.int32)[lo:hi]
-    region.copy_(torch.where((inv >= 0)[None], got, region))
+    return torch.where((inv >= 0)[None], got, region).view(vals.dtype)
+
+
+def scatter_rows_inplace_plain(vals, ids, upd, planes=None):
+    """Plain PyTorch version; writes ``vals`` in place and returns it."""
+    lo, hi = _plane_range(planes, vals.shape[0])
+    vals.view(torch.int32)[lo:hi] = scatter_rows_gbn_plain(
+        vals, ids, upd, (lo, hi)).view(torch.int32)
     return vals
 
 
@@ -122,3 +136,40 @@ def _launch_scatter(vals, ids, inv, upd, lo, hi):
                                upd.data_ptr(), hi - lo, b, n, ids.shape[1],
                                stream)
     build.check(rc, 'scatter_rows_inplace')
+
+
+def scatter_rows_gbn(vals, ids, upd, *, planes=None):
+    """Row scatter into a plane range of ``vals``, out of place.
+
+    ``out[g, b, n] = upd[g, b, inv[b, n]]`` where ``ids[b, inv[b, n]] ==
+    n``, else ``vals[lo + g, b, n]``, for the ``planes=(lo, hi)`` range
+    (default: all planes); returns a new ``[hi - lo, B, N]`` tensor of
+    ``vals``' dtype.  ``vals`` is never modified.  -1 and out-of-range
+    ids write nothing; duplicates keep the last q (the inversion, K2).
+    """
+    global gbn_launches
+    _check(vals, ids)
+    lo, hi = _plane_range(planes, vals.shape[0])
+    _check_upd(vals, ids, upd, lo, hi)
+    if vals.device.type == 'cpu':
+        return scatter_rows_gbn_plain(vals, ids, upd, (lo, hi))
+    inv = inv_ids(ids, vals.shape[2])
+    out = torch.empty((hi - lo,) + tuple(vals.shape[1:]), dtype=vals.dtype,
+                      device=vals.device)
+    if out.numel():
+        _launch_scatter_gbn(vals, inv, upd, out, lo)
+        gbn_launches += 1
+    return out
+
+
+def _launch_scatter_gbn(vals, inv, upd, out, lo):
+    """One K4 launch with a precomputed inversion into ``out`` (no
+    counting; the wrapper above counts, and timing code calls this
+    directly)."""
+    g, b, n = out.shape
+    lib = build.load()
+    stream = torch.cuda.current_stream(vals.device).cuda_stream
+    rc = lib.tnco_scatter_gbn(vals.data_ptr() + lo * b * n * 4,
+                              inv.data_ptr(), upd.data_ptr(), out.data_ptr(),
+                              g, b, n, upd.shape[2], stream)
+    build.check(rc, 'scatter_rows_gbn')
