@@ -13,8 +13,11 @@ Phases, each fatal on failure:
 2. every kernel against its plain PyTorch version on the card, bitwise,
    at the main-path shapes plus edge cases: K1-K3, then the walker K5-IM
    against ``run_walker_plain`` on the same pre-drawn streams (a small
-   mixed-dims lattice at B=4, P=8 and the edge cases P=1 and B=1, then
-   the Sycamore shapes at B=64, P=8; two chunks of K=16 each), then the
+   mixed-dims lattice at B=4, P=8 and P=128, 'greedy', and the edge
+   cases P=1 and B=1, then the Sycamore shapes at B=64, P=8, 'mh' and
+   'greedy'; two chunks of K=16 each; then a 7001-tensor hyper-index
+   chain on dims 2 and 3, whose topology exceeds shared memory, at B=2
+   and K=8), then the
    finite-width walker K5-FW against ``run_walker_fw_plain`` the same
    way (reslices inside the chunks: every 5 steps on the lattice with
    max_width 10, every 10 on Sycamore with max_width 30), then the
@@ -48,7 +51,10 @@ Phases, each fatal on failure:
    check (K5-IM, K1, K4 against their plain versions), then the row-read
    probe's ``main()`` (ns per row op);
 10. kernel, plain-version, library-call and bound times at the main-path
-   shapes, printed as one ``{"kernels": [...]}`` line.
+   shapes, printed as one ``{"kernels": [...]}`` line; each K5 row also
+   holds, under ``tree_route``, its times on a mixed log2-dims table of
+   the same shape (the kernel's tree width route, which no main-path
+   launch takes on Sycamore's dims).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
@@ -97,6 +103,9 @@ B, P, W, N_PAD, F_APPLY = 64, 128, 64, 3328, 132
 # IM walker: P=8 walks (the runner's default), K5 checked on chunks of
 # K_CHECK iterations and timed on chunks of K_CHUNK (the runner's).
 P_IM, K_CHECK, K_CHUNK = 8, 16, 128
+# The walker checks' network above the shared-memory topology limit is
+# checked on chunks of K_BIG iterations (B=2).
+K_BIG = 8
 # FW walker: reslice every 10 steps (the app's default); K5-FW timed on
 # a segment of that length.
 UPDATE_SLICES = 10
@@ -440,30 +449,56 @@ def _batch_err(torch, got, want):
                for f in type(got).field_names())
 
 
+def _walker_cases(np):
+    """The walker checks' networks and operating points: ``(name,
+    network, one path seed per replica, walks, prob_kind, K)``.  The
+    mixed-dims lattice takes the kernel's tree width route, the dim-2
+    networks its popcount route; P=1 and B=1 are the edge cases where a
+    transposed [P, B] tensor needs no copy; P=128 gives every warp 16
+    walks and the claim scan its longest run; 'greedy' keeps improving,
+    so that many dirty-row snapshots run per launch; the 7001-tensor
+    hyper-index chain (N=14001, W=110) is too large for the topology in
+    shared memory and runs the kernel's global-topology instantiation, on
+    dims 2 (popcount widths) and dims 3 (tree widths)."""
+    from tnco_tpu_torch.testing.networks import (hyper_chain_tn, lattice_2d,
+                                                 sycamore_like_tn)
+
+    rng = np.random.default_rng(0)
+    ts, out, dims = lattice_2d(6, 6)
+    mixed = (ts, out, {x: int(rng.integers(2, 6)) for x in sorted(dims)})
+    syc = sycamore_like_tn(20)
+    return [('mixed-dims 6x6 lattice', mixed, [0, 1, 2, 3], P_IM, 'mh',
+             K_CHECK),
+            ('mixed-dims 6x6 lattice', mixed, [0, 1, 2], 1, 'mh', K_CHECK),
+            ('mixed-dims 6x6 lattice', mixed, [0], 40, 'mh', K_CHECK),
+            ('mixed-dims 6x6 lattice', mixed, [0, 1, 2, 3], P, 'mh',
+             K_CHECK),
+            ('mixed-dims 6x6 lattice', mixed, [0, 1, 2, 3], P, 'greedy',
+             K_CHECK),
+            ('Sycamore m=20', syc, [0, 1, 2, 3] * 16, P_IM, 'mh', K_CHECK),
+            ('Sycamore m=20', syc, [0, 1, 2, 3] * 16, P_IM, 'greedy',
+             K_CHECK),
+            ('hyper-index chain', hyper_chain_tn(7001), [0, 1], P_IM, 'mh',
+             K_BIG),
+            ('hyper-index chain, dims 3', hyper_chain_tn(7001, 3), [0, 1],
+             P_IM, 'mh', K_BIG)]
+
+
 def phase_walker_checks(torch):
     """K5 against its plain version on the same pre-drawn streams: state,
     min state, totals, pos, moves and applied, bitwise, over two chained
     chunks (the second starts mid-walk)."""
+    import dataclasses
+
     import numpy as np
 
     from tnco_tpu_torch.kernels import sa_multiwalk as smw
     from tnco_tpu_torch.kernels import walker as kw
-    from tnco_tpu_torch.testing.networks import lattice_2d, sycamore_like_tn
 
     dev = torch.device('cuda')
-    rng = np.random.default_rng(0)
-    ts, out, dims = lattice_2d(6, 6)
-    mixed = {x: int(rng.integers(2, 6)) for x in sorted(dims)}
-    # (name, network, one path seed per replica, walks); P=1 and B=1 are
-    # the edge cases where a transposed [P, B] tensor needs no copy.
-    cases = [('mixed-dims 6x6 lattice', (ts, out, mixed), [0, 1, 2, 3],
-              P_IM),
-             ('mixed-dims 6x6 lattice', (ts, out, mixed), [0, 1, 2], 1),
-             ('mixed-dims 6x6 lattice', (ts, out, mixed), [0], 40),
-             ('Sycamore m=20', sycamore_like_tn(20), [0, 1, 2, 3] * 16,
-              P_IM)]
-    for name, (ts, out, dims), path_seeds, p in cases:
+    for name, (ts, out, dims), path_seeds, p, kind, k in _walker_cases(np):
         batch, cfg, log2d_w32 = _im_setup(torch, ts, out, dims, path_seeds)
+        cfg = dataclasses.replace(cfg, prob_kind=kind)
         n, b = batch.c0.shape
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
@@ -471,8 +506,8 @@ def phase_walker_checks(torch):
         applied = 0
         for chunk in range(2):
             betas = torch.linspace(10.0 * chunk, 10.0 * chunk + 10.0,
-                                   K_CHECK, device=dev)
-            draws = smw.draw_chunk(gen, cfg.n_leaves, K_CHECK, p, b)
+                                   k, device=dev)
+            draws = smw.draw_chunk(gen, cfg.n_leaves, k, p, b)
             pos0 = pos.clone()
             got, mg = kw.run_walker(batch, betas, log2d_w32, cfg, p, pos,
                                     draws=draws)
@@ -491,7 +526,7 @@ def phase_walker_checks(torch):
         if not applied:
             fail(f'walker_im check on {name} applied no move')
         log(f'kernels: walker_im == plain bitwise on {name} (N={n}, '
-            f'W={cfg.n_lanes}, B={b}, P={p}, 2 x K={K_CHECK}, '
+            f'W={cfg.n_lanes}, B={b}, P={p}, {kind}, 2 x K={k}, '
             f'{applied} moves applied)')
 
 
@@ -687,30 +722,29 @@ def _count_reslices(kw):
 def phase_walker_fw_checks(torch):
     """K5-FW against its plain version on the same pre-drawn streams:
     state, min state, widths, slices, min slices, totals, pos, moves and
-    applied, bitwise, over two chained chunks with reslices inside."""
+    applied, bitwise, over two chained chunks with reslices inside (the
+    cases of the IM checks, each with its width cap and reslice cadence:
+    lattice 10 every 5, Sycamore 30 every 10, the chain 4 every 4)."""
+    import dataclasses
+
     import numpy as np
 
     from tnco_tpu_torch.kernels import sa_multiwalk as smw
     from tnco_tpu_torch.kernels import walker as kw
-    from tnco_tpu_torch.testing.networks import lattice_2d, sycamore_like_tn
 
     dev = torch.device('cuda')
-    rng = np.random.default_rng(0)
-    ts, out, dims = lattice_2d(6, 6)
-    mixed = {x: int(rng.integers(2, 6)) for x in sorted(dims)}
-    # (name, network, path seeds, walks, max_width, reslice every)
-    cases = [('mixed-dims 6x6 lattice', (ts, out, mixed), [0, 1, 2, 3],
-              P_IM, 10.0, 5),
-             ('mixed-dims 6x6 lattice', (ts, out, mixed), [0, 1, 2], 1,
-              10.0, 5),
-             ('mixed-dims 6x6 lattice', (ts, out, mixed), [0], 40, 10.0, 5),
-             ('Sycamore m=20', sycamore_like_tn(20), [0, 1, 2, 3] * 16,
-              P_IM, 30.0, UPDATE_SLICES)]
+    caps = {'mixed-dims 6x6 lattice': (10.0, 5),
+            'Sycamore m=20': (30.0, UPDATE_SLICES),
+            'hyper-index chain': (4.0, 4),
+            'hyper-index chain, dims 3': (4.0, 4)}
     stats, restore = _count_reslices(kw)
     try:
-        for name, (ts, out, dims), path_seeds, p, mw, upd in cases:
+        for name, (ts, out, dims), path_seeds, p, kind, k in \
+                _walker_cases(np):
+            mw, upd = caps[name]
             batch, cfg, log2d_w32, ul = _fw_setup(torch, ts, out, dims,
                                                   path_seeds, mw)
+            cfg = dataclasses.replace(cfg, prob_kind=kind)
             n, b = batch.c0.shape
             skip = torch.zeros(cfg.n_lanes, dtype=torch.int32, device=dev)
             gen = torch.Generator(device=dev)
@@ -719,11 +753,11 @@ def phase_walker_fw_checks(torch):
             applied = 0
             stats.update(reslices=0, taken=0)
             for chunk in range(2):
-                it = np.arange(chunk * K_CHECK, (chunk + 1) * K_CHECK)
+                it = np.arange(chunk * k, (chunk + 1) * k)
                 mask = it % upd == 0
                 betas = torch.linspace(10.0 * chunk, 10.0 * chunk + 10.0,
-                                       K_CHECK, device=dev)
-                draws = smw.draw_chunk_fw(gen, cfg.n_leaves, K_CHECK, p, b,
+                                       k, device=dev)
+                draws = smw.draw_chunk_fw(gen, cfg.n_leaves, k, p, b,
                                           cfg.n_lanes * 32,
                                           int(mask.sum()))
                 pos0 = pos.clone()
@@ -747,8 +781,8 @@ def phase_walker_fw_checks(torch):
             if not stats['reslices']:
                 fail(f'walker_fw check on {name} ran no reslice')
             log(f'kernels: walker_fw == plain bitwise on {name} (N={n}, '
-                f'W={cfg.n_lanes}, B={b}, P={p}, max_width {mw}, 2 x '
-                f'K={K_CHECK}, reslice every {upd}: {stats["reslices"]} '
+                f'W={cfg.n_lanes}, B={b}, P={p}, {kind}, max_width {mw}, '
+                f'2 x K={k}, reslice every {upd}: {stats["reslices"]} '
                 f'reslices run, {stats["taken"]} replica reslices taken; '
                 f'{applied} moves applied)')
     finally:
@@ -1011,6 +1045,136 @@ def _max_abs_err(torch, got, want):
     return float(d.abs().max()) if d.numel() else 0.0
 
 
+def _eager_ms(torch, fn, calls=3):
+    """Per-call ms of eager ``fn`` between CUDA events: the median of
+    ``calls`` calls, and all of them."""
+    times = []
+    for _ in range(calls):
+        s0 = torch.cuda.Event(enable_timing=True)
+        e0 = torch.cuda.Event(enable_timing=True)
+        s0.record()
+        fn()
+        e0.record()
+        e0.synchronize()
+        times.append(s0.elapsed_time(e0))
+    return sorted(times)[len(times) // 2], times
+
+
+def _changed_words(torch, before, after):
+    """The 32-bit words in which two buffers differ."""
+    torch.cuda.synchronize()
+    return int((before.view(torch.int32) != after.view(torch.int32)).sum())
+
+
+def _walker_bound(n_rows, r_words, n_int_pad, wp, k, b, n_widths, w,
+                  changed):
+    """K5's bound (ms, 'bytes' or 'operations').  Bytes: the rows read
+    once; the words of the rows and of the min rows that this run's launch
+    changed, written once (the min rows are never read, and a word that a
+    launch leaves as it was needs no write); the draws, betas and log2
+    dims read once; pos, min_lt and applied read and written once.
+    Operations: the width trees per walk (W*32 terms and adds each, over
+    pow2(W) words) and the total's exp2 and adds per iteration, in
+    float32."""
+    nbytes = 4 * (b * n_rows * r_words + changed + 3 * k * P_IM * b + k +
+                  32 * w + 2 * b * P_IM + 4 * b)
+    flops = k * b * (P_IM * (n_widths * 2 * wp * 32 + 16) + 2 * n_int_pad)
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / F32_OPS_PER_S
+    log(f'  bound: bytes {nbytes} ({t_bytes:.4f} ms), float32 operations '
+        f'{flops} ({t_ops:.4f} ms)')
+    return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+def _time_walker_im(torch, gen, im_runner, log2d_w32, width_route):
+    """One K5-IM timing: ``(ms, plain_ms, bound_ms, bound_by, err)`` (see
+    phase_times)."""
+    from tnco_tpu_torch.kernels import sa_multiwalk as smw
+    from tnco_tpu_torch.kernels import walker as kw
+    dev = torch.device('cuda')
+    st, pos, cfg = im_runner.states, im_runner._mw_pos, im_runner.cfg
+    n, b = st.c0.shape
+    w = cfg.n_lanes
+    betas = torch.linspace(0.0, 60.0, K_CHUNK, device=dev)
+    draws = smw.draw_chunk(gen, cfg.n_leaves, K_CHUNK, P_IM, b)
+    got, mg = kw.run_walker(st, betas, log2d_w32, cfg, P_IM, pos,
+                            draws=draws)
+    want, mw = kw.run_walker_plain(st, betas, log2d_w32, cfg, P_IM, pos,
+                                   draws=draws)
+    err = max(_batch_err(torch, got, want),
+              _max_abs_err(torch, mg['pos'], mw['pos']),
+              abs(int(mg['applied']) - int(mw['applied'])))
+
+    def launch(ops):
+        kw.launch_walker(ops['rows'], ops['min_rows'], ops['pos_bp'],
+                         ops['min_lt'], ops['applied'], ops['draws'],
+                         ops['betas'], ops['log2d'], cfg, n, w)
+
+    # The words one launch changes, for the bound.
+    ops = kw.kernel_inputs(st, betas, log2d_w32, pos, draws)
+    before = ops['rows'].clone(), ops['min_rows'].clone()
+    launch(ops)
+    changed = (_changed_words(torch, before[0], ops['rows']) +
+               _changed_words(torch, before[1], ops['min_rows']))
+    del before
+    ops = kw.kernel_inputs(st, betas, log2d_w32, pos, draws)
+    ms = _time_ms(torch, lambda: launch(ops), reps=3, rounds=5)
+    plain, plain_times = _eager_ms(torch, lambda: kw.run_walker_plain(
+        st, betas, log2d_w32, cfg, P_IM, pos, draws=draws))
+    log(f'time walker_im ({width_route} widths): plain calls (ms) '
+        f'{plain_times}; words changed by one launch {changed}')
+    bound, by = _walker_bound(n, ops['rows'].shape[2],
+                              1 << max(0, (n - cfg.n_leaves - 1).bit_length()),
+                              1 << max(0, (w - 1).bit_length()), K_CHUNK, b,
+                              2, w, changed)
+    return ms, plain, bound, by, float(err)
+
+
+def _time_walker_fw(torch, gen, fw_runner, log2d_w32, ul, width_route):
+    """One K5-FW timing, as :func:`_time_walker_im`."""
+    from tnco_tpu_torch.kernels import sa_multiwalk as smw
+    from tnco_tpu_torch.kernels import walker as kw
+    dev = torch.device('cuda')
+    st, pos, cfg = fw_runner.states, fw_runner._mw_pos, fw_runner.cfg
+    n, b = st.c0.shape
+    w = cfg.n_lanes
+    k = UPDATE_SLICES
+    betas = torch.linspace(30.0, 60.0, k, device=dev)
+    dr = {name: x.to(torch.float32 if name == 'u' else torch.int32)
+          .contiguous() for name, x in
+          smw.draw_chunk(gen, cfg.n_leaves, k, P_IM, b).items()}
+    mw = float(fw_runner.max_width)
+    seg_k = kw.kernel_inputs_fw(st, pos)
+    seg_p = kw.kernel_inputs_fw(st, pos)
+    kw.launch_walker_fw(seg_k, dr, betas, log2d_w32, cfg, mw, False)
+    kw.walker_fw_segment_plain(seg_p, dr, betas, log2d_w32, cfg, mw, False,
+                               ul)
+    err = max(_max_abs_err(torch, seg_k[x], seg_p[x])
+              for x in ('rows', 'pos_bp', 'min_lt', 'applied'))
+    got = kw.unpack_rows_fw(seg_k['min_rows'], w)
+    want = kw.unpack_rows_fw(seg_p['min_rows'], w)
+    err = max([err] + [_max_abs_err(torch, got[i], want[i])
+                       for i in (0, 1, 2, 4, 6)])
+    seg_t = kw.kernel_inputs_fw(st, pos)
+    # seg_t is seg_k before its launch: the words that launch changed.
+    changed = (_changed_words(torch, seg_t['rows'], seg_k['rows']) +
+               _changed_words(torch, seg_t['min_rows'], seg_k['min_rows']))
+    ms = _time_ms(torch, lambda: kw.launch_walker_fw(
+        seg_t, dr, betas, log2d_w32, cfg, mw, False), reps=3, rounds=5)
+    plain, plain_times = _eager_ms(torch, lambda: kw.walker_fw_segment_plain(
+        seg_p, dr, betas, log2d_w32, cfg, mw, False, ul))
+    log(f'time walker_fw ({width_route} widths): K={k}; plain calls (ms) '
+        f'{plain_times}; words changed by one launch {changed}')
+    # As K5-IM on the FW rows (N + 1 rows of R words), with four width
+    # trees per walk (new, sliced new, and the two costs).
+    n1, r_words = seg_t['rows'].shape[1:]
+    bound, by = _walker_bound(n1, r_words,
+                              1 << max(0, (n - cfg.n_leaves - 1).bit_length()),
+                              1 << max(0, (w - 1).bit_length()), k, b, 4, w,
+                              changed)
+    return ms, plain, bound, by, float(err)
+
+
 def phase_times(torch, counts, im_runner, fw_runner):
     """Kernel, plain, library and bound times at the main-path shapes;
     ``counts`` maps each path's phase to its launch counts."""
@@ -1018,6 +1182,7 @@ def phase_times(torch, counts, im_runner, fw_runner):
     from tnco_tpu_torch.kernels import sa_multiwalk as smw
     from tnco_tpu_torch.kernels import scatter as ks
     from tnco_tpu_torch.kernels import walker as kw
+    from tnco_tpu_torch.testing.utils import mixed_log2d_table
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -1142,123 +1307,50 @@ def phase_times(torch, counts, im_runner, fw_runner):
         log(f'time probe_{impl}: {n_ops} row ops, {1e6 * ms / n_ops:.4f} '
             f'ns/row; bytes {nbytes}')
 
-    # K5 at the IM flagship's shape and state: B=64, P=8, K=128.  The
-    # launch updates its buffers in place, so the timed launches go on
-    # annealing the flagship's state.  The plain version is timed per
-    # call with events around it: it is eager PyTorch whose host issue
-    # time is part of what it costs.
-    st, pos = im_runner.states, im_runner._mw_pos
-    cfg, log2d_w32 = im_runner.cfg, im_runner.log2d_w32
-    n, b = st.c0.shape
-    w = cfg.n_lanes
-    betas = torch.linspace(0.0, 60.0, K_CHUNK, device=dev)
-    draws = smw.draw_chunk(gen, cfg.n_leaves, K_CHUNK, P_IM, b)
-    got, mg = kw.run_walker(st, betas, log2d_w32, cfg, P_IM, pos,
-                            draws=draws)
-    want, mw = kw.run_walker_plain(st, betas, log2d_w32, cfg, P_IM, pos,
-                                   draws=draws)
-    err = max(_batch_err(torch, got, want),
-              _max_abs_err(torch, mg['pos'], mw['pos']),
-              abs(int(mg['applied']) - int(mw['applied'])))
-    ops = kw.kernel_inputs(st, betas, log2d_w32, pos, draws)
-    ms = _time_ms(torch, lambda: kw.launch_walker(
-        ops['rows'], ops['min_rows'], ops['pos_bp'], ops['min_lt'],
-        ops['applied'], ops['draws'], ops['betas'], ops['log2d'], cfg, n,
-        w), reps=3, rounds=5)
-    plain_times = []
-    for _ in range(3):
-        s0 = torch.cuda.Event(enable_timing=True)
-        e0 = torch.cuda.Event(enable_timing=True)
-        s0.record()
-        kw.run_walker_plain(st, betas, log2d_w32, cfg, P_IM, pos,
-                            draws=draws)
-        e0.record()
-        e0.synchronize()
-        plain_times.append(s0.elapsed_time(e0))
-    plain = sorted(plain_times)[1]
-    # Bound: the rows and the min rows read and written once, the draws
-    # read once; operations: both width trees per walk (W*32 terms and
-    # adds each, over pow2(W) words) and the total's exp2 and adds per
-    # iteration, in float32.
-    r_words = ops['rows'].shape[2]
-    nbytes = 4 * (4 * b * n * r_words + 3 * K_CHUNK * P_IM * b + K_CHUNK +
-                  4 * b * P_IM + 4 * b)
-    wp = 1 << max(0, (w - 1).bit_length())
-    n_int = 1 << max(0, (n - cfg.n_leaves - 1).bit_length())
-    flops = K_CHUNK * b * (P_IM * (2 * 2 * wp * 32 + 16) + 2 * n_int)
-    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * flops / F32_OPS_PER_S
-    row('walker_im', ms, plain, None, max(t_bytes, t_ops),
-        'bytes' if t_bytes >= t_ops else 'operations', float(err))
-    log(f'time walker_im: bytes {nbytes} ({t_bytes:.4f} ms), float32 '
-        f'operations {flops} ({t_ops:.4f} ms); plain calls (ms) '
-        f'{plain_times}')
-
-    # K5-FW at the FW walker flagship's state: one segment of
-    # UPDATE_SLICES iterations (the segment between two reslices), B=64,
-    # P=8, no deferred snapshot.  Timed like K5-IM; the plain segment is
-    # eager PyTorch, timed per call between CUDA events.
-    st, pos = fw_runner.states, fw_runner._mw_pos
-    cfg, log2d_w32 = fw_runner.cfg, fw_runner.log2d_w32
-    n, b = st.c0.shape
-    w = cfg.n_lanes
-    k = UPDATE_SLICES
-    betas = torch.linspace(30.0, 60.0, k, device=dev)
-    dr = {name: x.to(torch.float32 if name == 'u' else torch.int32)
-          .contiguous() for name, x in
-          smw.draw_chunk(gen, cfg.n_leaves, k, P_IM, b).items()}
-    mw = float(fw_runner.max_width)
-    seg_k = kw.kernel_inputs_fw(st, pos)
-    seg_p = kw.kernel_inputs_fw(st, pos)
-    kw.launch_walker_fw(seg_k, dr, betas, log2d_w32, cfg, mw, False)
-    kw.walker_fw_segment_plain(seg_p, dr, betas, log2d_w32, cfg, mw, False,
-                               fw_runner.uniform_log2)
-    err = max(_max_abs_err(torch, seg_k[x], seg_p[x])
-              for x in ('rows', 'pos_bp', 'min_lt', 'applied'))
-    got = kw.unpack_rows_fw(seg_k['min_rows'], w)
-    want = kw.unpack_rows_fw(seg_p['min_rows'], w)
-    err = max([err] + [_max_abs_err(torch, got[i], want[i])
-                       for i in (0, 1, 2, 4, 6)])
-    seg_t = kw.kernel_inputs_fw(st, pos)
-    ms = _time_ms(torch, lambda: kw.launch_walker_fw(
-        seg_t, dr, betas, log2d_w32, cfg, mw, False), reps=3, rounds=5)
-    plain_times = []
-    for _ in range(3):
-        s0 = torch.cuda.Event(enable_timing=True)
-        e0 = torch.cuda.Event(enable_timing=True)
-        s0.record()
-        kw.walker_fw_segment_plain(seg_p, dr, betas, log2d_w32, cfg, mw,
-                                   False, fw_runner.uniform_log2)
-        e0.record()
-        e0.synchronize()
-        plain_times.append(s0.elapsed_time(e0))
-    plain = sorted(plain_times)[1]
-    # Bound: as K5-IM on the FW rows (N + 1 rows of R words), with four
-    # width trees per walk (new, sliced new, and the two costs).
-    n1, r_words = seg_t['rows'].shape[1:]
-    nbytes = 4 * (4 * b * n1 * r_words + 3 * k * P_IM * b + k +
-                  4 * b * P_IM + 4 * b)
-    wp = 1 << max(0, (w - 1).bit_length())
-    n_int = 1 << max(0, (n - cfg.n_leaves - 1).bit_length())
-    flops = k * b * (P_IM * (4 * 2 * wp * 32 + 16) + 2 * n_int)
-    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * flops / F32_OPS_PER_S
-    row('walker_fw', ms, plain, None, max(t_bytes, t_ops),
-        'bytes' if t_bytes >= t_ops else 'operations', float(err))
-    log(f'time walker_fw: K={k}, bytes {nbytes} ({t_bytes:.4f} ms), '
-        f'float32 operations {flops} ({t_ops:.4f} ms); plain calls (ms) '
-        f'{plain_times}; launches per app phase '
+    # K5 at the IM flagship's shape and state: B=64, P=8, K=128, with
+    # the network's log2 dims (all 1: the kernel's popcount width route,
+    # the one every main-path launch took) and, under the row's
+    # 'tree_route', with a mixed table of the same shape (the tree route;
+    # the kernel picks it from the data, so no main-path launch took it).
+    # Each timing starts from the flagship's state; the launches update
+    # their buffers in place, so the timed launches go on annealing it.
+    # The plain version is timed per call with events around it: it is
+    # eager PyTorch whose host issue time is part of what it costs.
+    # K5-FW at the FW walker flagship's state the same two ways: one
+    # segment of UPDATE_SLICES iterations (the segment between two
+    # reslices), B=64, P=8, no deferred snapshot.
+    im = (_time_walker_im(torch, gen, im_runner, im_runner.log2d_w32,
+                          'popcount'),
+          _time_walker_im(torch, gen, im_runner,
+                          mixed_log2d_table(im_runner.log2d_w32), 'tree'))
+    fw = (_time_walker_fw(torch, gen, fw_runner, fw_runner.log2d_w32,
+                          fw_runner.uniform_log2, 'popcount'),
+          _time_walker_fw(torch, gen, fw_runner,
+                          mixed_log2d_table(fw_runner.log2d_w32), None,
+                          'tree'))
+    for name, (popcount, tree) in (('walker_im', im), ('walker_fw', fw)):
+        ms, plain, bound, by, err = popcount
+        row(name, ms, plain, None, bound, by, err)
+        ms, plain, bound, by, err = tree
+        rows[-1].update(width_route='popcount', tree_route=dict(
+            launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=bound, bound_by=by, library_ms=None))
+    log(f'time walker_fw: launches per app phase '
         f'{counts["fw_walker_app"]["walker_fw"]}, per flagship chunk '
         f'{counts["fw_walker_flagship"]["walker_fw"] / 2}')
     for r in rows:
-        if r['max_abs_err'] != 0:
-            fail(f"{r['name']}: timing inputs disagree with the plain "
-                 "version")
-        lib = 'none' if r['library_ms'] is None else \
-            f"{r['library_ms']:.4f} ms"
-        log(f"time {r['name']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {lib}, "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        for name, x in ((r['name'], r),
+                        (f"{r['name']} (tree route)", r.get('tree_route'))):
+            if x is None:
+                continue
+            if x['max_abs_err'] != 0:
+                fail(f'{name}: timing inputs disagree with the plain '
+                     'version')
+            lib = 'none' if x['library_ms'] is None else \
+                f"{x['library_ms']:.4f} ms"
+            log(f"time {name}: kernel {x['ms']:.4f} ms, plain "
+                f"{x['plain_ms']:.4f} ms, library {lib}, "
+                f"bound {x['bound_ms']:.4f} ms ({x['bound_by']})")
     return rows
 
 

@@ -58,7 +58,7 @@ PHASES = {
 OURS = {'gather_gbn_kernel': 'gather_gbn',
         'inv_ids_smem_kernel': 'inv_ids', 'inv_ids_global_kernel': 'inv_ids',
         'scatter_rows_kernel': 'scatter_rows_inplace',
-        'walker_kernel<true>': 'walker_fw'}
+        'walker_kernel<true': 'walker_fw'}
 K = 128   # walker chunk
 
 

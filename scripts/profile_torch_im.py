@@ -122,7 +122,8 @@ def main() -> int:
             k[1] += 1
     busy_ms = sum(v[0] for v in kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:10]
-    walker_ms = sum(v[0] for k, v in kern.items() if 'walker_im' in k)
+    walker_ms = sum(v[0] for k, v in kern.items()
+                    if 'walker_kernel<false' in k)
     result = {
         'card': card, 'chunks': n, 'K': K, 'B': b, 'P': p,
         'wall_ms_per_chunk': 1e3 * wall_plain / n,

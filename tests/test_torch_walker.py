@@ -296,25 +296,25 @@ def test_unsupported_and_unported_raise():
                       generator=gen)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('p,b', [(1, 3), (8, 1), (8, 3), (40, 3)])
-def test_walker_kernel_matches_plain_on_card(random_seed, p, b):
-    """K5 against ``run_walker_plain`` on the same draws, two chained
-    chunks: every batch field, pos and the counters bitwise."""
+def _skip_without_card():
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU (the CUDA kernels have no CPU '
                     'mode); run python3 chip_smoke.py on the card')
-    _, ttrees, _, tcfg, log2d, _ = _setup('mixed', random_seed % 1000)
-    dev = torch.device('cuda')
-    batch = tsb.init_batch(ttrees[:b], list(range(b)), log2d, device=dev)
-    log2d_w32 = torch.from_numpy(log2d).reshape(-1, 32).to(dev)
+
+
+def _check_kernel_chunks(batch, log2d_w32, tcfg, p, seed, k=12):
+    """Two chained chunks of K5 and of ``run_walker_plain`` on the same
+    draws: every batch field, pos and the counters bitwise."""
+    dev = batch.c0.device
+    b = batch.c0.shape[1]
     gen = torch.Generator(device=dev)
-    gen.manual_seed(random_seed)
+    gen.manual_seed(seed)
     pos = torch.full((p, b), -1, dtype=torch.int32, device=dev)
+    applied = 0
     for chunk in range(2):
-        betas = torch.linspace(4.0 * chunk, 4.0 * chunk + 4.0, 12,
+        betas = torch.linspace(4.0 * chunk, 4.0 * chunk + 4.0, k,
                                device=dev)
-        draws = tsmw.draw_chunk(gen, tcfg.n_leaves, 12, p, b)
+        draws = tsmw.draw_chunk(gen, tcfg.n_leaves, k, p, b)
         pos0 = pos.clone()
         got, mg = tw.run_walker(batch, betas, log2d_w32, tcfg, p, pos,
                                 draws=draws)
@@ -322,9 +322,56 @@ def test_walker_kernel_matches_plain_on_card(random_seed, p, b):
         want, mw = tw.run_walker_plain(batch, betas, log2d_w32, tcfg, p,
                                        pos, draws=draws)
         g, w = batch_to_numpy(got), batch_to_numpy(want)
-        for k in g:
-            np.testing.assert_array_equal(g[k].view(np.uint32),
-                                          w[k].view(np.uint32), err_msg=k)
+        for f in g:
+            np.testing.assert_array_equal(g[f].view(np.uint32),
+                                          w[f].view(np.uint32), err_msg=f)
         assert torch.equal(mg['pos'], mw['pos'])
         assert int(mg['applied']) == int(mw['applied'])
+        applied += int(mg['applied'])
         batch, pos = got, mg['pos']
+    assert applied > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('p,b,net,prob_kind', [
+    (1, 3, 'mixed', 'mh'), (8, 1, 'mixed', 'mh'), (8, 3, 'mixed', 'mh'),
+    (40, 3, 'mixed', 'mh'), (128, 3, 'mixed', 'mh'),
+    (8, 3, 'mixed', 'greedy'), (128, 3, 'mixed', 'greedy'),
+    (8, 3, 'dim2', 'mh'), (128, 3, 'dim2', 'greedy')])
+def test_walker_kernel_matches_plain_on_card(random_seed, p, b, net,
+                                             prob_kind):
+    """K5 against ``run_walker_plain`` on the same draws: mixed dims take
+    the kernel's tree width route, dim 2 its popcount route; P=128 runs
+    the longest claim scan, 'greedy' many dirty-row snapshots."""
+    _skip_without_card()
+    _, ttrees, _, tcfg, log2d, _ = _setup(net, random_seed % 1000,
+                                          prob_kind)
+    dev = torch.device('cuda')
+    batch = tsb.init_batch(ttrees[:b], list(range(b)), log2d, device=dev)
+    log2d_w32 = torch.from_numpy(log2d).reshape(-1, 32).to(dev)
+    _check_kernel_chunks(batch, log2d_w32, tcfg, p, random_seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dim', [2, 3])
+def test_walker_kernel_global_topology_on_card(random_seed, dim):
+    """K5 on a network whose topology does not fit in shared memory (the
+    7001-tensor hyper-index chain, N=14001, W=110: the kernel's
+    global-topology instantiation), B=2, K=8; dim 3 takes the tree width
+    route."""
+    _skip_without_card()
+    from tnco_tpu_torch.ops import bitops as tbit
+    from tnco_tpu_torch.testing.networks import hyper_chain_tn
+    from tnco_tpu_torch.utils.tn import get_random_contraction_path as tpath
+
+    ts, out, dims = hyper_chain_tn(7001, dim)
+    trees = [TContractionTree(tpath(ts, out, seed=s), ts, dims,
+                              output_inds=out) for s in (0, 1)]
+    t = trees[0]
+    w = t.inds_array.shape[1]
+    log2d = tbit.pad_log2_dims(t.log2_dims_array, w).numpy()
+    dev = torch.device('cuda')
+    batch = tsb.init_batch(trees, [0, 1], log2d, device=dev)
+    tcfg = TConfig(n_leaves=t.n_leaves, n_lanes=w)
+    log2d_w32 = torch.from_numpy(log2d).reshape(w, 32).to(dev)
+    _check_kernel_chunks(batch, log2d_w32, tcfg, 8, random_seed, k=8)

@@ -18,6 +18,8 @@ smallest margins instead of loosening anything.  The CUDA kernel itself
 runs only on the card (the ``cuda``-marked test).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -438,45 +440,70 @@ def test_unsupported_and_unported_raise():
                        sparse_wb=torch.zeros((w, 1), dtype=torch.int32))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('p,b', [(1, 3), (8, 1), (8, 3), (40, 3)])
-def test_walker_fw_kernel_matches_plain_on_card(random_seed, p, b):
-    """K5-FW against ``run_walker_fw_plain`` on the same draws, two
-    chained chunks with reslices: every batch field, pos and the
-    counters bitwise; and one segment launch against the plain segment
-    on the same packed rows."""
+def _skip_without_card():
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU (the CUDA kernels have no CPU '
                     'mode); run python3 chip_smoke.py on the card')
-    batch, _, tcfg, log2d_w32, ul = _setup('mixed', random_seed % 1000)
-    dev = torch.device('cuda')
-    tb = batch_fw_from_numpy(_fields(batch), dev)
-    tb = tsfb.SABatchFW(*(getattr(tb, f)[..., :b] if f != 'keys'
-                          else tb.keys[:b]
-                          for f in tsfb.SABatchFW.field_names()))
-    tlog2d = _t(log2d_w32).to(dev)
+
+
+def _check_kernel_fw_chunks(tb, tlog2d, tcfg, p, ul, seed, max_width, k=12,
+                            every=5):
+    """Two chained chunks of the FW walker on K5-FW and of
+    ``run_walker_fw_plain`` on the same draws, reslices inside: every
+    batch field, pos and the counters bitwise.  Returns the last state,
+    positions, betas and draws."""
+    dev = tb.c0.device
+    b = tb.c0.shape[1]
     skip = torch.zeros(tcfg.n_lanes, dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(random_seed)
+    gen.manual_seed(seed)
     pos = torch.full((p, b), -1, dtype=torch.int32, device=dev)
-    mask = np.arange(12) % 5 == 0
+    mask = np.arange(k) % every == 0
     for chunk in range(2):
-        betas = torch.linspace(4.0 * chunk, 4.0 * chunk + 4.0, 12,
+        betas = torch.linspace(4.0 * chunk, 4.0 * chunk + 4.0, k,
                                device=dev)
-        draws = tsmw.draw_chunk_fw(gen, tcfg.n_leaves, 12, p, b,
-                                   tcfg.n_lanes * 32, 3)
+        draws = tsmw.draw_chunk_fw(gen, tcfg.n_leaves, k, p, b,
+                                   tcfg.n_lanes * 32, int(mask.sum()))
         pos0 = pos.clone()
-        got, mg = tw.run_walker_fw(tb, betas, mask, MAX_WIDTH, tlog2d, skip,
+        got, mg = tw.run_walker_fw(tb, betas, mask, max_width, tlog2d, skip,
                                    tcfg, p, pos, uniform_log2=ul,
                                    draws=draws)
         assert torch.equal(pos, pos0)              # the input is not updated
-        want, mw = tw.run_walker_fw_plain(tb, betas, mask, MAX_WIDTH, tlog2d,
+        want, mw = tw.run_walker_fw_plain(tb, betas, mask, max_width, tlog2d,
                                           skip, tcfg, p, pos,
                                           uniform_log2=ul, draws=draws)
         _assert_batches_equal(got, want, f'chunk {chunk}')
         assert torch.equal(mg['pos'], mw['pos'])
         assert int(mg['applied']) == int(mw['applied'])
         tb, pos = got, mg['pos']
+    return tb, pos, betas, draws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('p,b,net,prob_kind', [
+    (1, 3, 'mixed', 'mh'), (8, 1, 'mixed', 'mh'), (8, 3, 'mixed', 'mh'),
+    (40, 3, 'mixed', 'mh'), (128, 3, 'mixed', 'mh'),
+    (8, 3, 'mixed', 'greedy'), (128, 3, 'mixed', 'greedy'),
+    (8, 3, 'dim2', 'mh'), (128, 3, 'dim2', 'greedy')])
+def test_walker_fw_kernel_matches_plain_on_card(random_seed, p, b, net,
+                                                prob_kind):
+    """K5-FW against ``run_walker_fw_plain`` on the same draws, two
+    chained chunks with reslices: every batch field, pos and the
+    counters bitwise; and one segment launch against the plain segment
+    on the same packed rows.  Mixed dims take the kernel's tree width
+    route, dim 2 its popcount route; P=128 runs the longest claim scan,
+    'greedy' many dirty-row snapshots."""
+    _skip_without_card()
+    batch, _, tcfg, log2d_w32, ul = _setup(net, random_seed % 1000)
+    tcfg = dataclasses.replace(tcfg, prob_kind=prob_kind)
+    dev = torch.device('cuda')
+    tb = batch_fw_from_numpy(_fields(batch), dev)
+    tb = tsfb.SABatchFW(*(getattr(tb, f)[..., :b] if f != 'keys'
+                          else tb.keys[:b]
+                          for f in tsfb.SABatchFW.field_names()))
+    tlog2d = _t(log2d_w32).to(dev)
+    tb, pos, betas, draws = _check_kernel_fw_chunks(
+        tb, tlog2d, tcfg, p, ul, random_seed, MAX_WIDTH)
     segs = [tw.kernel_inputs_fw(tb, pos) for _ in range(2)]
     dr = {k: v[:5].to(torch.int32 if k != 'u' else torch.float32)
           .contiguous() for k, v in draws.items() if k != 'jitter'}
@@ -492,3 +519,32 @@ def test_walker_fw_kernel_matches_plain_on_card(random_seed, p, b):
         assert torch.equal(
             tw.unpack_rows_fw(segs[0]['min_rows'], tcfg.n_lanes)[i],
             tw.unpack_rows_fw(segs[1]['min_rows'], tcfg.n_lanes)[i]), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dim', [2, 3])
+def test_walker_fw_kernel_global_topology_on_card(random_seed, dim):
+    """K5-FW on a network whose topology does not fit in shared memory
+    (the 7001-tensor hyper-index chain, N=14001, W=110: the kernel's
+    global-topology instantiation), B=2, K=8, max_width 4 with a reslice
+    every 4; dim 3 takes the tree width route."""
+    _skip_without_card()
+    from tnco_tpu_torch.ctree import ContractionTree as TContractionTree
+    from tnco_tpu_torch.kernels.sa_fullsweep import (
+        uniform_log2_dim as t_uniform_log2_dim)
+    from tnco_tpu_torch.ops import bitops as tbit
+    from tnco_tpu_torch.testing.networks import hyper_chain_tn
+    from tnco_tpu_torch.utils.tn import get_random_contraction_path as tpath
+
+    ts, out, dims = hyper_chain_tn(7001, dim)
+    trees = [TContractionTree(tpath(ts, out, seed=s), ts, dims,
+                              output_inds=out) for s in (0, 1)]
+    t = trees[0]
+    w = t.inds_array.shape[1]
+    log2d = tbit.pad_log2_dims(t.log2_dims_array, w)
+    dev = torch.device('cuda')
+    tb = tsfb.init_batch_fw(trees, [0, 1], 4.0, log2d.numpy(), device=dev)
+    tcfg = TConfigFW(n_leaves=t.n_leaves, n_lanes=w)
+    _check_kernel_fw_chunks(tb, log2d.reshape(w, 32).to(dev), tcfg, 8,
+                            t_uniform_log2_dim(t.log2_dims_array),
+                            random_seed, 4.0, k=8, every=4)

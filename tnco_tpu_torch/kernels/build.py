@@ -14,13 +14,18 @@ from pathlib import Path
 import shutil
 import subprocess
 
-__all__ = ['load', 'build', 'nvcc_path', 'BUILD_DIR', 'SOURCES']
+__all__ = ['load', 'load_walker', 'build', 'nvcc_path', 'BUILD_DIR',
+           'SOURCES']
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build' / 'kernels'
 SOURCES = ('gather.cu', 'scatter.cu', 'walker.cu', 'probe.cu')
 _LIB_NAME = 'libtnco_torch_kernels.so'
+# The walker's profiling build (per-phase clock64 sums, read back with
+# tnco_walker_prof): libraries of their own, built only by the profiling
+# script.
+_PROFILE_DEFINES = ('-DTNCO_WALKER_PROFILE',)
 # No --use_fast_math, and -fmad=false: the walker's float expressions
 # must round as its plain version's torch ops do, one operation at a
 # time, with no multiply and add contracted into an FMA (the other
@@ -29,6 +34,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-fmad=false', '-Xcompiler', '-fPIC')
 
 _lib = None
+_walker_libs = {}
 # Compiler output of the last build (``-Xptxas -v``: registers, shared
 # memory and spills per kernel); empty when the library was up to date.
 build_log = ''
@@ -46,6 +52,11 @@ _SIGNATURES = {
     'tnco_walker_im': (_P,) * 10 + (_I,) * 10 + (_P,),
     'tnco_walker_fw': (_P,) * 10 + (_I,) * 10 + (_F, _I, _P),
 }
+_PROFILE_SIGNATURES = {
+    'tnco_walker_im': _SIGNATURES['tnco_walker_im'],
+    'tnco_walker_fw': _SIGNATURES['tnco_walker_fw'],
+    'tnco_walker_prof': (_P, _I, _I),
+}
 
 
 def nvcc_path() -> str:
@@ -61,11 +72,12 @@ def nvcc_path() -> str:
     return found
 
 
-def build() -> Path:
-    """Compiles ``csrc/*.cu`` into ``build/kernels/`` when stale."""
+def build(sources=SOURCES, defines=(), lib_name=_LIB_NAME) -> Path:
+    """Compiles ``sources`` (names in ``csrc/``, or paths) with the extra
+    ``defines`` into ``build/kernels/<lib_name>`` when stale."""
     global build_log
-    lib = BUILD_DIR / _LIB_NAME
-    srcs = [CSRC / s for s in SOURCES]
+    lib = BUILD_DIR / lib_name
+    srcs = [CSRC / s for s in sources]    # an absolute path stays itself
     deps = srcs + sorted(CSRC.glob('*.cuh'))
     newest = max(p.stat().st_mtime for p in deps)
     if lib.is_file() and lib.stat().st_mtime >= newest:
@@ -75,8 +87,8 @@ def build() -> Path:
     tag = f'{os.getpid()}'
     objs = [BUILD_DIR / f'{s.stem}.{tag}.o' for s in srcs]
     procs = [
-        subprocess.Popen([nvcc, *NVCC_FLAGS, '-Xptxas', '-v', '-c', str(s),
-                          '-o', str(o)], stdout=subprocess.PIPE,
+        subprocess.Popen([nvcc, *NVCC_FLAGS, *defines, '-Xptxas', '-v', '-c',
+                          str(s), '-o', str(o)], stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT, text=True)
         for s, o in zip(srcs, objs)
     ]
@@ -86,7 +98,7 @@ def build() -> Path:
     if failed:
         raise RuntimeError('nvcc failed:\n' + '\n'.join(
             f'--- {s.name}\n{log}' for s, log in failed))
-    tmp = BUILD_DIR / f'{_LIB_NAME}.{tag}.tmp'
+    tmp = BUILD_DIR / f'{lib_name}.{tag}.tmp'
     link = subprocess.run([nvcc, '-shared', *map(str, objs), '-o',
                            str(tmp)], capture_output=True, text=True)
     for o in objs:
@@ -98,17 +110,40 @@ def build() -> Path:
     return lib
 
 
+def _bind(path: Path, signatures) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = _bind(build(), _SIGNATURES)
     return _lib
+
+
+def load_walker(source='walker.cu', profile=True) -> ctypes.CDLL:
+    """A library of the walker alone, built from ``source`` (a name in
+    ``csrc/``, or the path of the first design that the profiling script
+    runs as its baseline) into ``build/kernels/``: with ``profile``, its
+    profiling build (``-DTNCO_WALKER_PROFILE``: per-phase cycle sums, read
+    with ``tnco_walker_prof(out, fw, b)``).  Only
+    ``scripts/profile_torch_walker.py`` loads it; the main path never
+    does."""
+    lib_name = f"libtnco_{Path(source).stem}{'_profile' * profile}.so"
+    if lib_name not in _walker_libs:
+        defines = _PROFILE_DEFINES if profile else ()
+        sigs = _PROFILE_SIGNATURES if profile else {
+            k: v for k, v in _PROFILE_SIGNATURES.items()
+            if k != 'tnco_walker_prof'}
+        _walker_libs[lib_name] = _bind(build((source,), defines, lib_name),
+                                       sigs)
+    return _walker_libs[lib_name]
 
 
 def check(rc: int, name: str) -> None:

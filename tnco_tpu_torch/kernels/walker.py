@@ -131,12 +131,14 @@ def run_walker_plain(batch, betas, log2d_w32, cfg, n_walks: int, pos, *,
 
 
 def launch_walker(rows, min_rows, pos_bp, min_lt, applied, draws, betas,
-                  log2d, cfg, n: int, w: int):
+                  log2d, cfg, n: int, w: int, lib=None):
     """One K5 launch on packed buffers, updated in place (no counting:
-    :func:`run_walker` counts, and timing code calls this directly)."""
+    :func:`run_walker` counts, and timing code calls this directly).
+    ``lib``: the kernels' library (default :func:`build.load`; the
+    profiling script passes a build of :func:`build.load_walker`)."""
     b, _, r = rows.shape
     k, p = draws['leaf'].shape[:2]
-    lib = build.load()
+    lib = lib or build.load()
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     rc = lib.tnco_walker_im(
         rows.data_ptr(), min_rows.data_ptr(), pos_bp.data_ptr(),
@@ -291,17 +293,17 @@ def run_walker_fw_plain(batch, betas, update_slices_mask, max_width,
 
 
 def launch_walker_fw(seg, draws, betas, log2d_w32, cfg, max_width: float,
-                     defer_last_min: bool):
+                     defer_last_min: bool, lib=None):
     """One K5-FW launch on the packed buffers of ``seg`` (``rows``,
     ``min_rows``, ``pos_bp``, ``min_lt``, ``applied``), updated in place;
     ``draws`` are the segment's int32/float32 ``[K, P, B]`` streams (no
     counting: :func:`walker_fw_segment` counts, and timing code calls
-    this directly)."""
+    this directly).  ``lib`` as in :func:`launch_walker`."""
     rows = seg['rows']
     b, n1, r = rows.shape
     k, p = draws['leaf'].shape[:2]
     log2d = log2d_w32.reshape(-1).contiguous()
-    lib = build.load()
+    lib = lib or build.load()
     stream = torch.cuda.current_stream(rows.device).cuda_stream
     rc = lib.tnco_walker_fw(
         rows.data_ptr(), seg['min_rows'].data_ptr(), seg['pos_bp'].data_ptr(),

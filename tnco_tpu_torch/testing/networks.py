@@ -4,7 +4,7 @@
 Each builder returns ``(ts_inds, output_inds, dims)``.
 """
 
-__all__ = ['lattice_2d', 'sycamore_like_tn']
+__all__ = ['lattice_2d', 'sycamore_like_tn', 'hyper_chain_tn']
 
 
 def lattice_2d(rows: int = 8, cols: int = 8, dim: int = 2):
@@ -101,4 +101,22 @@ def sycamore_like_tn(m_cycles: int = 20, seed: int = 0):
     for q in qubits:
         ts_inds.append(((q, moment[q]),))
 
+    return [tuple(xs) for xs in ts_inds], frozenset(), dims
+
+
+def hyper_chain_tn(n_tensors: int, dim: int = 2):
+    """A chain of ``n_tensors`` tensors joined by 3-way hyper-indices:
+    index k is shared by tensors 2k, 2k + 1 and 2k + 2, so tensor 2k + 1
+    has rank 1.  It has about ``n_tensors / 2`` indices: many nodes on
+    few index words (7001 tensors: N = 14001 nodes on W = 110 words),
+    which puts the walker's topology beyond one block's shared memory at
+    a width the walker admits.  (The port's own builder; the JAX package
+    has none.)"""
+    ts_inds = [[] for _ in range(n_tensors)]
+    dims = {}
+    for k in range((n_tensors - 1) // 2):
+        x = f'x{k}'
+        for t in (2 * k, 2 * k + 1, 2 * k + 2):
+            ts_inds[t].append(x)
+        dims[x] = dim
     return [tuple(xs) for xs in ts_inds], frozenset(), dims
