@@ -11,7 +11,9 @@ Phases, each fatal on failure:
    ``tnco_tpu_torch/csrc`` into ``build/kernels/`` (one ``nvcc`` per
    source, all started together);
 2. every kernel against its plain PyTorch version on the card, bitwise,
-   at the main-path shapes plus edge cases: K1-K3, then the walker K5-IM
+   at the main-path shapes plus edge cases: K1 and K3 by every route
+   (the cases of ``tnco_tpu_torch.testing.kernel_cases``, which the card
+   tests run too), K2, then the walker K5-IM
    against ``run_walker_plain`` on the same pre-drawn streams (a small
    mixed-dims lattice at B=4, P=8 and P=128, 'greedy', and the edge
    cases P=1 and B=1, then the Sycamore shapes at B=64, P=8, 'mh' and
@@ -51,10 +53,13 @@ Phases, each fatal on failure:
    check (K5-IM, K1, K4 against their plain versions), then the row-read
    probe's ``main()`` (ns per row op);
 10. kernel, plain-version, library-call and bound times at the main-path
-   shapes, printed as one ``{"kernels": [...]}`` line; each K5 row also
-   holds, under ``tree_route``, its times on a mixed log2-dims table of
-   the same shape (the kernel's tree width route, which no main-path
-   launch takes on Sycamore's dims).
+   shapes, printed as one ``{"kernels": [...]}`` line; K1's row also
+   holds, under ``shapes``, its times at the slicer's sorted-space gather
+   and at a small pull, and K1's and K3's rows the bytes of the 32-byte
+   sectors their accesses touch (``sector_bytes``, beside the word
+   bound); each K5 row also holds, under ``tree_route``, its times on a
+   mixed log2-dims table of the same shape (the kernel's tree width
+   route, which no main-path launch takes on Sycamore's dims).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
@@ -91,7 +96,7 @@ SOURCES = {
     'probe_take': 'tnco_tpu_torch/csrc/probe.cu',
 }
 # The kernels each path runs (every one must launch in its phase).
-FW_KERNELS = ('gather_gbn', 'inv_ids', 'scatter_rows_inplace')
+FW_KERNELS = ('gather_gbn', 'scatter_rows_inplace')
 IM_KERNELS = ('gather_gbn', 'walker_im')
 FW_WALKER_KERNELS = ('gather_gbn', 'walker_fw')
 BENCH_KERNELS = ('gather_gbn', 'inv_ids', 'scatter_rows_gbn', 'walker_im',
@@ -157,51 +162,29 @@ def _unique_ids(torch, gen, b, q, n, keep=0.5):
 
 
 def phase_kernels(torch):
-    from tnco_tpu_torch.kernels import gather as kg
     from tnco_tpu_torch.kernels import scatter as ks
+    from tnco_tpu_torch.testing import kernel_cases as kc
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
 
-    def rand_vals(g, b, n, dtype):
-        x = torch.randint(-2**31, 2**31 - 1, (g, b, n), generator=gen,
-                          device=dev, dtype=torch.int32)
-        if dtype == torch.float32:
-            # NaN, -inf, signalling NaN bit patterns
-            x[..., :3] = torch.tensor([0x7FC00000, 0xFF800000 - 2**32,
-                                       0x7F800001], device=dev,
-                                      dtype=torch.int32)
-            return x.view(torch.float32)
-        return x
-
-    def same(a, b_):
-        torch.cuda.synchronize()
-        return torch.equal(a.view(torch.int32), b_.view(torch.int32))
-
     n_checks = 0
-    # K1 at the main-path shapes of the 133-plane FW state (par at the
-    # walks, rows at B, rows at A, index rows at the 5 ids, entry union
-    # planes, reslice windows), the slicer's sorted-space gathers, then
-    # an edge case with lo > 0; every case has -1 and >= N ids.
-    f = 2 * W + 5
-    k1_cases = [(f, N_PAD, (f - 1, f), 2 * P),
-                (f, N_PAD, (2 * W, f), P),
-                (f, N_PAD, (2 * W, f - 1), P),
-                (f, N_PAD, (0, W), 5 * P),
-                (f, N_PAD, (0, W), N_PAD),
-                (f, N_PAD, (0, W), 128),
-                (128, W, None, 2048),
-                (1, 2048, None, 2048),
-                (3, 5, (1, 3), 17)]
-    for dtype in (torch.int32, torch.float32):
-        for g, n, planes, q in k1_cases:
-            vals = rand_vals(g, B, n, dtype)
-            ids = _rand_ids(torch, gen, B, q, n)
-            if not same(kg.gather_gbn(vals, ids, planes=planes),
-                        kg.gather_plain(vals, ids, planes)):
-                fail(f'gather_gbn != plain at G={g} N={n} planes={planes} '
-                     f'Q={q} {dtype}')
-            n_checks += 1
+    # K1 and K3: every route at the main path's shapes (the walks
+    # engine's index gather and pulls, the slicer's gathers, the applies)
+    # and the edge cases of tnco_tpu_torch.testing.kernel_cases, which the
+    # card tests run too.
+    for kind, cases, check in (('gather_gbn', kc.GATHER_CASES,
+                                kc.check_gather),
+                               ('scatter_rows_inplace', kc.SCATTER_CASES,
+                                kc.check_scatter)):
+        for case in cases:
+            for dtype in (torch.int32, torch.float32):
+                bad = check(case, dtype, dev)
+                torch.cuda.synchronize()
+                if bad:
+                    fail(f'{kind} != plain in case {case.name!r} '
+                         f'({dtype}) by {bad}')
+                n_checks += 1
     # K2: main path (ids [64, 256] -> [64, 3328]), duplicates, large N
     # (the global-memory branch above 48 KB of shared memory).
     for q, n, dup in ((2 * P, N_PAD, False), (2 * P, N_PAD, True),
@@ -209,29 +192,9 @@ def phase_kernels(torch):
         ids = _rand_ids(torch, gen, B, q, n)
         if dup:
             ids[:, q // 2:] = ids[:, :q - q // 2]
-        if not same(ks.inv_ids(ids, n), ks.inv_ids_plain(ids, n)):
+        if not torch.equal(ks.inv_ids(ids, n), ks.inv_ids_plain(ids, n)):
             fail(f'inv_ids != plain at Q={q} N={n} dup={dup}')
         n_checks += 1
-    # K3: merged apply (132 planes) and par apply (lo > 0), duplicates.
-    for g_all, planes, dup in ((F_APPLY + 1, (0, F_APPLY), False),
-                               (F_APPLY + 1, (F_APPLY, F_APPLY + 1), False),
-                               (F_APPLY + 1, (3, 40), True)):
-        for dtype in (torch.int32, torch.float32):
-            vals = rand_vals(g_all, B, N_PAD, dtype)
-            lo, hi = planes
-            ids = _unique_ids(torch, gen, B, 2 * P, N_PAD)
-            if dup:
-                ids[:, P:] = ids[:, :P]
-                ids[:, 5] = N_PAD + 3
-            upd = rand_vals(hi - lo, B, 2 * P, dtype)
-            got = ks.scatter_rows_inplace(vals.clone(), ids, upd,
-                                          planes=planes)
-            want = ks.scatter_rows_inplace_plain(vals.clone(), ids, upd,
-                                                 planes)
-            if not same(got, want):
-                fail(f'scatter_rows_inplace != plain at planes={planes} '
-                     f'dup={dup} {dtype}')
-            n_checks += 1
     log(f'kernels: {n_checks} checks bitwise equal to the plain versions')
 
 
@@ -1060,6 +1023,52 @@ def _eager_ms(torch, fn, calls=3):
     return sorted(times)[len(times) // 2], times
 
 
+def _gather_traffic(torch, ids, n, lo, g, b):
+    """Bytes of K1 on a ``[*, b, n]`` vals at planes ``lo..lo+g``: the
+    word bound (the ids, each distinct addressed word and each output word
+    once) and the 32-byte sectors the reads touch (information beside the
+    bound: the access pattern's floor)."""
+    q = ids.shape[1]
+    dev = ids.device
+    ok = (ids >= 0) & (ids < n)
+    bi, qi = ok.nonzero(as_tuple=True)
+    col = ids[bi, qi].long()
+    uniq = int(torch.unique(bi * n + col).numel())
+    words = 4 * (b * q + g * uniq + g * b * q)
+    gi = torch.arange(lo, lo + g, device=dev)[:, None]
+    addr = (gi * b + bi[None]) * n + col[None]
+    sectors = int(torch.unique(addr >> 3).numel())
+    return words, 32 * sectors + 4 * (b * q + g * b * q)
+
+
+def _scatter_traffic(torch, ids, n, lo, g, b):
+    """Bytes of K3 (the in-place scatter with its winners resolved): the
+    word bound (the ids, and each winner's update word read and vals word
+    written once per plane) and the 32-byte sectors touched by the update
+    reads and the vals writes."""
+    q = ids.shape[1]
+    dev = ids.device
+    qi_all = torch.arange(q, device=dev).expand(b, q)
+    ok = (ids >= 0) & (ids < n)
+    key = torch.where(ok, torch.arange(b, device=dev)[:, None] * n + ids,
+                      -1).long()
+    # The last q of each (b, id) wins.
+    last = torch.full((b * n + 1,), -1, dtype=torch.long, device=dev)
+    last.scatter_reduce_(0, torch.where(ok, key, b * n).reshape(-1),
+                         qi_all.reshape(-1), reduce='amax')
+    win = ok & (last[torch.where(ok, key, b * n)] == qi_all)
+    bi, qi = win.nonzero(as_tuple=True)
+    col = ids[bi, qi].long()
+    k = int(bi.numel())
+    words = 4 * (b * q + 2 * g * k)
+    gi = torch.arange(g, device=dev)[:, None]
+    out_addr = ((gi + lo) * b + bi[None]) * n + col[None]
+    upd_addr = (gi * b + bi[None]) * q + qi[None]
+    sectors = int(torch.unique(out_addr >> 3).numel() +
+                  torch.unique(upd_addr >> 3).numel())
+    return words, 32 * sectors + 4 * b * q
+
+
 def _changed_words(torch, before, after):
     """The 32-bit words in which two buffers differ."""
     torch.cuda.synchronize()
@@ -1190,8 +1199,9 @@ def phase_times(torch, counts, im_runner, fw_runner):
 
     def row(name, ms, plain_ms, lib_ms, bound_ms, bound_by, err):
         path = {'walker_im': 'im_app', 'walker_fw': 'fw_walker_app',
-                'scatter_rows_gbn': 'bench', 'probe_loop': 'bench',
-                'probe_take': 'bench'}.get(name, 'fw_app')
+                'inv_ids': 'bench', 'scatter_rows_gbn': 'bench',
+                'probe_loop': 'bench', 'probe_take': 'bench'}.get(name,
+                                                                  'fw_app')
         rows.append(dict(
             name=name, route='cuda', source=SOURCES[name],
             replaces=REPLACES[name], launches=counts[path][name],
@@ -1203,26 +1213,50 @@ def phase_times(torch, counts, im_runner, fw_runner):
         row(name, ms, plain_ms, lib_ms, 1e3 * nbytes / HBM_BYTES_PER_S,
             'bytes', err)
 
-    # K1: the W-plane index gather at {B, A, C, c0(B), c1(B)} (Q = 5P).
+    # K1 at its three shape classes on the main path: the walks engine's
+    # W-plane index gather at {B, A, C, c0(B), c1(B)} (Q = 5P; the row's
+    # own numbers), and, under 'shapes', the plane slicer's sorted-space
+    # gather of [K=128, B, w] rows at [B, nbp] word ids (the row route)
+    # and a small pull (the scalar rows at B: 5 planes, Q = P).  Each
+    # shape has its word bound and, beside it, the bytes of the 32-byte
+    # sectors its reads touch.
     f = 2 * W + 5
     vals = torch.randint(-2**31, 2**31 - 1, (f, B, N_PAD), generator=gen,
                          device=dev, dtype=torch.int32)
-    ids = _rand_ids(torch, gen, B, 5 * P, 3241, frac_high=0.0)
-    got = kg.gather_gbn(vals, ids, planes=(0, W))
-    want = kg.gather_plain(vals, ids, (0, W))
-    err = _max_abs_err(torch, got, want)
-    ok = (ids >= 0) & (ids < N_PAD)
-    uniq = int(torch.unique(
-        (torch.arange(B, device=dev)[:, None] * N_PAD + ids)[ok]).numel())
-    nbytes = 4 * (B * 5 * P + W * uniq + W * B * 5 * P)
-    safe = ids.clamp(0, N_PAD - 1).long()[None].expand(W, B, 5 * P)
-    v0 = vals[:W]
-    ms = _time_ms(torch, lambda: kg.gather_gbn(vals, ids, planes=(0, W)))
-    plain = _time_ms(torch, lambda: kg.gather_plain(vals, ids, (0, W)))
-    lib = _time_ms(torch, lambda: torch.gather(v0, 2, safe))
-    byte_row('gather_gbn', ms, plain, lib, nbytes, err)
+    rows_wb = torch.randint(-2**31, 2**31 - 1, (128, B, W), generator=gen,
+                            device=dev, dtype=torch.int32)
+    word_q = torch.randint(0, W, (B, 32 * W), generator=gen, device=dev,
+                           dtype=torch.int32)
+    k1 = []
+    for what, v, (lo, hi), ids in (
+            ('walks index', vals, (0, W),
+             _rand_ids(torch, gen, B, 5 * P, 3241, frac_high=0.0)),
+            ('slicer sorted', rows_wb, (0, 128), word_q),
+            ('small pull', vals, (2 * W, f),
+             _rand_ids(torch, gen, B, P, 3241, frac_high=0.0))):
+        n, q = v.shape[2], ids.shape[1]
+        got = kg.gather_gbn(v, ids, planes=(lo, hi))
+        err = _max_abs_err(torch, got, kg.gather_plain(v, ids, (lo, hi)))
+        words, sectors = _gather_traffic(torch, ids, n, lo, hi - lo, B)
+        safe = ids.clamp(0, n - 1).long()[None].expand(hi - lo, -1, -1)
+        v0 = v[lo:hi]
+        ms = _time_ms(torch, lambda: kg.gather_gbn(v, ids, planes=(lo, hi)))
+        plain = _time_ms(torch, lambda: kg.gather_plain(v, ids, (lo, hi)))
+        lib = _time_ms(torch, lambda: torch.gather(v0, 2, safe))
+        k1.append(dict(shape=what, route=kg.gather_route(n, q),
+                       dims=f'G={hi - lo} B={B} N={n} Q={q}',
+                       max_abs_err=err, ms=ms, plain_ms=plain,
+                       bound_ms=1e3 * words / HBM_BYTES_PER_S,
+                       bound_by='bytes', library_ms=lib,
+                       sector_bytes=sectors))
+    main, more = k1[0], k1[1:]
+    row('gather_gbn', main['ms'], main['plain_ms'], main['library_ms'],
+        main['bound_ms'], 'bytes', main['max_abs_err'])
+    rows[-1].update(shape=main['shape'], route_taken=main['route'],
+                    sector_bytes=main['sector_bytes'], shapes=more)
 
-    # K2: ids [64, 256] -> [64, 3328] (the {B, A} merged apply's ids).
+    # K2: ids [64, 256] -> [64, 3328] (the {B, A} merged apply's ids; on
+    # the bench path since the in-place scatter resolves its own winners).
     ids = _unique_ids(torch, gen, B, 2 * P, 3241)
     inv = ks.inv_ids(ids, N_PAD)
     err = _max_abs_err(torch, inv, ks.inv_ids_plain(ids, N_PAD))
@@ -1237,7 +1271,10 @@ def phase_times(torch, counts, im_runner, fw_runner):
     lib = _time_ms(torch, lambda: buf.scatter_reduce_(1, safe, qi, 'amax'))
     byte_row('inv_ids', ms, plain, lib, nbytes, err)
 
-    # K3: the merged {B, A} apply, 132 planes, Q = 2P, in place.
+    # K3: the merged {B, A} apply, 132 planes, Q = 2P, in place: the whole
+    # scatter_rows_inplace call, one launch that resolves its winners
+    # (the first design's call was K2 then K3: 0.0021 + 0.0642 ms in
+    # PERF.md).
     upd = torch.randint(-2**31, 2**31 - 1, (F_APPLY, B, 2 * P),
                         generator=gen, device=dev, dtype=torch.int32)
     v1 = vals.clone()
@@ -1245,12 +1282,13 @@ def phase_times(torch, counts, im_runner, fw_runner):
     ks.scatter_rows_inplace(v1, ids, upd, planes=(0, F_APPLY))
     ks.scatter_rows_inplace_plain(v2, ids, upd, (0, F_APPLY))
     err = _max_abs_err(torch, v1, v2)
-    k = int(ok.sum())
-    nbytes = 4 * (B * 2 * P + B * 2 * P + 2 * F_APPLY * k)
+    nbytes, sectors = _scatter_traffic(torch, ids, N_PAD, 0, F_APPLY, B)
+    route = ks.scatter_route(N_PAD, 2 * P)
     ms = _time_ms(torch, lambda: ks._launch_scatter(
-        v1, ids, inv, upd, 0, F_APPLY))
+        v1, ids, upd, 0, F_APPLY, route))
     plain = _time_ms(torch, lambda: ks.scatter_rows_inplace_plain(
         v2, ids, upd, (0, F_APPLY)))
+    k = int(ok.sum())
     bi, qi_ = ok.nonzero(as_tuple=True)
     ni = ids[bi, qi_].long()
     gi = torch.arange(F_APPLY, device=dev)[:, None].expand(-1, k)
@@ -1259,10 +1297,13 @@ def phase_times(torch, counts, im_runner, fw_runner):
     lib = _time_ms(torch, lambda: v3.index_put_(
         (gi, bi.expand(F_APPLY, -1), ni.expand(F_APPLY, -1)), vals_k))
     byte_row('scatter_rows_inplace', ms, plain, lib, nbytes, err)
+    rows[-1].update(route_taken=route, sector_bytes=sectors)
+    log(f'time scatter_rows_inplace: one launch per call, {ms:.4f} ms '
+        '(first design: inv_ids 0.0021 + K3 0.0642 = 0.0663 ms, PERF.md)')
 
     # K4: the same 132 planes out of place, on NULL-free unique ids (so
     # that one index_put, out of place, computes the same function).  The
-    # kernel is timed with its inversion precomputed, as K3 is.
+    # kernel is timed with its inversion precomputed (K2 has its own row).
     ids = _unique_ids(torch, gen, B, 2 * P, N_PAD, keep=1.0)
     inv = ks.inv_ids(ids, N_PAD)
     v4 = vals[:F_APPLY]
@@ -1339,18 +1380,24 @@ def phase_times(torch, counts, im_runner, fw_runner):
         f'{counts["fw_walker_app"]["walker_fw"]}, per flagship chunk '
         f'{counts["fw_walker_flagship"]["walker_fw"] / 2}')
     for r in rows:
-        for name, x in ((r['name'], r),
-                        (f"{r['name']} (tree route)", r.get('tree_route'))):
+        name = r['name']
+        for what, x in ([(name, r), (f'{name} (tree route)',
+                                      r.get('tree_route'))] +
+                        [(f"{name} ({x['shape']})", x)
+                         for x in r.get('shapes', ())]):
             if x is None:
                 continue
             if x['max_abs_err'] != 0:
-                fail(f'{name}: timing inputs disagree with the plain '
+                fail(f'{what}: timing inputs disagree with the plain '
                      'version')
             lib = 'none' if x['library_ms'] is None else \
                 f"{x['library_ms']:.4f} ms"
-            log(f"time {name}: kernel {x['ms']:.4f} ms, plain "
+            sec = '' if 'sector_bytes' not in x else \
+                f", sectors {x['sector_bytes']} B " \
+                f"({1e3 * x['sector_bytes'] / HBM_BYTES_PER_S:.4f} ms)"
+            log(f"time {what}: kernel {x['ms']:.4f} ms, plain "
                 f"{x['plain_ms']:.4f} ms, library {lib}, "
-                f"bound {x['bound_ms']:.4f} ms ({x['bound_by']})")
+                f"bound {x['bound_ms']:.4f} ms ({x['bound_by']}){sec}")
     return rows
 
 

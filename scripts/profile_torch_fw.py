@@ -55,7 +55,8 @@ PHASES = {
                ('walker', 'walker_fw_reslice'), ('walker', 'unpack_rows_fw'),
                ('sa_multiwalk', 'finish_batch_fw')),
 }
-OURS = {'gather_gbn_kernel': 'gather_gbn',
+OURS = {'gather_sparse_kernel': 'gather_gbn',
+        'gather_rows_kernel': 'gather_gbn',
         'inv_ids_smem_kernel': 'inv_ids', 'inv_ids_global_kernel': 'inv_ids',
         'scatter_rows_kernel': 'scatter_rows_inplace',
         'walker_kernel<true': 'walker_fw'}

@@ -2,8 +2,10 @@
 
 The JAX side runs as its own tests run it on the CPU: the XLA lowering
 and the Pallas kernel in interpret mode (the reference for the
-last-q-wins rule on duplicate ids).  The CUDA kernels themselves run only
-on the card (``-m cuda``; skipped elsewhere).
+last-q-wins rule on duplicate ids).  The wrappers' route choice is a
+function of the shape, tested here.  The CUDA kernels themselves run
+only on the card (``-m cuda``; skipped elsewhere): every route against
+the plain version at the cases of ``tnco_tpu_torch.testing.kernel_cases``.
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ from tnco_tpu.kernels import pallas_scatter as ps
 from tnco_tpu_torch.kernels import build, launch_counts, reset_launch_counts
 from tnco_tpu_torch.kernels import gather as kg
 from tnco_tpu_torch.kernels import scatter as ks
+from tnco_tpu_torch.testing import kernel_cases as kc
 
 _SPECIALS = np.asarray([0x7FC00000, 0xFF800000, 0x7F800000, 0x80000000,
                         0x7F800001], dtype=np.uint32)  # NaN -inf inf -0 sNaN
@@ -183,22 +186,59 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         build.load()
 
 
+def _case_id(case):
+    if isinstance(case, str):
+        return case
+    return f"{'K1' if isinstance(case, kc.GatherCase) else 'K3'} {case.name}"
+
+
+@pytest.mark.parametrize('case', kc.GATHER_CASES + kc.SCATTER_CASES,
+                         ids=_case_id)
+def test_route_is_a_function_of_the_shape(case):
+    """The wrappers pick a kernel route from (N, Q) alone, and the kernel
+    takes that route at the shape."""
+    if isinstance(case, kc.GatherCase):
+        route = kg.gather_route(case.n, case.q)
+        assert route in kc.gather_routes(case.n, case.q)
+    else:
+        route = ks.scatter_route(case.n, case.q)
+        assert route in kc.scatter_routes(case.n, case.q)
+    assert route == case.route
+
+
+def test_gather_route_thresholds():
+    """Rows of at most ROW_MAX_N words read at Q >= ROW_MIN_Q ids go to
+    the row route; wider rows or fewer reads to the sparse one."""
+    n, q = kg.ROW_MAX_N, kg.ROW_MIN_Q
+    assert kg.gather_route(n, q) == 'row'
+    assert kg.gather_route(1, q) == 'row'
+    assert kg.gather_route(n + 1, 10 * q) == 'sparse'
+    assert kg.gather_route(n, q - 1) == 'sparse'
+    assert ks.scatter_route(3328, 256) == 'smem'
+    assert ks.scatter_route(20000, 777) == 'global'
+
+
 @pytest.mark.cuda
-def test_kernels_match_plain_on_card(random_seed):
+@pytest.mark.parametrize('dtype', [torch.int32, torch.float32],
+                         ids=['int32', 'float32'])
+@pytest.mark.parametrize('case', kc.GATHER_CASES + kc.SCATTER_CASES +
+                         ('inv_ids',),
+                         ids=_case_id)
+def test_kernels_match_plain_on_card(random_seed, case, dtype):
+    """Every route of K1 and K3 (and K2) against the plain version,
+    bitwise, at the cases of ``tnco_tpu_torch.testing.kernel_cases``."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU (the CUDA kernels have no CPU '
                     'mode); run python3 chip_smoke.py on the card')
-    r = np.random.default_rng(random_seed)
     dev = torch.device('cuda')
-    vals = _torch(_vals(r, (5, 64, 3328), 'float32')).to(dev)
-    ids = _torch(_ids(r, 64, 640, 3328)).to(dev)
-    got = kg.gather_gbn(vals, ids, planes=(1, 4))
-    want = kg.gather_plain(vals, ids, (1, 4))
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    uids = _torch(_unique_ids(r, 64, 3328, 256)).to(dev)
-    assert torch.equal(ks.inv_ids(uids, 3328),
-                       ks.inv_ids_plain(uids, 3328))
-    upd = _torch(_vals(r, (3, 64, 256), 'float32')).to(dev)
-    a = ks.scatter_rows_inplace(vals.clone(), uids, upd, planes=(2, 5))
-    b = ks.scatter_rows_inplace_plain(vals.clone(), uids, upd, (2, 5))
-    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if case == 'inv_ids':
+        r = np.random.default_rng(random_seed)
+        for n, q, dup in ((3328, 256, False), (3328, 256, True),
+                          (20000, 777, True)):
+            ids = _ids(r, 64, q, n) if dup else _unique_ids(r, 64, n, q)
+            ids = _torch(ids).to(dev)
+            assert torch.equal(ks.inv_ids(ids, n), ks.inv_ids_plain(ids, n))
+        return
+    check = kc.check_gather if isinstance(case, kc.GatherCase) else \
+        kc.check_scatter
+    assert check(case, dtype, dev, seed=random_seed) == []

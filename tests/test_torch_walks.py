@@ -222,6 +222,45 @@ def test_greedy_slices_fast_matches_jax(random_seed, net):
                                           err_msg=f'cap {cap}')
 
 
+def _popcount_nb(words_nwb):
+    """Set bits per [n, b] over the words of a uint32 [n, w, b] array."""
+    x = np.ascontiguousarray(words_nwb.transpose(0, 2, 1)).view(np.uint8)
+    return np.unpackbits(x, axis=2).sum(axis=2)
+
+
+@pytest.mark.parametrize('n', [200, 300])
+@pytest.mark.parametrize('cap', [6.0, 12.0])
+def test_greedy_slices_fast_last_window_matches_reference(random_seed, n,
+                                                         cap):
+    """More than 128 * (n // 128) nodes over the cap, n not a multiple of
+    the 128-node window: the port's fast slicer reads the last window
+    padded and equals the JAX reference path bitwise, with every sliced
+    width within the cap.  (The JAX fast path clamps that window's start
+    and differs here; it is not the reference for these cases.)"""
+    r = np.random.default_rng(random_seed)
+    w, b = 2, 2
+    inds = r.integers(0, 2**32, (n, w, b), dtype=np.uint32)
+    width = _popcount_nb(inds).astype(np.float32)             # [n, b]
+    assert ((width > cap).sum(axis=0) > 128 * (n // 128)).all()
+    log2d_w32 = np.ones((w, 32), np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(random_seed), b)
+    want = jsfb._greedy_slices_b(
+        None, jnp.asarray(inds), jnp.asarray(width), keys,
+        jnp.float32(cap), jnp.asarray(log2d_w32),
+        jnp.zeros((w, 1), jnp.uint32), None, None, uniform_log2=None)
+    jitter = jax.vmap(lambda key: jax.random.uniform(
+        key, (w * 32,), dtype=jnp.float32))(keys).T
+    vals = torch.from_numpy(inds.transpose(1, 2, 0).view(np.int32).copy())
+    got = tsfb._greedy_slices_fast(
+        vals, (0, w), torch.from_numpy(width),
+        torch.from_numpy(np.ascontiguousarray(jitter)), torch.tensor(cap),
+        torch.from_numpy(log2d_w32), torch.zeros(w, dtype=torch.int32),
+        1.0)
+    slices = got.numpy().view(np.uint32)                      # [w, b]
+    np.testing.assert_array_equal(slices, np.asarray(want))
+    assert _popcount_nb(inds & ~slices[None]).max() <= cap
+
+
 def test_unported_options_raise(random_seed):
     batch, cfg, log2d_w32, max_width, ul = _setup('lattice', 3)
     w = cfg.n_lanes

@@ -2,8 +2,7 @@
 copy of ``tnco_tpu/app/app.py``).
 
 QASM strings, gate lists and cirq/qiskit circuits raise until the
-circuit utilities are ported (ROADMAP queue 1, item 14); the
-infinite-memory optimizer raises until slice 2.
+circuit utilities are ported (ROADMAP queue 1, item 14).
 
 Reference surface: tnco/app/app.py — ``load_file`` (compressed/json/text
 autodetect, :97-151), ``load_tn`` universal ingester (:154-570),

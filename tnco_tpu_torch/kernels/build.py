@@ -43,7 +43,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    'tnco_gather_gbn': (_P, _P, _P, _I, _I, _I, _I, _P),
+    'tnco_gather_gbn': (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     'tnco_inv_ids': (_P, _P, _I, _I, _I, _P),
     'tnco_scatter_rows': (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     'tnco_scatter_gbn': (_P, _P, _P, _P, _I, _I, _I, _I, _P),

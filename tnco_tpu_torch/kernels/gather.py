@@ -6,7 +6,8 @@ outside that range (NULL = -1 in particular) give 0.  Any 4-byte dtype:
 bits move unchanged.  ``planes=(lo, hi)`` reads a plane range without
 copying the other planes.
 
-A CUDA tensor goes to the hand-written kernel (``csrc/gather.cu``); a
+A CUDA tensor goes to the hand-written kernel (``csrc/gather.cu``) by
+one of its routes, which :func:`gather_route` picks from the shape; a
 CPU tensor goes to :func:`gather_plain`, the plain PyTorch version with
 the spec of ``_gather_xla`` (``pallas_gather.py:65-72``).  No fallback:
 a CUDA call launches the kernel or raises.
@@ -16,10 +17,26 @@ import torch
 
 from tnco_tpu_torch.kernels import build
 
-__all__ = ['gather_gbn', 'gather_bn', 'gather_plain', 'launches']
+__all__ = ['gather_gbn', 'gather_bn', 'gather_plain', 'gather_route',
+           'launches']
 
 # Kernel launches since the last reset (the main path's proof of route).
 launches = 0
+
+# The kernel's routes (``csrc/gather.cu``).
+_ROUTES = {'sparse': 0, 'row': 1}
+# The row route takes rows of at most ROW_MAX_N words read at Q >=
+# ROW_MIN_Q ids; set from a sweep of both routes on the card (PERF.md:
+# scripts/profile_torch_gather_scatter.py).
+ROW_MAX_N = 2048
+ROW_MIN_Q = 2048
+
+
+def gather_route(n: int, q: int) -> str:
+    """The kernel's route for rows of ``n`` words read at ``q`` ids:
+    'row' (the rows staged in shared memory) for many reads of small
+    rows, else 'sparse' (loads straight from global memory)."""
+    return 'row' if n <= ROW_MAX_N and q >= ROW_MIN_Q else 'sparse'
 
 
 def _plane_range(planes, g: int):
@@ -75,14 +92,22 @@ def gather_gbn(vals, ids, *, planes=None):
     out = torch.empty((hi - lo, b, q), dtype=vals.dtype, device=vals.device)
     if out.numel() == 0:
         return out
+    _launch(vals, ids, out, lo, gather_route(n, q))
+    launches += 1
+    return out
+
+
+def _launch(vals, ids, out, lo, route):
+    """One K1 launch by ``route`` into ``out`` (no counting; the wrapper
+    above counts, and timing code calls this directly)."""
+    _, b, n = vals.shape
+    g, _, q = out.shape
     lib = build.load()
     stream = torch.cuda.current_stream(vals.device).cuda_stream
     rc = lib.tnco_gather_gbn(vals.data_ptr() + lo * b * n * 4,
-                             ids.data_ptr(), out.data_ptr(), hi - lo, b, n,
-                             q, stream)
+                             ids.data_ptr(), out.data_ptr(), g, b, n, q,
+                             _ROUTES[route], stream)
     build.check(rc, 'gather_gbn')
-    launches += 1
-    return out
 
 
 def gather_bn(vals_bn, ids):

@@ -71,12 +71,18 @@ def _greedy_slices_fast(vals, vals_planes, width, jitter, max_width,
                         log2d_w32, skip_wb, uniform_log2, window=128):
     """Sorted-space greedy slicer for UNIFORM power-of-two dims.
 
-    Output-identical to the JAX package's ``_greedy_slices_fast``: the
-    entry over-width set is a superset of every node that can need
-    slicing (widths only shrink as slices grow), the score order is fixed
-    for the call so the loop runs in sorted score space, and every width
-    is ``log2(dim) * an exact integer count``.  Two changes of form, same
-    values:
+    Output-identical to the reference path (``_greedy_slices_b`` without
+    ``uniform_log2``): the entry over-width set is a superset of every
+    node that can need slicing (widths only shrink as slices grow), the
+    score order is fixed for the call so the loop runs in sorted score
+    space, and every width is ``log2(dim) * an exact integer count``.
+    The over-width ids are read in windows of ``window`` nodes, the last
+    one padded with empty ids.  The JAX package's ``_greedy_slices_fast``
+    clamps the last window's start to ``n - window`` instead, which, for
+    ``n`` not a multiple of the window and more than ``window * (n //
+    window)`` nodes over the cap, counts earlier nodes twice and never
+    reaches the last ones; elsewhere the two are equal.  Two changes of
+    form, same values:
 
     - the candidates-before prefix is an exact int32 ``cumsum`` (the TPU
       path used a 128-block bf16 triangular matmul of 0/1 values);
@@ -102,20 +108,21 @@ def _greedy_slices_fast(vals, vals_planes, width, jitter, max_width,
     window = min(window, n)
     thr = torch.as_tensor(max_width, dtype=dtype, device=dev) + _WIDTH_EPS
 
-    # --- entry: over-width node ids, ascending per replica ---
+    # --- entry: over-width node ids, ascending per replica, padded with
+    # n (-> -1, a zero row) to whole windows ---
     iota_n = torch.arange(n, dtype=torch.int32, device=dev)
     over0 = width > thr
     ids_sorted = torch.sort(
         torch.where(over0, iota_n[:, None], n), dim=0).values
+    ids_sorted = torch.nn.functional.pad(
+        ids_sorted, (0, 0, 0, -n % window), value=n)
     max_count = int(over0.sum(dim=0).max()) if b else 0
 
     def gather_rows(ids_bk):
         return gather_gbn(vals, ids_bk, planes=vals_planes)
 
     def window_ids(offset):
-        # lax.dynamic_slice clamps the start so the window stays in range.
-        start = min(offset, n - window)
-        ids_w = ids_sorted[start:start + window]
+        ids_w = ids_sorted[offset:offset + window]
         return torch.where(ids_w < n, ids_w, -1).T.contiguous()  # [b, K]
 
     # n_big[j, b] = #over-width nodes whose index set contains bit j,

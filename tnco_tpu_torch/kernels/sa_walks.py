@@ -16,9 +16,9 @@ inds[c1[i]]`` (the plane slicer's input, maintained by the apply), c0,
 c1, lcc, the pre-slicing width, par.  Every irregular row access goes
 through the hand-written kernels: row reads through K1
 (:func:`~tnco_tpu_torch.kernels.gather.gather_gbn`), the two apply
-scatters through K2+K3 (:func:`~tnco_tpu_torch.kernels.scatter.
-scatter_rows_inplace`), which write the state IN PLACE where the JAX
-engine donated its buffer.
+scatters through K3 (:func:`~tnco_tpu_torch.kernels.scatter.
+scatter_rows_inplace`, one launch that resolves duplicate ids itself),
+which writes the state IN PLACE where the JAX engine donated its buffer.
 
 Semantics follow the JAX engine operation by operation, so integer state
 and slices are bitwise equal on the same state and draws, and totals
@@ -208,7 +208,7 @@ def _apply_walks(S, ev, kept, cfg: SweepConfig, dtype, with_width=False,
                  u=0):
     """Scatter the 4 touched rows of every kept walk, IN PLACE on ``S``.
 
-    TWO plane-range scatters (K2 + K3): the merged group (inds, the
+    TWO plane-range scatters (K3): the merged group (inds, the
     union planes, c0, c1, lcc and the width) at the {B, A} ids, and the
     par plane at the {C, E} ids.  Float rows are written in the additive
     form ``old + (new - old)`` of the JAX engine.

@@ -8,7 +8,8 @@ scatters — the port of ``tnco_tpu/kernels/pallas_scatter.py``
 - :func:`scatter_rows_inplace`: ``vals[lo + g, b, ids[b, q]] =
   upd[g, b, q]`` over the plane range, IN PLACE on the caller's tensor
   (where JAX donated the buffer); -1 writes nothing, and duplicates keep
-  the last-q-wins result through the inversion.
+  the last-q-wins result.  On the card it is one launch: the kernel
+  resolves the winners itself (it does not call :func:`inv_ids`).
 - :func:`scatter_rows_gbn`: the same scatter OUT OF PLACE: a new
   ``[hi - lo, B, N]`` tensor; the caller's ``vals`` is never written
   (JAX reuses its buffer only when the caller donates it).
@@ -27,13 +28,25 @@ from tnco_tpu_torch.kernels.gather import _check, _plane_range
 
 __all__ = ['inv_ids', 'scatter_rows_inplace', 'scatter_rows_gbn',
            'inv_ids_plain', 'scatter_rows_inplace_plain',
-           'scatter_rows_gbn_plain', 'inv_launches', 'scatter_launches',
-           'gbn_launches']
+           'scatter_rows_gbn_plain', 'scatter_route', 'inv_launches',
+           'scatter_launches', 'gbn_launches']
 
 # Kernel launches since the last reset (the main path's proof of route).
 inv_launches = 0
 scatter_launches = 0
 gbn_launches = 0
+
+
+# K3 keeps its [N] winner map and its winner list (2 min(Q, N) words) in
+# shared memory up to this size (csrc/scatter.cu: kSmemBytes), else in a
+# global scratch row per replica.
+_SMEM_BYTES = 48 * 1024
+
+
+def scatter_route(n: int, q: int) -> str:
+    """K3's route for ``q`` ids into rows of ``n`` words: 'smem' (the
+    winner map in shared memory) or 'global' (in a scratch tensor)."""
+    return 'smem' if 4 * (n + 2 * min(q, n)) <= _SMEM_BYTES else 'global'
 
 
 def _check_ids(ids):
@@ -118,23 +131,28 @@ def scatter_rows_inplace(vals, ids, upd, *, planes=None):
     _check_upd(vals, ids, upd, lo, hi)
     if vals.device.type == 'cpu':
         return scatter_rows_inplace_plain(vals, ids, upd, (lo, hi))
-    inv = inv_ids(ids, vals.shape[2])
-    if upd.numel() and vals.shape[2]:
-        _launch_scatter(vals, ids, inv, upd, lo, hi)
+    n, q = vals.shape[2], ids.shape[1]
+    if upd.numel() and n:
+        _launch_scatter(vals, ids, upd, lo, hi, scatter_route(n, q))
         scatter_launches += 1
     return vals
 
 
-def _launch_scatter(vals, ids, inv, upd, lo, hi):
-    """One K3 launch with a precomputed inversion (no counting; the
-    wrapper above counts, and timing code calls this directly)."""
+def _launch_scatter(vals, ids, upd, lo, hi, route):
+    """One K3 launch by ``route`` (no counting; the wrapper above counts,
+    and timing code calls this directly)."""
     _, b, n = vals.shape
+    q = ids.shape[1]
+    scratch = None
+    if route == 'global':
+        scratch = torch.empty((b, n + 2 * min(q, n)), dtype=torch.int32,
+                              device=vals.device)
     lib = build.load()
     stream = torch.cuda.current_stream(vals.device).cuda_stream
     rc = lib.tnco_scatter_rows(vals.data_ptr() + lo * b * n * 4,
-                               ids.data_ptr(), inv.data_ptr(),
-                               upd.data_ptr(), hi - lo, b, n, ids.shape[1],
-                               stream)
+                               ids.data_ptr(), upd.data_ptr(),
+                               None if scratch is None else
+                               scratch.data_ptr(), hi - lo, b, n, q, stream)
     build.check(rc, 'scatter_rows_inplace')
 
 

@@ -330,8 +330,8 @@ class ReplicaRunnerFW:
                 "item 15).")
         if getattr(cmodel, 'sparse_inds', None):
             raise NotImplementedError(
-                "Sparse indices are not ported yet (ROADMAP queue 1, "
-                "item 6).")
+                "Sparse indices are not ported yet (ROADMAP queue 1, left "
+                "out of slice 1, e).")
 
         self.fw_slicer = fw_slicer
         self.template = ctrees[0]
