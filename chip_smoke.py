@@ -13,7 +13,9 @@ Phases, each fatal on failure:
 2. every kernel against its plain PyTorch version on the card, bitwise,
    at the main-path shapes plus edge cases: K1 and K3 by every route
    (the cases of ``tnco_tpu_torch.testing.kernel_cases``, which the card
-   tests run too), K2, then the walker K5-IM
+   tests run too), K2 at that module's cases (n at 1, around its 2048-
+   column slices, 3241, 3328 and 20000; duplicates, -1, out-of-range
+   ids, Q = n, Q > n), then the walker K5-IM
    against ``run_walker_plain`` on the same pre-drawn streams (a small
    mixed-dims lattice at B=4, P=8 and P=128, 'greedy', and the edge
    cases P=1 and B=1, then the Sycamore shapes at B=64, P=8, 'mh' and
@@ -25,7 +27,12 @@ Phases, each fatal on failure:
    max_width 10, every 10 on Sycamore with max_width 30), then the
    out-of-place row scatter K4 (132 planes of [64, 3328], a plane range,
    float32 NaN payloads, B=1/Q=1 on a ragged N, duplicate ids; the
-   caller's planes unchanged) and the row-read probe P1, both impls;
+   caller's planes unchanged) and the row-read probe P1 at the cases of
+   ``kernel_cases`` (P, R at (128, 256), (1, 1), (129, 7), (454, 3) on
+   N = 3328, 3241 and 40, and (8, 3) on N = 40; rounds of 128 ids from 4
+   rows; N = 60000, the global route), every route of the loop kernel
+   and both impls through the wrapper, the caller's state unchanged
+   after every call;
 3. the finite-width (FW) path through the user entry point:
    ``Optimizer(max_width=30).optimize`` on the Sycamore-like m=20
    network (N=3241, W=64) with every result audited (valid path, exact
@@ -59,7 +66,12 @@ Phases, each fatal on failure:
    sectors their accesses touch (``sector_bytes``, beside the word
    bound); each K5 row also holds, under ``tree_route``, its times on a
    mixed log2-dims table of the same shape (the kernel's tree width
-   route, which no main-path launch takes on Sycamore's dims).
+   route, which no main-path launch takes on Sycamore's dims); the
+   rows of P1 and K2 also hold a measured floor (``floor_ms``: the loop's
+   barriers with no memory work, the take's row bytes at the card's L2
+   read rate after an empty kernel on its grid, an empty kernel on K2's
+   grid; kernels of
+   ``scripts/probe_inv_first_design.cu``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
@@ -67,6 +79,7 @@ result.
 """
 
 from decimal import Decimal
+import functools
 import json
 import math
 import sys
@@ -185,15 +198,13 @@ def phase_kernels(torch):
                     fail(f'{kind} != plain in case {case.name!r} '
                          f'({dtype}) by {bad}')
                 n_checks += 1
-    # K2: main path (ids [64, 256] -> [64, 3328]), duplicates, large N
-    # (the global-memory branch above 48 KB of shared memory).
-    for q, n, dup in ((2 * P, N_PAD, False), (2 * P, N_PAD, True),
-                      (777, 20000, True), (2048, 2048, False)):
-        ids = _rand_ids(torch, gen, B, q, n)
-        if dup:
-            ids[:, q // 2:] = ids[:, :q - q // 2]
-        if not torch.equal(ks.inv_ids(ids, n), ks.inv_ids_plain(ids, n)):
-            fail(f'inv_ids != plain at Q={q} N={n} dup={dup}')
+    # K2: the bench's K4 call (ids [64, 256] -> [64, 3328]) and the edge
+    # cases of kernel_cases.
+    for case in kc.INV_CASES:
+        bad = kc.check_inv(case, dev)
+        torch.cuda.synchronize()
+        if bad:
+            fail(f'inv_ids != plain in case {case.name!r}')
         n_checks += 1
     log(f'kernels: {n_checks} checks bitwise equal to the plain versions')
 
@@ -754,8 +765,8 @@ def phase_walker_fw_checks(torch):
 
 def phase_k4_p1_checks(torch):
     """K4 and P1 against their plain versions on the card, bitwise."""
-    from tnco_tpu_torch.benchmarks import gather_probe as gp
     from tnco_tpu_torch.kernels import scatter as ks
+    from tnco_tpu_torch.testing import kernel_cases as kc
     dev = torch.device('cuda')
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
@@ -801,22 +812,14 @@ def phase_k4_p1_checks(torch):
                  f'shape {tuple(got.shape)} {got.dtype}')
     log(f'kernels: scatter_rows_gbn == plain bitwise in {len(cases)} cases '
         '(the caller\'s planes unchanged)')
-    for n_p, n_r in ((PROBE_P, PROBE_R), (1, 1)):
-        state = torch.randint(0, 1 << 20, (N_PAD, gp.COLS), generator=gen,
-                              device=dev, dtype=torch.int32)
-        ids_ = torch.randint(0, N_PAD, (n_r, n_p), generator=gen, device=dev,
-                             dtype=torch.int32)
-        before = state.clone()
-        for impl in gp.IMPLS:
-            got = gp.probe(state, ids_, impl)
-            err = max(_max_abs_err(torch, got, gp.probe_plain(state, ids_,
-                                                              impl)),
-                      _max_abs_err(torch, state, before))
-            if err:
-                fail(f'probe {impl} != plain at P={n_p} R={n_r}: word error '
-                     f'{err}')
-    log(f'kernels: probe loop and take == plain bitwise at N={N_PAD}, '
-        f'P={PROBE_P}, R={PROBE_R} (repeated ids) and P=1, R=1')
+    for case in kc.PROBE_CASES:
+        bad = kc.check_probe(case, dev)
+        torch.cuda.synchronize()
+        if bad:
+            fail(f'probe != plain (or the state changed) in case '
+                 f'{case.name!r}: {bad}')
+    log(f'kernels: probe loop (every route) and take == '
+        f'plain bitwise in {len(kc.PROBE_CASES)} cases, the state unchanged')
 
 
 def phase_bench(torch):
@@ -833,7 +836,7 @@ def phase_bench(torch):
     gather_probe.main([])
     t2 = time.perf_counter()
     counts = launch_counts()
-    log(f'bench: {t1 - t0:.1f} s, probe {t2 - t1:.1f} s; launches {counts}')
+    log(f'bench: {t1 - t0:.1f} s, probe {t2 - t1:.3f} s; launches {counts}')
     if line.get('kernel_identity') != 'ok':
         fail(f"bench kernel identity: {line.get('kernel_identity')}")
     if 'vs_baseline' in line or 'vs_prev_round' in line:
@@ -999,6 +1002,68 @@ def _time_ms(torch, fn, reps=50, rounds=11):
         times.append(s.elapsed_time(e) / reps)
     times.sort()
     return times[len(times) // 2]
+
+
+# The first designs of P1 and K2 and the floors measured beside them
+# (phase 10 and scripts/profile_torch_probe_inv.py), built at first use
+# into build/kernels/; nothing on the main path loads them.
+PROBE_INV_BASELINE = 'scripts/probe_inv_first_design.cu'
+
+
+@functools.lru_cache(maxsize=None)
+def probe_inv_baseline_lib():
+    """The ctypes library of ``PROBE_INV_BASELINE``."""
+    import ctypes
+    from pathlib import Path
+    from tnco_tpu_torch.kernels import build
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    path = build.build(
+        (str(Path(__file__).resolve().parent / PROBE_INV_BASELINE),), (),
+        'libtnco_probe_inv_first.so')
+    return build._bind(path, {
+        'tnco_probe_loop_first': (ptr,) * 4 + (i32,) * 3 + (ptr,),
+        'tnco_probe_take_first': (ptr,) * 3 + (i32,) * 3 + (ptr,),
+        'tnco_inv_ids_first': (ptr, ptr, i32, i32, i32, ptr),
+        'tnco_probe_loop_form': (ptr,) * 3 + (i32,) * 7 + (ptr,),
+        'tnco_barrier_floor': (ptr, i32, i32, i32, ptr),
+        'tnco_l2_read': (ptr, ctypes.c_longlong, i32, ptr, i32, i32, ptr),
+        'tnco_empty_floor': (i32, i32, ptr)})
+
+
+def _floor_call(torch, name, *args):
+    """One launch of a baseline-library kernel on the current stream."""
+    rc = getattr(probe_inv_baseline_lib(), name)(
+        *args, torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f'{name} failed to launch (cudaError {rc})')
+
+
+def probe_floors(torch, state, p, rounds, inv_blocks):
+    """The floors beside P1 and K2 at their timed shapes: the loop's grid
+    doing its 2 R barriers alone; the card's L2 read rate (the state read
+    10 and 40 times with 16-byte loads that skip L1: the bytes of the 30
+    extra passes over the extra time) and the take's floor, an empty kernel
+    on its grid plus its row bytes at that rate; an empty kernel on K2's
+    grid of ``inv_blocks`` blocks."""
+    from tnco_tpu_torch.benchmarks import gather_probe as gp
+    threads = gp.loop_threads(p)
+    sink = torch.zeros(gp.COLS, dtype=torch.int32, device=state.device)
+    loop_ms = _time_ms(torch, lambda: _floor_call(
+        torch, 'tnco_barrier_floor', sink.data_ptr(), gp.COLS, threads,
+        rounds))
+    l2_ms = [_time_ms(torch, lambda: _floor_call(
+        torch, 'tnco_l2_read', state.data_ptr(), state.numel(), passes,
+        sink.data_ptr(), 4 * 132, 256)) for passes in (10, 40)]
+    l2_rate = 30 * 4 * state.numel() / (l2_ms[1] - l2_ms[0]) / 1e9  # TB/s
+    take_bytes = 4 * rounds * p * gp.COLS
+    take_empty_ms = _time_ms(torch, lambda: _floor_call(
+        torch, 'tnco_empty_floor', p, 256))
+    empty_ms = _time_ms(torch, lambda: _floor_call(
+        torch, 'tnco_empty_floor', inv_blocks, 256))
+    return dict(loop_ms=loop_ms, loop_grid=f'{gp.COLS} x {threads}',
+                l2_tb_per_s=l2_rate, take_bytes=take_bytes,
+                take_ms=take_empty_ms + take_bytes / l2_rate / 1e9,
+                empty_ms=empty_ms)
 
 
 def _max_abs_err(torch, got, want):
@@ -1257,6 +1322,7 @@ def phase_times(torch, counts, im_runner, fw_runner):
 
     # K2: ids [64, 256] -> [64, 3328] (the {B, A} merged apply's ids; on
     # the bench path since the in-place scatter resolves its own winners).
+    # Floor: an empty kernel on its grid (measured with P1's floors below).
     ids = _unique_ids(torch, gen, B, 2 * P, 3241)
     inv = ks.inv_ids(ids, N_PAD)
     err = _max_abs_err(torch, inv, ks.inv_ids_plain(ids, N_PAD))
@@ -1270,6 +1336,9 @@ def phase_times(torch, counts, im_runner, fw_runner):
     plain = _time_ms(torch, lambda: ks.inv_ids_plain(ids, N_PAD))
     lib = _time_ms(torch, lambda: buf.scatter_reduce_(1, safe, qi, 'amax'))
     byte_row('inv_ids', ms, plain, lib, nbytes, err)
+    inv_row = rows[-1]
+    inv_row.update(route_taken='sliced',
+                   grid=f'{B * ks.inv_slices(N_PAD)} x 256')
 
     # K3: the merged {B, A} apply, 132 planes, Q = 2P, in place: the whole
     # scatter_rows_inplace call, one launch that resolves its winners
@@ -1330,13 +1399,22 @@ def phase_times(torch, counts, im_runner, fw_runner):
     # P1 at the probe's default shape: state [3328, 128], ids [256, 128]
     # with repeats.  Bound: the state, the ids and the output once each;
     # the probe's own figure is ns per row op (loop 2 R P, take R P).
+    # Floors: the loop's 2 R barriers alone on its grid; an empty kernel
+    # on the take's grid plus its row bytes at the card's L2 read rate.
+    # No single PyTorch call computes the round loop, or gathers and sums
+    # int32 rows (state[ids].sum(0, dtype=torch.int32) is two calls), so
+    # neither row has a library time.
     from tnco_tpu_torch.benchmarks import gather_probe as gp
     state = torch.randint(0, 1 << 20, (N_PAD, gp.COLS), generator=gen,
                           device=dev, dtype=torch.int32)
     pids = torch.randint(0, N_PAD, (PROBE_R, PROBE_P), generator=gen,
                          device=dev, dtype=torch.int32)
+    floors = probe_floors(torch, state, PROBE_P, PROBE_R,
+                          B * ks.inv_slices(N_PAD))
+    inv_row.update(floor_ms=floors['empty_ms'],
+                   floor='an empty kernel on the same grid')
     nbytes = 4 * (N_PAD * gp.COLS + PROBE_R * PROBE_P + PROBE_P * gp.COLS)
-    for impl, reps in (('loop', 5), ('take', 50)):
+    for impl, reps in (('loop', 20), ('take', 50)):
         err = _max_abs_err(torch, gp.probe(state, pids, impl),
                            gp.probe_plain(state, pids, impl))
         ms = _time_ms(torch, lambda: gp.probe(state, pids, impl), reps=reps,
@@ -1344,9 +1422,29 @@ def phase_times(torch, counts, im_runner, fw_runner):
         plain = _time_ms(torch, lambda: gp.probe_plain(state, pids, impl),
                          reps=reps if impl == 'take' else 1, rounds=5)
         byte_row(f'probe_{impl}', ms, plain, None, nbytes, err)
+        rows[-1]['library_note'] = (
+            'none: no single PyTorch call computes the round loop' if
+            impl == 'loop' else 'none: no single PyTorch call gathers and '
+            'sums int32 rows (state[ids].sum(0, dtype=torch.int32) is two '
+            'calls)')
+        if impl == 'loop':
+            rows[-1].update(
+                route_taken=gp.loop_route(N_PAD, PROBE_P),
+                grid=f"{floors['loop_grid']} (one column a block)",
+                floor_ms=floors['loop_ms'],
+                floor=f'{2 * PROBE_R} barriers alone on the same grid')
+        else:
+            rows[-1].update(
+                floor_ms=floors['take_ms'], l2_tb_per_s=floors['l2_tb_per_s'],
+                floor=f"an empty kernel on its grid plus "
+                f"{floors['take_bytes']} B of rows at the L2 read rate "
+                f"{floors['l2_tb_per_s']:.3f} TB/s")
         n_ops = PROBE_R * PROBE_P * (2 if impl == 'loop' else 1)
         log(f'time probe_{impl}: {n_ops} row ops, {1e6 * ms / n_ops:.4f} '
-            f'ns/row; bytes {nbytes}')
+            f"ns/row; bytes {nbytes}; floor {rows[-1]['floor_ms']:.4f} ms "
+            f"({rows[-1]['floor']})")
+    log(f"time inv_ids: floor {floors['empty_ms']:.4f} ms (an empty kernel "
+        f"on its grid of {inv_row['grid']} threads)")
 
     # K5 at the IM flagship's shape and state: B=64, P=8, K=128, with
     # the network's log2 dims (all 1: the kernel's popcount width route,

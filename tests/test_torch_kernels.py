@@ -104,6 +104,34 @@ def test_inv_ids_plain_matches_jax(random_seed, dup):
             got.numpy(), np.asarray(ps.inv_ids(jnp.asarray(ids), n)))
 
 
+@pytest.mark.parametrize('kind', ['dup', 'q>n'])
+@pytest.mark.parametrize('n', [1, 33, 1025, 2051])
+def test_inv_ids_plain_matches_jax_slices(random_seed, n, kind):
+    """K2's plain version against the interpret-mode Pallas kernel at n
+    of one word, ragged ones, and one just above the card kernel's slice
+    (INV_SLICE + 3), with duplicate ids, with Q > n, and with -1,
+    out-of-range and extreme ids."""
+    r = np.random.default_rng(random_seed)
+    b, q = 8, (140 if kind == 'dup' else n + 37)
+    ids = _ids(r, b, q, n)
+    if kind == 'dup':
+        ids[:, q // 2:] = ids[:, :q - q // 2]
+    ids[:, 2] = -2**31
+    ids[:, 3] = 2**31 - 1
+    want = ps.inv_ids(jnp.asarray(ids), n, interpret=True)
+    got = ks.inv_ids(_torch(ids), n)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize('n,slices', [
+    (1, 1), (ks.INV_SLICE - 1, 1), (ks.INV_SLICE, 1), (ks.INV_SLICE + 1, 2),
+    (3328, 2), (20000, 10)])
+def test_inv_slices(n, slices):
+    """K2 runs one block per (replica, INV_SLICE columns) for every n."""
+    assert ks.INV_SLICE == 2048
+    assert ks.inv_slices(n) == slices
+
+
 @pytest.mark.parametrize('dtype', ['int32', 'uint32', 'float32'])
 @pytest.mark.parametrize('planes,dup', [(None, False), ((2, 5), False),
                                         ((0, 3), True), ((4, 5), True)])
@@ -225,19 +253,17 @@ def test_gather_route_thresholds():
                          ('inv_ids',),
                          ids=_case_id)
 def test_kernels_match_plain_on_card(random_seed, case, dtype):
-    """Every route of K1 and K3 (and K2) against the plain version,
-    bitwise, at the cases of ``tnco_tpu_torch.testing.kernel_cases``."""
+    """Every route of K1 and K3 (and K2, dtype aside) against the plain
+    version, bitwise, at the cases of
+    ``tnco_tpu_torch.testing.kernel_cases``."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU (the CUDA kernels have no CPU '
                     'mode); run python3 chip_smoke.py on the card')
     dev = torch.device('cuda')
     if case == 'inv_ids':
-        r = np.random.default_rng(random_seed)
-        for n, q, dup in ((3328, 256, False), (3328, 256, True),
-                          (20000, 777, True)):
-            ids = _ids(r, 64, q, n) if dup else _unique_ids(r, 64, n, q)
-            ids = _torch(ids).to(dev)
-            assert torch.equal(ks.inv_ids(ids, n), ks.inv_ids_plain(ids, n))
+        bad = [c.name for c in kc.INV_CASES
+               if kc.check_inv(c, dev, seed=random_seed)]
+        assert bad == []
         return
     check = kc.check_gather if isinstance(case, kc.GatherCase) else \
         kc.check_scatter

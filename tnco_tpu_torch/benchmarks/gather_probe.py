@@ -11,9 +11,13 @@ read and write whole node rows at data-dependent ids:
 - ``'take'``: ``out[p] = sum over r of state[ids[r, p]]``, int32
   wrapping.
 
-Ids lie in ``[0, N)``; both routes clamp them to that range.  A CUDA
+Ids lie in ``[0, N)``; both impls clamp them to that range.  A CUDA
 tensor goes to the hand-written kernels (``csrc/probe.cu``); a CPU tensor
-to :func:`probe_plain`.  No fallback: a CUDA call launches the kernel or
+to :func:`probe_plain`.  ``'loop'`` has two routes, picked from ``(N, P)``
+by :func:`loop_route`: ``'smem'`` (one block per column of the state,
+each keeping its column of all N rows in shared memory) and ``'global'``
+(one block over a working copy in global memory, for N too large for one
+column in a block).  No fallback: a CUDA call launches the kernel or
 raises, and unlike the JAX script the probe catches nothing, so a kernel
 that fails makes the run fail.
 
@@ -37,15 +41,23 @@ from tnco_tpu_torch.device import card_info, resolve_device
 from tnco_tpu_torch.kernels import build
 from tnco_tpu_torch.kernels.scatter import inv_ids_plain
 
-__all__ = ['probe', 'probe_plain', 'main', 'IMPLS', 'loop_launches',
+__all__ = ['probe', 'probe_plain', 'main', 'IMPLS', 'loop_route',
+           'loop_threads', 'loop_stage_rounds', 'loop_launches',
            'take_launches']
 
 IMPLS = ('loop', 'take')
 COLS = 128
 N_ROWS = 3328
-# The loop kernel keeps its [P, 128] int32 scratch in one SM's shared
-# memory (at most 232448 bytes per block).
-MAX_LOOP_P = 232448 // (COLS * 4)
+# Shared memory a block can use (bytes).
+SMEM_BYTES = 232448
+# The loop's global route keeps its [P, 128] int32 scratch in one block's
+# shared memory; the contract holds for both routes.
+MAX_LOOP_P = SMEM_BYTES // (COLS * 4)
+# The loop's smem route (csrc/probe.cu) keeps one column of all N rows
+# and two stage buffers of ids (a whole number of rounds, at least one, in
+# at most STAGE_WORDS words each) in a block's shared memory.  This module
+# picks the launch (route, threads, rounds a stage) and passes it.
+STAGE_WORDS = 2048
 
 # Kernel launches since the last reset (the bench path's proof of route).
 loop_launches = 0
@@ -72,6 +84,24 @@ def _check(state, ids, impl):
                                ids.shape[1] <= MAX_LOOP_P):
         raise ValueError(f"'loop' needs R >= 1 and P <= {MAX_LOOP_P}, got "
                          f"R={ids.shape[0]}, P={ids.shape[1]}.")
+
+
+def loop_stage_rounds(p: int) -> int:
+    """Rounds of ids in each stage buffer of the loop's smem route."""
+    return max(1, STAGE_WORDS // p)
+
+
+def loop_threads(p: int) -> int:
+    """Threads of a smem-route block: one a pair, in whole warps."""
+    return -(-p // 32) * 32
+
+
+def loop_route(n: int, p: int) -> str:
+    """The loop kernel's route: 'smem' where a column of ``n`` rows and
+    the stage buffers fit a block's shared memory (N <= 54016 at P =
+    128), else 'global'."""
+    words = n + 2 * loop_stage_rounds(p) * p
+    return 'smem' if 4 * words <= SMEM_BYTES else 'global'
 
 
 def probe_plain(state, ids, impl: str):
@@ -102,21 +132,37 @@ def probe(state, ids, impl: str):
         return probe_plain(state, ids, impl)
     (rounds, p), n = ids.shape, state.shape[0]
     out = torch.empty((p, COLS), dtype=torch.int32, device=state.device)
-    lib = build.load()
-    stream = torch.cuda.current_stream(state.device).cuda_stream
     if impl == 'loop':
-        work = torch.empty_like(state)
-        rc = lib.tnco_probe_loop(ids.data_ptr(), state.data_ptr(),
-                                 work.data_ptr(), out.data_ptr(), n, p,
-                                 rounds, stream)
-        build.check(rc, 'probe_loop')
+        _launch_loop(state, ids, out, loop_route(n, p))
         loop_launches += 1
     else:
+        if state.data_ptr() % 16:
+            raise ValueError("'take' reads 16-byte rows: the state's data "
+                             "must be 16-byte aligned on the card.")
+        lib = build.load()
+        stream = torch.cuda.current_stream(state.device).cuda_stream
         rc = lib.tnco_probe_take(ids.data_ptr(), state.data_ptr(),
                                  out.data_ptr(), n, p, rounds, stream)
         build.check(rc, 'probe_take')
         take_launches += 1
     return out
+
+
+def _launch_loop(state, ids, out, route):
+    """One loop-kernel launch by ``route`` (no counting; the wrapper
+    counts, and timing code calls this directly)."""
+    (rounds, p), n = ids.shape, state.shape[0]
+    if route == 'smem':
+        work, threads, rps = None, loop_threads(p), loop_stage_rounds(p)
+    else:
+        work, threads, rps = torch.empty_like(state), 0, 0
+    lib = build.load()
+    stream = torch.cuda.current_stream(state.device).cuda_stream
+    rc = lib.tnco_probe_loop(ids.data_ptr(), state.data_ptr(),
+                             None if work is None else work.data_ptr(),
+                             out.data_ptr(), n, p, rounds, threads, rps,
+                             stream)
+    build.check(rc, 'probe_loop')
 
 
 def _time_ms(fn, dev, calls=10, rounds=5):

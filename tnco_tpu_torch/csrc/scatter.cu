@@ -7,10 +7,13 @@
 //
 // K2  inv[b, n] = q such that ids[b, q] == n, else -1.  Ids outside
 //     [0, n) are ignored; on duplicate ids the LAST q wins, as in the TPU
-//     kernel.  One block per replica: the row lives in shared memory
-//     (int[n], 13 KB at n = 3328) when it fits the 48 KB default, else in
-//     the output row in global memory.  atomicMax over q makes "last q
-//     wins" exact and independent of thread order.
+//     kernel.  One block per (replica, slice of `slice` columns, which
+//     the wrapper picks: kernels/scatter.py INV_SLICE): the block reads
+//     its replica's Q ids once, coalesced, keeps those in its slice,
+//     resolves "last q wins" with atomicMax into a slice-word map in
+//     shared memory (exact and independent of thread order), and writes
+//     its slice with 16-byte stores where n is a multiple of 4.  One
+//     route for every n: the map is a slice whatever n is.
 //
 // K3  vals[lo + g, b, ids[b, q]] = upd[g, b, q] for in-range ids, the last
 //     q winning on duplicates (the TPU kernel's result); -1 and
@@ -35,7 +38,10 @@
 //     takes the place of both Pallas bodies: their wide/tiled split is a
 //     choice of VMEM block sizes that has no counterpart here.
 //
-// Bound on an H100: memory.  K2 reads B*Q ids and writes B*n words.  K3
+// Bound on an H100: memory.  K2 reads B*Q ids and writes B*n words (0.92
+// MB at B=64, Q=256, n=3328: 0.27 us at 3.35 TB/s, under the cost of a
+// launch, whose floor, an empty kernel on the same grid, is measured beside
+// it by scripts/profile_torch_probe_inv.py).  K3
 // reads B*Q ids and the G*K update words of its K winners and writes
 // G*K words: 8.7 MB for the 132-plane merged apply at B=64, Q=256 with
 // half the ids kept (2.6 us at 3.35 TB/s).  Its stores put one word in a
@@ -57,34 +63,39 @@
 namespace {
 
 constexpr int kSmemBytes = 48 * 1024;
+constexpr int kInvThreads = 256;  // K2's threads per block
 
-__global__ void inv_ids_smem_kernel(const int32_t* __restrict__ ids,
-                                    int32_t* __restrict__ inv, int n, int q) {
-  extern __shared__ int32_t buf[];
-  const long long bi = blockIdx.x;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) buf[i] = -1;
-  __syncthreads();
-  const int32_t* row = ids + bi * q;
-  for (int j = threadIdx.x; j < q; j += blockDim.x) {
-    const int id = row[j];
-    if (id >= 0 && id < n) atomicMax(buf + id, j);
+__global__ void __launch_bounds__(kInvThreads)
+    inv_ids_kernel(const int32_t* __restrict__ ids, int32_t* __restrict__ inv,
+                   int n, int q, int slice, int n_slices) {
+  extern __shared__ int4 map4[];  // [slice / 4]
+  int32_t* map = reinterpret_cast<int32_t*>(map4);
+  const int bi = blockIdx.x / n_slices;
+  const int s0 = (blockIdx.x - bi * n_slices) * slice;
+  const int len = min(slice, n - s0);
+  // The first id a thread takes is loaded before the map is set, so that
+  // its latency overlaps the initialisation.
+  const int32_t* row = ids + (size_t)bi * q;
+  const int j0 = threadIdx.x;
+  const int32_t first = j0 < q ? __ldg(row + j0) : -1;
+  for (int i = threadIdx.x; i < slice / 4; i += kInvThreads) {
+    map4[i] = make_int4(-1, -1, -1, -1);
   }
   __syncthreads();
-  int32_t* out = inv + bi * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = buf[i];
-}
-
-__global__ void inv_ids_global_kernel(const int32_t* __restrict__ ids,
-                                      int32_t* __restrict__ inv, int n,
-                                      int q) {
-  const long long bi = blockIdx.x;
-  int32_t* out = inv + bi * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = -1;
+  for (int j = j0; j < q; j += kInvThreads) {
+    // Unsigned: -1 and ids outside [s0, s0 + len) fall out of range.
+    const unsigned rel =
+        (unsigned)(j == j0 ? first : __ldg(row + j)) - (unsigned)s0;
+    if (rel < (unsigned)len) atomicMax(map + rel, j);
+  }
   __syncthreads();
-  const int32_t* row = ids + bi * q;
-  for (int j = threadIdx.x; j < q; j += blockDim.x) {
-    const int id = row[j];
-    if (id >= 0 && id < n) atomicMax(out + id, j);
+  int32_t* out = inv + (size_t)bi * n + s0;
+  if ((n & 3) == 0) {  // s0 is a multiple of 4 too: 16-byte aligned rows
+    for (int i = threadIdx.x; i < len / 4; i += kInvThreads) {
+      reinterpret_cast<int4*>(out)[i] = map4[i];
+    }
+  } else {
+    for (int i = threadIdx.x; i < len; i += kInvThreads) out[i] = map[i];
   }
 }
 
@@ -184,18 +195,18 @@ __global__ void scatter_gbn_kernel(const int32_t* __restrict__ vals,
 
 }  // namespace
 
+// inv: [b, n] int32, 16-byte aligned (a fresh tensor from the wrapper);
+// slice: columns per block, a multiple of 4 (its map is shared memory).
 extern "C" int tnco_inv_ids(const void* ids, void* inv, int b, int n, int q,
-                            void* stream) {
+                            int slice, void* stream) {
   if (b <= 0 || n <= 0) return 0;
-  const int threads = 256;
-  const long long smem = (long long)n * sizeof(int32_t);
-  if (smem <= kSmemBytes) {
-    inv_ids_smem_kernel<<<b, threads, (size_t)smem, (cudaStream_t)stream>>>(
-        (const int32_t*)ids, (int32_t*)inv, n, q);
-  } else {
-    inv_ids_global_kernel<<<b, threads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)ids, (int32_t*)inv, n, q);
-  }
+  if (slice <= 0 || slice % 4) return (int)cudaErrorInvalidValue;
+  const int n_slices = (n + slice - 1) / slice;
+  const long long blocks = (long long)b * n_slices;
+  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  inv_ids_kernel<<<(unsigned)blocks, kInvThreads, 4 * (size_t)slice,
+                   (cudaStream_t)stream>>>((const int32_t*)ids, (int32_t*)inv,
+                                           n, q, slice, n_slices);
   return (int)cudaGetLastError();
 }
 

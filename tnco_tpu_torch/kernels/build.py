@@ -44,10 +44,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     'tnco_gather_gbn': (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    'tnco_inv_ids': (_P, _P, _I, _I, _I, _P),
+    'tnco_inv_ids': (_P, _P, _I, _I, _I, _I, _P),
     'tnco_scatter_rows': (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     'tnco_scatter_gbn': (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    'tnco_probe_loop': (_P, _P, _P, _P, _I, _I, _I, _P),
+    'tnco_probe_loop': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     'tnco_probe_take': (_P, _P, _P, _I, _I, _I, _P),
     'tnco_walker_im': (_P,) * 10 + (_I,) * 10 + (_P,),
     'tnco_walker_fw': (_P,) * 10 + (_I,) * 10 + (_F, _I, _P),

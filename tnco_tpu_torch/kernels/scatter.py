@@ -28,8 +28,8 @@ from tnco_tpu_torch.kernels.gather import _check, _plane_range
 
 __all__ = ['inv_ids', 'scatter_rows_inplace', 'scatter_rows_gbn',
            'inv_ids_plain', 'scatter_rows_inplace_plain',
-           'scatter_rows_gbn_plain', 'scatter_route', 'inv_launches',
-           'scatter_launches', 'gbn_launches']
+           'scatter_rows_gbn_plain', 'scatter_route', 'inv_slices',
+           'inv_launches', 'scatter_launches', 'gbn_launches']
 
 # Kernel launches since the last reset (the main path's proof of route).
 inv_launches = 0
@@ -47,6 +47,17 @@ def scatter_route(n: int, q: int) -> str:
     """K3's route for ``q`` ids into rows of ``n`` words: 'smem' (the
     winner map in shared memory) or 'global' (in a scratch tensor)."""
     return 'smem' if 4 * (n + 2 * min(q, n)) <= _SMEM_BYTES else 'global'
+
+
+# K2's columns per block, passed to the kernel (csrc/scatter.cu): one
+# block per (replica, slice), an INV_SLICE-word map in shared memory, for
+# every n.
+INV_SLICE = 2048
+
+
+def inv_slices(n: int) -> int:
+    """K2's blocks per replica for rows of ``n`` words."""
+    return -(-n // INV_SLICE)
 
 
 def _check_ids(ids):
@@ -75,16 +86,23 @@ def inv_ids(ids, n: int):
     _check_ids(ids)
     if ids.device.type == 'cpu':
         return inv_ids_plain(ids, n)
-    b, q = ids.shape
-    inv = torch.empty((b, n), dtype=torch.int32, device=ids.device)
+    inv = torch.empty((ids.shape[0], n), dtype=torch.int32, device=ids.device)
     if inv.numel() == 0:
         return inv
-    lib = build.load()
-    stream = torch.cuda.current_stream(ids.device).cuda_stream
-    rc = lib.tnco_inv_ids(ids.data_ptr(), inv.data_ptr(), b, n, q, stream)
-    build.check(rc, 'inv_ids')
+    _launch_inv(ids, inv, INV_SLICE)
     inv_launches += 1
     return inv
+
+
+def _launch_inv(ids, inv, slice_words):
+    """One K2 launch with ``slice_words`` columns a block (no counting;
+    the wrapper counts, and timing code calls this directly)."""
+    (b, q), n = ids.shape, inv.shape[1]
+    lib = build.load()
+    stream = torch.cuda.current_stream(ids.device).cuda_stream
+    rc = lib.tnco_inv_ids(ids.data_ptr(), inv.data_ptr(), b, n, q,
+                          slice_words, stream)
+    build.check(rc, 'inv_ids')
 
 
 def _check_upd(vals, ids, upd, lo, hi):

@@ -1,11 +1,13 @@
-"""Card checks of the row gather K1 and the in-place row scatter K3: the
-main path's shapes and edge cases, each run by every route of the kernel
-that takes it and by the wrapper, bitwise against the plain version.
+"""Card checks of the row gather K1, the id inversion K2, the in-place
+row scatter K3 and the row-read probe P1: the main path's shapes and
+edge cases, each run by every route of the kernel that takes it and by
+the wrapper, bitwise against the plain version.
 
-``tests/test_torch_kernels.py`` (marked ``cuda``) and ``chip_smoke.py``
-phase 2 run the same cases.  Inputs are made with numpy from a seed;
-every id row holds -1, ids >= N and in-range duplicates, and float32
-vals hold NaN payloads, infinities and -0.
+``tests/test_torch_kernels.py`` and ``tests/test_torch_gather_probe.py``
+(marked ``cuda``) and ``chip_smoke.py`` phase 2 run the same cases.
+Inputs are made with numpy from a seed; every id row holds -1, ids >= N
+and in-range duplicates, and float32 vals hold NaN payloads, infinities
+and -0.
 """
 
 from typing import NamedTuple
@@ -13,12 +15,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tnco_tpu_torch.benchmarks import gather_probe as gp
 from tnco_tpu_torch.kernels import gather as kg
 from tnco_tpu_torch.kernels import scatter as ks
 
-__all__ = ['GatherCase', 'ScatterCase', 'GATHER_CASES', 'SCATTER_CASES',
-           'gather_routes', 'scatter_routes', 'check_gather',
-           'check_scatter']
+__all__ = ['GatherCase', 'ScatterCase', 'InvCase', 'ProbeCase',
+           'GATHER_CASES', 'SCATTER_CASES', 'INV_CASES', 'PROBE_CASES',
+           'gather_routes', 'scatter_routes', 'loop_routes',
+           'check_gather', 'check_scatter', 'check_inv', 'check_probe',
+           'probe_ids']
 
 # Sycamore m=20 at B=64, P=128: W=64 index planes, N padded to 3328; the
 # walks engine's packed state has F = 2W+5 planes (index, union, c0, c1,
@@ -91,6 +96,50 @@ SCATTER_CASES = (
 )
 
 
+class InvCase(NamedTuple):
+    name: str
+    b: int
+    n: int
+    q: int
+    dup: bool          # the second half of each row repeats the first
+
+
+_S = ks.INV_SLICE
+INV_CASES = (
+    # The bench's K4 call (ids [64, 256] -> [64, 3328]) and its duplicates.
+    InvCase('main', _B, _N, 2 * _P, False),
+    InvCase('duplicates', _B, _N, 2 * _P, True),
+    # Slice edges: one word, one slice less or more one word, ragged n.
+    InvCase('n=1', _B, 1, 2 * _P, True),
+    InvCase('slice - 1', _B, _S - 1, 2 * _P, True),
+    InvCase('slice + 1', _B, _S + 1, 2 * _P, True),
+    InvCase('ragged 3241', _B, 3241, 2 * _P, True),
+    # The first design's global-map size, Q = n, and Q > n.
+    InvCase('large rows', _B, 20000, 777, True),
+    InvCase('Q = n = 2048', _B, 2048, 2048, False),
+    InvCase('Q > n', 8, 100, 300, False),
+)
+
+
+class ProbeCase(NamedTuple):
+    name: str
+    n: int
+    p: int
+    rounds: int
+    heavy: bool        # every round's ids drawn from 4 distinct rows
+
+
+PROBE_CASES = tuple(
+    ProbeCase(f'N={n} P={p} R={r}', n, p, r, False)
+    for n in (_N, 3241, 40)
+    for p, r in ((128, 256), (1, 1), (129, 7), (gp.MAX_LOOP_P, 3))) + (
+    ProbeCase('N=40 P=8 R=3', 40, 8, 3, False),
+    ProbeCase('heavy duplicates', _N, 128, 256, True),
+    # Above the smem route's limit: the global route only.
+    ProbeCase('large N', 60000, 128, 2, False),
+)
+
+
 def gather_routes(n: int, q: int) -> tuple:
     """Every route of K1 that takes rows of ``n`` words at ``q`` ids."""
     return ('sparse', 'row') if 4 * ((n + 4) & ~3) <= _ROW_SMEM_BYTES \
@@ -100,6 +149,12 @@ def gather_routes(n: int, q: int) -> tuple:
 def scatter_routes(n: int, q: int) -> tuple:
     """Every route of K3 that takes ``q`` ids into rows of ``n`` words."""
     return ('smem', 'global') if ks.scatter_route(n, q) == 'smem' else \
+        ('global',)
+
+
+def loop_routes(n: int, p: int) -> tuple:
+    """Every route of the probe's loop kernel at N = ``n``, P = ``p``."""
+    return ('smem', 'global') if gp.loop_route(n, p) == 'smem' else \
         ('global',)
 
 
@@ -179,4 +234,58 @@ def check_scatter(case, dtype, device, seed=0):
     if ks.scatter_rows_inplace(got, ids, upd, planes=case.planes) is not \
             got or not _same(got, want):
         bad.append('wrapper')
+    return bad
+
+
+def _inv_ids(r, case):
+    ids = _ids(r, case.b, case.q, case.n).numpy()
+    if case.dup and case.q > 1:
+        ids[:, case.q // 2:] = ids[:, :case.q - case.q // 2]
+    if case.q > 3:
+        ids[:, 2] = -2**31
+        ids[:, 3] = 2**31 - 1
+    return torch.from_numpy(ids)
+
+
+def check_inv(case, device, seed=0):
+    """Runs one K2 case through the wrapper; returns ['wrapper'] when it
+    differs from the plain version (empty when they agree)."""
+    r = np.random.default_rng(seed)
+    ids = _inv_ids(r, case).to(device)
+    want = ks.inv_ids_plain(ids, case.n)
+    return [] if torch.equal(ks.inv_ids(ids, case.n), want) else ['wrapper']
+
+
+def probe_ids(r, n, p, rounds, heavy):
+    """[R, P] int32 ids in [0, n) with repeats (within a round at random;
+    with ``heavy``, every round's ids drawn from 4 distinct rows)."""
+    if heavy:
+        rows = r.choice(n, size=min(4, n), replace=False)
+        return rows[r.integers(0, len(rows), (rounds, p))].astype(np.int32)
+    return r.integers(0, n, (rounds, p)).astype(np.int32)
+
+
+def check_probe(case, device, seed=0):
+    """Runs one P1 case by every route of the loop kernel, and both impls
+    through the wrapper; returns the routes that differ from the plain
+    version or changed the caller's state."""
+    r = np.random.default_rng(seed)
+    state = torch.from_numpy(
+        r.integers(-2**31, 2**31, (case.n, gp.COLS)).astype(np.int32))
+    state = state.to(device)
+    ids = torch.from_numpy(probe_ids(r, case.n, case.p, case.rounds,
+                                     case.heavy)).to(device)
+    before = state.clone()
+    want = gp.probe_plain(state, ids, 'loop')
+    bad = []
+    for route in loop_routes(case.n, case.p):
+        out = torch.empty_like(want)
+        gp._launch_loop(state, ids, out, route)
+        if not torch.equal(out, want) or not torch.equal(state, before):
+            bad.append(f'loop {route}')
+    for impl in gp.IMPLS:
+        got = gp.probe(state, ids, impl)
+        if not torch.equal(got, gp.probe_plain(state, ids, impl)) or \
+                not torch.equal(state, before):
+            bad.append(f'{impl} wrapper')
     return bad
