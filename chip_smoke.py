@@ -61,8 +61,10 @@ Phases, each fatal on failure:
    probe's ``main()`` (ns per row op);
 10. kernel, plain-version, library-call and bound times at the main-path
    shapes, printed as one ``{"kernels": [...]}`` line; K1's row also
-   holds, under ``shapes``, its times at the slicer's sorted-space gather
-   and at a small pull, and K1's and K3's rows the bytes of the 32-byte
+   holds, under ``shapes``, its times at the slicer's sorted-space gather,
+   at a small pull and at the lockstep sweep's row read (K3's row: its
+   row write; the two rows' ``launches`` sum the FW walks app and the two
+   default-fuse apps), and K1's and K3's rows the bytes of the 32-byte
    sectors their accesses touch (``sector_bytes``, beside the word
    bound); each K5 row also holds, under ``tree_route``, its times on a
    mixed log2-dims table of the same shape (the kernel's tree width
@@ -71,7 +73,29 @@ Phases, each fatal on failure:
    barriers with no memory work, the take's row bytes at the card's L2
    read rate after an empty kernel on its grid, an empty kernel on K2's
    grid; kernels of
-   ``scripts/probe_inv_first_design.cu``).
+   ``scripts/probe_inv_first_design.cu``);
+11. the FW app at its default fuse: ``Optimizer(max_width=30,
+   seed=0).optimize`` with no ``fuse=`` argument, which fuses Sycamore
+   m=20 to N=855, W=26, where 'auto' picks the lockstep 'batched'
+   engine; 64 runs x BATCHED_APP_STEPS sweeps, reslice every 10; K1 (the
+   row reads) and K3 (the row writes) must launch; every result and
+   every replica's best state audited;
+12. the IM app the same way (``Optimizer(seed=0)``), audited as in
+   phase 5;
+13. both batched flagships at full width, B=64 on the fused network
+   (FW: max_width=30, reslice every 10), BATCHED_SWEEPS timed sweeps
+   after a warm-up: ms per sweep, walk steps and moves per sweep,
+   moves/s, and the FW reslices' share of the sweeps (CUDA events);
+   every replica audited; after phase 10, a few more sweeps of each
+   under ``torch.profiler`` give kernel launches per sweep and the
+   kernels' busy share (last, since a profiler session slows the host's
+   later launches);
+14. one batched sweep (IM, then FW with a reslice) on the card and on
+   the CPU from one state and the same draws, at B=64 on the fused
+   network: integer and bit state bitwise equal, totals within 1e-5.
+
+Phases 11-14 run between phases 9 and 10, whose kernel line carries
+every phase's launch counts; phase 13's profiled sweeps run after 10.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
@@ -114,6 +138,18 @@ IM_KERNELS = ('gather_gbn', 'walker_im')
 FW_WALKER_KERNELS = ('gather_gbn', 'walker_fw')
 BENCH_KERNELS = ('gather_gbn', 'inv_ids', 'scatter_rows_gbn', 'walker_im',
                  'probe_loop', 'probe_take')
+# The lockstep 'batched' engines: K1 reads the rows of every walk step,
+# refreshes hyper after each chunk and reads rows in the FW reslice; K3
+# writes the accepted rows.
+BATCHED_KERNELS = ('gather_gbn', 'scatter_rows_inplace')
+# The main paths whose launches a kernel's row reports (default: the FW
+# walks app, phase 3).
+MAIN_PATHS = {'gather_gbn': ('fw_app', 'batched_fw_app', 'batched_im_app'),
+              'scatter_rows_inplace': ('fw_app', 'batched_fw_app',
+                                       'batched_im_app'),
+              'walker_im': ('im_app',), 'walker_fw': ('fw_walker_app',),
+              'inv_ids': ('bench',), 'scatter_rows_gbn': ('bench',),
+              'probe_loop': ('bench',), 'probe_take': ('bench',)}
 
 # Main-path shapes (Sycamore m=20 at B=64, P=128: W=64 index planes,
 # N padded to 3328, 132 planes below par in the FW state).
@@ -127,6 +163,12 @@ K_BIG = 8
 # FW walker: reslice every 10 steps (the app's default); K5-FW timed on
 # a segment of that length.
 UPDATE_SLICES = 10
+# The default-fuse phases (Sycamore m=20 fused to N=855, W=26): sweeps
+# of the two app phases, and timed sweeps of each batched flagship; the
+# FW sweep state has W + 5 planes.
+BATCHED_APP_STEPS = 32
+BATCHED_SWEEPS = 20
+N_BATCHED, F_BATCHED = 855, 26 + 5
 # P1: the probe's Sycamore-sized state [3328, 128] and its default P=128
 # row ops per round over R=256 rounds.
 PROBE_P, PROBE_R = 128, 256
@@ -257,8 +299,9 @@ def phase_app(torch):
     ts, out, dims = sycamore_like_tn(20)
     tn = TensorNetwork([Tensor(xs, tuple(dims[x] for x in xs)) for xs in ts],
                        output_inds=out)
-    # fuse=0: the default fuse=4 pre-contraction shrinks the network to
-    # N*W = 22230 <= 32768, which 'auto' routes to the 'batched' engine.
+    # fuse=0 keeps the full network (N=3241) on the walks engine, as in
+    # every earlier run; the default fuse=4 shrinks it to N*W = 22230,
+    # which 'auto' routes to the 'batched' engine (phase 11).
     loaded = load_tn(tn, fuse=0, seed=0)
     n_nodes = 2 * loaded.n_tensors - 1
     n_lanes = -(-loaded.n_inds // 32)
@@ -539,11 +582,8 @@ def _audit_im_runner(runner, what):
 
 
 def phase_app_im(torch):
-    import numpy as np
-
     from tnco_tpu_torch.app import Optimizer, load_tn
     from tnco_tpu_torch.app.infinite_memory import sa as im_sa
-    from tnco_tpu_torch.ctree import ContractionTree
     from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tnco_tpu_torch.parallel.replicas import resolve_engine
 
@@ -578,28 +618,39 @@ def phase_app_im(torch):
         fail(f'app IM runner engine {runner.engine!r}')
     if not all(counts[k] > 0 for k in IM_KERNELS):
         fail(f'a kernel of the IM path was never launched: {counts}')
+    _audit_im_results(res, loaded, runner, 'app IM')
+    return counts
+
+
+def _audit_im_results(res, loaded, runner, what):
+    """Every IM app result is a valid path of ``loaded`` at its exact
+    cost, and the results' costs are the replicas' best trees' costs
+    (each within 1e-3 in log2 of the device min total)."""
+    import numpy as np
+
+    from tnco_tpu_torch.ctree import ContractionTree
+
     t0 = time.perf_counter()
     for r in res:
         ctree = ContractionTree(r.path, loaded.ts_inds, loaded.dims,
                                 output_inds=loaded.output_inds)
         ok, msg = ctree.is_valid(return_message=True)
         if not ok:
-            fail(f'app IM: invalid path: {msg}')
+            fail(f'{what}: invalid path: {msg}')
         total = ctree.total_cost_exact()
         if sum(int(c) for c in r.disconnected_costs) != total or \
                 r.cost != Decimal(0) + Decimal(total):
-            fail(f'app IM: cost {r.cost} != exact recompute {total}')
-    exact, worst = _audit_im_runner(runner, 'app IM')
+            fail(f'{what}: cost {r.cost} != exact recompute {total}')
+    exact, worst = _audit_im_runner(runner, what)
     # r.cost is a Decimal sum at context precision; the per-component
     # costs are the exact bigints.
     if sorted(sum(int(c) for c in r.disconnected_costs) for r in res) != \
             sorted(exact):
-        fail('app IM: result costs are not the replicas\' best costs')
+        fail(f'{what}: result costs are not the replicas\' best costs')
     costs = np.asarray([math.log2(int(r.cost)) for r in res])
-    log(f'app IM: 64 results audited in {time.perf_counter() - t0:.1f} s; '
-        f'log2 cost best {costs.min():.4f} median {np.median(costs):.4f}; '
-        f'|device - exact| <= {worst:.2e}')
-    return counts
+    log(f'{what}: {len(res)} results audited in '
+        f'{time.perf_counter() - t0:.1f} s; log2 cost best {costs.min():.4f}'
+        f' median {np.median(costs):.4f}; |device - exact| <= {worst:.2e}')
 
 
 def phase_flagship_im(torch, card):
@@ -972,6 +1023,288 @@ def phase_flagship_fw_walker(torch, card):
     return counts, runner
 
 
+def _sycamore_fused(fw):
+    """Sycamore-like m=20 loaded at the app's default fuse with seed 0,
+    as ``Optimizer(seed=0)`` loads it: ``(tn, loaded)``.  Fails unless
+    'auto' routes it to the lockstep 'batched' engine."""
+    from tnco_tpu_torch.app import load_tn
+    from tnco_tpu_torch.parallel.replicas import resolve_engine
+
+    _, _, _, tn = _sycamore()
+    loaded = load_tn(tn, seed=0)
+    n_nodes = 2 * loaded.n_tensors - 1
+    n_lanes = -(-loaded.n_inds // 32)
+    engine = resolve_engine(n_nodes, n_lanes, accel=True, native=False,
+                            sparse=False, max_new_slices=0,
+                            disable_shared_inds=False, prob_kind=None, fw=fw)
+    log(f"default fuse ({'FW' if fw else 'IM'}): N={n_nodes} W={n_lanes} "
+        f"N*W={n_nodes * n_lanes} -> engine {engine!r}")
+    if engine != 'batched':
+        fail(f"'auto' resolved to {engine!r}, expected 'batched'")
+    return tn, loaded
+
+
+def phase_app_batched(torch, fw):
+    """The app at its default fuse: ``Optimizer(max_width=30, seed=0)``
+    (``fw``) or ``Optimizer(seed=0)``, 64 runs, no ``fuse=`` argument."""
+    from tnco_tpu_torch.app import Optimizer
+    from tnco_tpu_torch.app.finite_width import sa as fw_sa
+    from tnco_tpu_torch.app.infinite_memory import sa as im_sa
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    what = f"app batched {'FW' if fw else 'IM'}"
+    tn, loaded = _sycamore_fused(fw)
+    runners, restore = (_record_runners(fw_sa, 'ReplicaRunnerFW') if fw else
+                        _record_runners(im_sa, 'ReplicaRunner'))
+    try:
+        opt = Optimizer(max_width=30, seed=0) if fw else Optimizer(seed=0)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        tn_out, res = opt.optimize(tn, betas=(0, 60),
+                                   n_steps=BATCHED_APP_STEPS, n_runs=B)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        restore()
+    (runner,) = runners
+    log(f'{what}: {B} runs x {BATCHED_APP_STEPS} sweeps in {wall:.2f} s '
+        f'(runner set-up + anneal {res[0].runtime_s:.2f} s); engine '
+        f'{runner.engine!r}; launches {counts}')
+    if runner.engine != 'batched':
+        fail(f'{what}: runner engine {runner.engine!r}')
+    if not all(counts[k] > 0 for k in BATCHED_KERNELS):
+        fail(f'{what}: a kernel of the path was never launched: {counts}')
+    if tn_out.n_tensors != loaded.n_tensors:
+        fail(f'{what}: the app loaded {tn_out.n_tensors} tensors, expected '
+             f'{loaded.n_tensors}')
+    if fw:
+        import numpy as np
+        t0 = time.perf_counter()
+        for r in res:
+            _audit_result(r, tn_out, 30)
+        worst = _audit_fw_runner(runner, 30, what)
+        costs = np.asarray([math.log2(int(r.cost)) for r in res])
+        log(f'{what}: {len(res)} results audited in '
+            f'{time.perf_counter() - t0:.1f} s; log2 cost best '
+            f'{costs.min():.4f} median {np.median(costs):.4f}; '
+            f'|device - exact| <= {worst:.2e}')
+    else:
+        _audit_im_results(res, tn_out, runner, what)
+    return counts
+
+
+def _kernel_launches(torch, fn):
+    """Runs ``fn`` under ``torch.profiler``: ``(kernel launches, summed
+    kernel ms, wall ms)`` (copies and fills not counted as launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n, busy = 0, 0.0
+    for ev in prof.events():
+        if ev.device_type.name != 'CUDA':
+            continue
+        us = getattr(ev, 'device_time_total', None)
+        us = ev.cuda_time_total if us is None else us
+        if us <= 0:
+            continue
+        busy += us / 1e3
+        n += not ev.name.startswith(('Memcpy', 'Memset'))
+    return n, busy, 1e3 * wall
+
+
+def phase_flagship_batched(torch, card, fw):
+    """A lockstep flagship at full width: B=64 on the fused network,
+    ``ReplicaRunnerFW(engine='batched')`` (max_width=30, reslice every
+    UPDATE_SLICES sweeps) or ``ReplicaRunner(engine='batched')``: ms per
+    sweep, walk steps per sweep, moves/s, launches per sweep and, FW, the
+    reslice's share of the sweeps (CUDA events)."""
+    import numpy as np
+
+    from tnco_tpu_torch.app.finite_width.sa import _build_run_paths
+    from tnco_tpu_torch.ctree import ContractionTree
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tnco_tpu_torch.kernels import sa_batched as sb
+    from tnco_tpu_torch.kernels import sa_finite_batched as sfb
+    from tnco_tpu_torch.optimize.finite_width import SimpleCostModel
+    from tnco_tpu_torch.parallel import ReplicaRunner, ReplicaRunnerFW
+
+    what = f"flagship batched {'FW' if fw else 'IM'}"
+    _, loaded = _sycamore_fused(fw)
+    seeds = list(range(B))
+    t0 = time.perf_counter()
+    paths = _build_run_paths(loaded, seeds, -1)
+    order = tuple(dict.fromkeys(x for xs in loaded.ts_inds for x in xs))
+    ctrees = [ContractionTree(p[0], loaded.ts_inds, loaded.dims,
+                              output_inds=loaded.output_inds,
+                              check_shared_inds=True, inds_order=order)
+              for p in paths]
+    t1 = time.perf_counter()
+    runner = (ReplicaRunnerFW(ctrees, seeds, engine='batched',
+                              cmodel=SimpleCostModel(max_width=30))
+              if fw else ReplicaRunner(ctrees, seeds, engine='batched'))
+    log(f'{what}: N={len(ctrees[0])} W={ctrees[0].inds_array.shape[1]} '
+        f'B={B} set-up {time.perf_counter() - t1:.1f} s (+ {t1 - t0:.1f} s '
+        f'of initial paths)')
+
+    def run(betas):
+        if fw:
+            runner.run(betas, update_slices=UPDATE_SLICES)
+        else:
+            runner.run(betas)
+
+    k = BATCHED_SWEEPS
+    betas = np.linspace(0.0, 60.0, 3 * k)
+    run(betas[:UPDATE_SLICES])                                # warm-up
+    torch.cuda.synchronize()
+    steps = [0]
+    spans = []
+    originals = (sb._propose, sfb._greedy_slices_b, sfb._lcc_fw_b)
+
+    def counted(*args, **kwargs):
+        steps[0] += 1
+        return originals[0](*args, **kwargs)
+
+    def timed(fn):
+        def wrapped(*args, **kwargs):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*args, **kwargs)
+            e.record()
+            spans.append((s, e))
+            return out
+        return wrapped
+
+    sb._propose = counted
+    sfb._greedy_slices_b = timed(originals[1])
+    sfb._lcc_fw_b = timed(originals[2])
+    try:
+        reset_launch_counts()
+        moves0 = runner.moves_done
+        t0 = time.perf_counter()
+        run(betas[k:2 * k])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        sb._propose, sfb._greedy_slices_b, sfb._lcc_fw_b = originals
+    moves = runner.moves_done - moves0
+    reslice_ms = sum(s.elapsed_time(e) for s, e in spans)
+    stats = dict(ms_per_sweep=1e3 * dt / k, steps_per_sweep=steps[0] / k,
+                 moves_per_sweep=moves / k, moves_per_s=moves / dt)
+    log(f'{what}: {k} sweeps in {1e3 * dt:.3f} ms '
+        f"({stats['ms_per_sweep']:.3f} ms/sweep) on {card}; "
+        f"{stats['steps_per_sweep']:.2f} walk steps and "
+        f"{stats['moves_per_sweep']:.1f} moves per sweep; launches "
+        f'{counts}')
+    log(f"moves/s {what}: {stats['moves_per_s']:.6g} ({card})")
+    if fw:
+        stats['reslice_share'] = reslice_ms / (1e3 * dt)
+        log(f'{what}: reslices {reslice_ms:.3f} ms ({len(spans) // 2} '
+            f'reslices, {100 * stats["reslice_share"]:.1f}% of the '
+            f'{k} sweeps)')
+    if not all(counts[name] > 0 for name in BATCHED_KERNELS):
+        fail(f'{what}: a kernel of the path was never launched: {counts}')
+    if fw:
+        worst = _audit_fw_runner(runner, 30, what)
+    else:
+        _, worst = _audit_im_runner(runner, what)
+    log(f'{what}: {B} replicas audited; best log2 total '
+        f'{runner.log2_min_totals().min():.4f}; |device - exact| <= '
+        f'{worst:.2e}')
+    n_prof = UPDATE_SLICES if fw else 4
+    return counts, ctrees, dict(what=what, stats=stats, n_prof=n_prof,
+                                run=lambda: run(betas[2 * k:2 * k + n_prof]))
+
+
+def phase_batched_launches(torch, card, flagships):
+    """Kernel launches per sweep and the kernels' busy share of each
+    batched flagship, over a few more sweeps under ``torch.profiler``.
+    Last of all phases: a profiler session leaves the host's later
+    launches slower for the rest of the process
+    (``scripts/profile_torch_batched.py`` measures it)."""
+    for f in flagships:
+        launches, busy, wall = _kernel_launches(torch, f['run'])
+        stats = dict(f['stats'], launches_per_sweep=launches / f['n_prof'],
+                     device_busy_share=busy / wall)
+        log(f"{f['what']}: {stats['launches_per_sweep']:.1f} kernel "
+            f"launches per sweep, kernels busy "
+            f"{100 * stats['device_busy_share']:.1f}% of {wall:.3f} ms "
+            f"over {f['n_prof']} profiled sweeps")
+        log(json.dumps({'flagship': f['what'], 'card': card, **stats}))
+
+
+def phase_batched_card_vs_cpu(torch, ctrees):
+    """One batched sweep (IM, then FW with its reslice) on the card and
+    on the CPU from one state and the same draws: integer and bit state
+    bitwise, totals within 1e-5 in log2 (the float bound of exp2/log2)."""
+    import numpy as np
+
+    from tnco_tpu_torch.convert import batch_fw_to_numpy, batch_to_numpy
+    from tnco_tpu_torch.kernels import sa_batched as sb
+    from tnco_tpu_torch.kernels import sa_finite_batched as sfb
+    from tnco_tpu_torch.kernels.sa_finite import SweepConfigFW
+    from tnco_tpu_torch.kernels.sa_fullsweep import uniform_log2_dim
+    from tnco_tpu_torch.kernels.sa_infinite import SweepConfig
+    from tnco_tpu_torch.ops import bitops
+
+    t = ctrees[0]
+    w = t.inds_array.shape[1]
+    n_leaves = t.n_leaves
+    ul = uniform_log2_dim(t.log2_dims_array)
+    log2d = bitops.pad_log2_dims(t.log2_dims_array, w).numpy()
+    log2d_w32 = torch.from_numpy(log2d.reshape(w, 32))
+    seeds = list(range(len(ctrees)))
+    gen = torch.Generator().manual_seed(5)
+    dr_im = {k: v[None] for k, v in sb.draw_sweep(gen, n_leaves, B).items()}
+    dr_fw = {k: v[None] for k, v in sfb.draw_sweep_fw(
+        gen, n_leaves, B, 32 * w, True, False).items()}
+    skip = torch.zeros(w, dtype=torch.int32)
+    start = np.stack([c.nodes_array[:, 0] for c in ctrees], axis=1)
+    outs = {'IM': [], 'FW': []}
+    for dev in ('cpu', 'cuda'):
+        t0 = time.perf_counter()
+        b = sb.init_batch(ctrees, seeds, log2d, device=dev)
+        got, m_im = sb.run_sweeps_batched(
+            b, [20.0], log2d_w32.to(dev),
+            SweepConfig(n_leaves=n_leaves, n_lanes=w), uniform_log2=ul,
+            draws={k: v.to(dev) for k, v in dr_im.items()})
+        outs['IM'].append((batch_to_numpy(got), int(m_im['moves'][0])))
+        b = sfb.init_batch_fw(ctrees, seeds, 30.0, log2d, device=dev)
+        got, m_fw = sfb.run_sweeps_fw_batched(
+            b, [20.0], [True], 30.0, log2d_w32.to(dev), skip.to(dev),
+            SweepConfigFW(n_leaves=n_leaves, n_lanes=w), uniform_log2=ul,
+            draws={k: v.to(dev) for k, v in dr_fw.items()})
+        outs['FW'].append((batch_fw_to_numpy(got), int(m_fw['moves'][0])))
+        log(f'card vs CPU: one IM and one FW sweep on {dev} in '
+            f'{time.perf_counter() - t0:.2f} s (set-up included)')
+    for what, ((cpu, m_cpu), (card, m_card)) in outs.items():
+        if m_cpu != m_card:
+            fail(f'card vs CPU {what}: moves {m_card} != {m_cpu}')
+        worst = 0.0
+        for k, v in cpu.items():
+            if k in ('log2_total', 'min_log2_total'):
+                worst = max(worst, float(np.abs(card[k] - v).max()))
+            elif not np.array_equal(card[k], v):
+                fail(f'card vs CPU {what}: {k} differs in '
+                     f'{int((card[k] != v).sum())} entries')
+        if worst > 1e-5:
+            fail(f'card vs CPU {what}: totals differ by {worst}')
+        changed = int((cpu['c0'] != start).sum())
+        if not changed:
+            fail(f'card vs CPU {what}: the sweep applied no move')
+        log(f'card vs CPU {what}: B={B}, N={len(t)}, W={w}, {m_cpu} moves, '
+            f'{changed} child entries changed: integer and bit state bitwise '
+            f'equal, totals within {worst:.2e}')
+
+
 def _time_ms(torch, fn, reps=50, rounds=11):
     """Device ms of one call of ``fn``: ``reps`` calls captured in one
     CUDA graph, replayed between two events, median over ``rounds``.
@@ -1263,13 +1596,11 @@ def phase_times(torch, counts, im_runner, fw_runner):
     rows = []
 
     def row(name, ms, plain_ms, lib_ms, bound_ms, bound_by, err):
-        path = {'walker_im': 'im_app', 'walker_fw': 'fw_walker_app',
-                'inv_ids': 'bench', 'scatter_rows_gbn': 'bench',
-                'probe_loop': 'bench', 'probe_take': 'bench'}.get(name,
-                                                                  'fw_app')
+        paths = MAIN_PATHS.get(name, ('fw_app',))
         rows.append(dict(
             name=name, route='cuda', source=SOURCES[name],
-            replaces=REPLACES[name], launches=counts[path][name],
+            replaces=REPLACES[name],
+            launches=sum(counts[p][name] for p in paths),
             paths={k: v[name] for k, v in counts.items()}, max_abs_err=err,
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=lib_ms))
@@ -1292,13 +1623,21 @@ def phase_times(torch, counts, im_runner, fw_runner):
                             device=dev, dtype=torch.int32)
     word_q = torch.randint(0, W, (B, 32 * W), generator=gen, device=dev,
                            dtype=torch.int32)
+    # The lockstep sweep's state at the default fuse: F_BATCHED planes of
+    # [64, 855]; a walk step reads one row of every plane, writes rows a
+    # and b of every plane (about half the replicas accept: -1 for the
+    # rest).
+    vals_b = torch.randint(-2**31, 2**31 - 1, (F_BATCHED, B, N_BATCHED),
+                           generator=gen, device=dev, dtype=torch.int32)
     k1 = []
     for what, v, (lo, hi), ids in (
             ('walks index', vals, (0, W),
              _rand_ids(torch, gen, B, 5 * P, 3241, frac_high=0.0)),
             ('slicer sorted', rows_wb, (0, 128), word_q),
             ('small pull', vals, (2 * W, f),
-             _rand_ids(torch, gen, B, P, 3241, frac_high=0.0))):
+             _rand_ids(torch, gen, B, P, 3241, frac_high=0.0)),
+            ('batched row', vals_b, (0, F_BATCHED),
+             _unique_ids(torch, gen, B, 1, N_BATCHED, keep=1.0))):
         n, q = v.shape[2], ids.shape[1]
         got = kg.gather_gbn(v, ids, planes=(lo, hi))
         err = _max_abs_err(torch, got, kg.gather_plain(v, ids, (lo, hi)))
@@ -1367,6 +1706,33 @@ def phase_times(torch, counts, im_runner, fw_runner):
         (gi, bi.expand(F_APPLY, -1), ni.expand(F_APPLY, -1)), vals_k))
     byte_row('scatter_rows_inplace', ms, plain, lib, nbytes, err)
     rows[-1].update(route_taken=route, sector_bytes=sectors)
+    # K3 at the lockstep sweep's write of rows a and b over every plane.
+    ids_b = _unique_ids(torch, gen, B, 2, N_BATCHED, keep=0.5)
+    upd_b = torch.randint(-2**31, 2**31 - 1, (F_BATCHED, B, 2),
+                          generator=gen, device=dev, dtype=torch.int32)
+    w1, w2 = vals_b.clone(), vals_b.clone()
+    ks.scatter_rows_inplace(w1, ids_b, upd_b)
+    ks.scatter_rows_inplace_plain(w2, ids_b, upd_b)
+    err_b = _max_abs_err(torch, w1, w2)
+    words, sectors = _scatter_traffic(torch, ids_b, N_BATCHED, 0, F_BATCHED,
+                                      B)
+    route = ks.scatter_route(N_BATCHED, 2)
+    ok = ids_b >= 0
+    bi, qi_ = ok.nonzero(as_tuple=True)
+    gi = torch.arange(F_BATCHED, device=dev)[:, None].expand(-1, bi.numel())
+    idx = (gi, bi.expand(F_BATCHED, -1),
+           ids_b[bi, qi_].long().expand(F_BATCHED, -1))
+    vals_k = upd_b[:, bi, qi_].contiguous()
+    rows[-1]['shapes'] = [dict(
+        shape='batched rows', route=route,
+        dims=f'G={F_BATCHED} B={B} N={N_BATCHED} Q=2', max_abs_err=err_b,
+        ms=_time_ms(torch, lambda: ks._launch_scatter(
+            w1, ids_b, upd_b, 0, F_BATCHED, route)),
+        plain_ms=_time_ms(torch, lambda: ks.scatter_rows_inplace_plain(
+            w2, ids_b, upd_b)),
+        bound_ms=1e3 * words / HBM_BYTES_PER_S, bound_by='bytes',
+        library_ms=_time_ms(torch, lambda: w2.index_put_(idx, vals_k)),
+        sector_bytes=sectors)]
     log(f'time scatter_rows_inplace: one launch per call, {ms:.4f} ms '
         '(first design: inv_ids 0.0021 + K3 0.0642 = 0.0663 ms, PERF.md)')
 
@@ -1529,7 +1895,15 @@ def main() -> int:
         counts['fw_walker_flagship'], fw_runner = phase_flagship_fw_walker(
             torch, card)
         counts['bench'] = phase_bench(torch)
+        counts['batched_fw_app'] = phase_app_batched(torch, fw=True)
+        counts['batched_im_app'] = phase_app_batched(torch, fw=False)
+        counts['batched_fw_flagship'], ctrees, fw_prof = \
+            phase_flagship_batched(torch, card, fw=True)
+        counts['batched_im_flagship'], _, im_prof = phase_flagship_batched(
+            torch, card, fw=False)
+        phase_batched_card_vs_cpu(torch, ctrees)
         rows = phase_times(torch, counts, im_runner, fw_runner)
+        phase_batched_launches(torch, card, (fw_prof, im_prof))
     finally:
         try:
             from joblib.externals.loky import get_reusable_executor

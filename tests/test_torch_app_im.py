@@ -115,7 +115,7 @@ def _jax_engine(ctrees, monkeypatch, accel, **kw):
 
 
 @pytest.mark.parametrize('size,accel,kw,item', [
-    ((4, 4), True, {}, 'item 9'),
+    ((4, 4), True, {}, None),
     ((26, 26), True, {}, None),
     ((26, 26), False, {}, 'item 12'),
     ((26, 26), True, {'prob_kind': 'greedy'}, 'item 12'),
@@ -129,9 +129,9 @@ def test_auto_engine_matches_jax_rule(monkeypatch, size, accel, kw, item):
     ctrees = [TContractionTree(path, ts, dims, output_inds=out)]
     nw = len(ctrees[0]) * ctrees[0].inds_array.shape[1]
     assert (nw > 32768) == (size == (26, 26))
-    if want == 'walker':
-        assert ReplicaRunner(ctrees, [0], device='cpu', **kw).engine == \
-            'walker'
+    if item is None:
+        assert ReplicaRunner(ctrees, [0], device='cpu', **kw).engine == want
+        assert want in ('batched', 'walker')
     else:
         with pytest.raises(NotImplementedError,
                            match=f"engine='{want}'.*{item}"):

@@ -134,3 +134,45 @@ def test_uniform_log2_dim():
     assert tsfs.uniform_log2_dim(np.log2([2, 2, 2])) == 1.0
     assert tsfs.uniform_log2_dim(np.log2([2, 4])) is None
     assert tsfs.uniform_log2_dim([]) == 0.0
+
+
+@pytest.mark.parametrize('dims', ['dim2', 'mixed'])
+def test_expand_bits_width_and_ccost(random_seed, dims):
+    """``expand_bits``, ``width`` and ``ccost_log2`` (item 2's part that
+    the lockstep engines use) against the JAX functions: the 0/1
+    expansion bitwise, widths bitwise (the same pinned pairwise order
+    over exact products)."""
+    r = np.random.default_rng(random_seed)
+    w = 3
+    lanes = _words(r, (17, w))
+    n_inds = 80
+    log2d = (np.ones(n_inds) if dims == 'dim2' else
+             np.log2(r.integers(2, 6, n_inds)))
+    jl = jbit.pad_log2_dims(log2d, w)
+    tl = tbit.pad_log2_dims(log2d, w)
+    np.testing.assert_array_equal(
+        tbit.expand_bits(_t(lanes)).numpy(),
+        np.asarray(jbit.expand_bits(jnp.asarray(lanes))))
+    want = np.asarray(jbit.width(jnp.asarray(lanes), jl))
+    np.testing.assert_array_equal(tbit.width(_t(lanes), tl).numpy(), want)
+    np.testing.assert_array_equal(
+        tcost.ccost_log2(_t(lanes), tl).numpy(),
+        np.asarray(jcost.ccost_log2(jnp.asarray(lanes), jl)))
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        tcost.ccost_log2(_t(lanes), tl, sparse_lanes=_t(lanes[0]),
+                         log2_n_projs=2.0)
+
+
+def test_mh_log2_accept(random_seed):
+    r = np.random.default_rng(random_seed)
+    log2_u = np.log2(r.random(256).astype(np.float32))
+    l_old = r.uniform(40, 60, 256).astype(np.float32)
+    l_new = l_old + r.normal(0, 0.5, 256).astype(np.float32)
+    beta = np.float32(3.0)
+    want = np.asarray(jcost.mh_log2_accept(
+        jnp.asarray(log2_u), beta, jnp.asarray(l_new), jnp.asarray(l_old)))
+    got = tcost.mh_log2_accept(torch.from_numpy(log2_u),
+                               torch.tensor(beta), torch.from_numpy(l_new),
+                               torch.from_numpy(l_old)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0 < want.sum() < 256

@@ -1,11 +1,22 @@
-"""Finite-width batch state, its host initializer, the slice-aware cost
-and the greedy slicers (from ``tnco_tpu/kernels/sa_finite_batched.py``:
-``SABatchFW`` :28, ``_pc_width`` :102, ``_lcc_fw_b`` :125-160,
-``_greedy_slices_fast`` :163-325, ``_greedy_slices_b`` :328-508,
-``init_batch_fw`` :783-883).
+"""Finite-width batch state, its host initializer, the slice-aware cost,
+the greedy slicers and the lockstep 'batched' engine (from
+``tnco_tpu/kernels/sa_finite_batched.py``: ``SABatchFW`` :28,
+``_pc_width`` :102, ``_lcc_fw_b`` :125-160, ``_greedy_slices_fast``
+:163-325, ``_greedy_slices_b`` :328-508, ``_sweep_fw_batched`` :511-745,
+``_run_fw`` :748-776, ``init_batch_fw`` :783-883).
 
 Layout is the reference's replica-minor one (replica axis LAST; ``keys``
 replica-first), with ``uint32`` words held as ``int32`` bit patterns.
+
+The lockstep sweep is the infinite-memory one of
+:mod:`tnco_tpu_torch.kernels.sa_batched` (a ``[F, B, N]`` plane state
+whose rows are read with K1 and written with K3, here with a width
+plane) with the width cap (finite_width/
+greedy/optimizer.hpp:43-460): a move must fit ``max_width`` after the
+replica's slices, or (``max_new_slices > 0``) be rescued by random new
+slices and a whole-tree recost; every contraction is charged with the
+slices; after a sweep the slice set is re-derived greedily where the
+mask says so and kept only where the total improves.
 """
 
 from dataclasses import dataclass, fields
@@ -14,12 +25,17 @@ from random import Random
 import numpy as np
 import torch
 
+from tnco_tpu_torch.kernels import sa_batched as sb
 from tnco_tpu_torch.kernels.gather import gather_bn, gather_gbn
-from tnco_tpu_torch.kernels.sa_batched import _width_b
-from tnco_tpu_torch.kernels.sa_finite import _WIDTH_EPS, greedy_slices_host
+from tnco_tpu_torch.kernels.sa_batched import NULL, _log2_total_b, _width_b
+from tnco_tpu_torch.kernels.sa_finite import (_WIDTH_EPS, _cumsum_blocked,
+                                              _pack_bits, _pick_rescue_slices,
+                                              greedy_slices_host)
+from tnco_tpu_torch.ops import costs as costs_ops
 from tnco_tpu_torch.ops.bitops import popcount32
 
-__all__ = ['SABatchFW', 'init_batch_fw']
+__all__ = ['SABatchFW', 'init_batch_fw', 'run_sweeps_fw_batched',
+           'draw_sweep_fw']
 
 _SPARSE = ('Sparse indices are not ported yet (ROADMAP queue 1, left out '
            'of slice 1, e).')
@@ -179,17 +195,7 @@ def _greedy_slices_fast(vals, vals_planes, width, jitter, max_width,
     # Back to lane space: lane bit j of replica b = sl[b, inv[j, b]].
     lane_bits = gather_bn(sl.to(torch.int32).contiguous(),
                           inv.T.to(torch.int32).contiguous())  # [b, n_bits]
-    return _pack_bits(lane_bits.reshape(b, w, 32), 2).T.contiguous()
-
-
-def _pack_bits(bits, axis):
-    """0/1 bits with 32 entries on ``axis`` -> int32 bit-pattern words."""
-    shape = [1] * bits.dim()
-    shape[axis] = 32
-    sh = torch.arange(32, dtype=torch.int64, device=bits.device)
-    packed = (bits.to(torch.int64) << sh.reshape(shape)).sum(dim=axis)
-    packed = torch.where(packed >= 2**31, packed - 2**32, packed)
-    return packed.to(torch.int32)
+    return _pack_bits(lane_bits.T, w).contiguous()
 
 
 def _lcc_fw_b(c0, c1, inds, slices, log2d_w32, sparse_wb=None,
@@ -222,32 +228,6 @@ def _lcc_fw_b(c0, c1, inds, slices, log2d_w32, sparse_wb=None,
 
         lcc = _width_nodes(rows(c0) | rows(c1) | slices[None], log2d_w32)
     return torch.where(internal, lcc, -torch.inf).to(dtype)
-
-
-def _cumsum_blocked(x, base=16):
-    """Inclusive float sum along axis 0 in the order XLA gives
-    ``jnp.cumsum`` on the CPU: blocks of ``base`` summed one term at a
-    time, each block offset by the exclusive scan of the block totals
-    (recursively).  torch's ``cumsum`` sums in double on the CPU and in
-    parallel on the card; this order makes the slicer's prefix widths
-    equal the JAX package's bitwise on both."""
-    n = x.shape[0]
-    if n <= base:
-        out = [x[0]]
-        for i in range(1, n):
-            out.append(out[-1] + x[i])
-        return torch.stack(out)
-    nb = -(-n // base)
-    xp = torch.cat([x, x.new_zeros((nb * base - n,) + x.shape[1:])])
-    blocks = xp.reshape((nb, base) + x.shape[1:])
-    within = [blocks[:, 0]]
-    for i in range(1, base):
-        within.append(within[-1] + blocks[:, i])
-    within = torch.stack(within, dim=1)
-    inc = _cumsum_blocked(within[:, -1], base)
-    excl = torch.cat([torch.zeros_like(inc[:1]), inc[:-1]])
-    out = within + excl[:, None]
-    return out.reshape((nb * base,) + x.shape[1:])[:n]
 
 
 def _greedy_slices_b(c0, inds, width, jitter, max_width, log2d_w32,
@@ -322,7 +302,7 @@ def _greedy_slices_b(c0, inds, width, jitter, max_width, log2d_w32,
             active[None, :]
         selected = torch.zeros((n_bits, b), dtype=torch.bool, device=dev)
         selected.scatter_(0, order, selected_sorted)
-        return slices | _pack_bits(selected.reshape(w, 32, b), 1)
+        return slices | _pack_bits(selected, w)
 
     # First-over node per round (output-identical to one pass over all N
     # nodes: slices only grow, so widths only shrink).
@@ -449,3 +429,185 @@ def init_batch_fw(ctrees, seeds, max_width, log2_dims_padded, *,
     return SABatchFW(up(c0), up(c1), up(par), up(inds), up(hyper), up(lcc),
                      up(width), up(slices), up(lt), up(lt), up(c0), up(c1),
                      up(par), up(inds), up(slices), up(keys))
+
+
+def draw_sweep_fw(generator: torch.Generator, n_leaves: int, b: int,
+                  n_bits: int, reslice: bool, rescue: bool,
+                  dtype=torch.float32) -> dict:
+    """One FW sweep's draws: :func:`sa_batched.draw_sweep`'s streams,
+    ``jitter [n_bits, B]`` for the reslice (if ``reslice``) and, for the
+    rescue (if ``rescue``), ``u2 [T, B]``.  The rescue's priorities
+    (``[n_bits, B]`` a step) are drawn step by step by the sweep."""
+    dr = sb.draw_sweep(generator, n_leaves, b, dtype)
+    dev = generator.device
+    if reslice:
+        dr['jitter'] = torch.rand((n_bits, b), generator=generator,
+                                  device=dev, dtype=dtype)
+    if rescue:
+        dr['u2'] = torch.rand(dr['u'].shape, generator=generator, device=dev,
+                              dtype=dtype)
+    return dr
+
+
+def _sweep_fw(st, w, beta, update_slices, max_width, log2d_w32, skip_wb,
+              cfg, dr, prio_at, uniform_log2):
+    """One lockstep width-capped sweep plus the reslice-if-better, in
+    place on ``st`` (planes with the lcc and width planes, slices);
+    returns ``(log2 total, moves)``.  ``prio_at(t)`` gives step ``t``'s
+    rescue priorities ``[n_bits, B]``."""
+    planes = st['planes']
+    n_leaves = cfg.n_leaves
+    thr = max_width + _WIDTH_EPS
+    log2d_flat = log2d_w32.reshape(-1)
+
+    def views(pl):
+        """``(c0, c1, inds)`` ``[N, B]``, ``[N, W, B]`` views of planes."""
+        return (pl[w + sb.C0].T, pl[w + sb.C1].T,
+                pl[:w].permute(2, 0, 1))
+
+    lt = sb._lt(planes, w, n_leaves)
+    pos_b = sb._par_of(planes, w, dr['leaf'])
+    active = (pos_b != NULL) & (sb._par_of(planes, w, pos_b) != NULL)
+    moves = torch.zeros((), dtype=torch.int64, device=planes.device)
+    for t in range(dr['rand_bit'].shape[0]):
+        if t % sb.ACTIVE_CHECK_STEPS == 0 and not bool(active.any()):
+            break
+        slices = st['slices']
+        p = sb._propose(planes, w, pos_b, dr['rand_bit'][t],
+                        cfg.disable_shared_inds)
+        new_inds_b = p['new_inds_b']
+        new_width_b, new_sliced_width_b, ln_b, ln_a = sb._widths(
+            (new_inds_b, new_inds_b & ~slices,
+             p['inds_d'] | p['inds_c'] | slices,
+             new_inds_b | p['inds_e'] | slices), log2d_w32, uniform_log2)
+        p['upd'][w + sb.WIDTH, :, 1] = new_width_b.view(torch.int32)
+        fits = new_sliced_width_b <= thr
+        l_new = costs_ops.new_total_log2(lt, p['l_a'], p['l_b'], ln_a, ln_b)
+        accept = active & fits & sb._accept(
+            cfg.prob_kind, torch.log2(dr['u'][t]), beta, l_new, lt)
+        rescued = None
+        if cfg.max_new_slices > 0:
+            # The rescue (greedy/optimizer.hpp:226-321): random new
+            # slices until B fits, then the whole proposed tree recosted
+            # with them (O(N W) per move, the reference's own cost).
+            cand = new_inds_b & ~slices & ~skip_wb[:, None]
+            cand_slices = slices | _pick_rescue_slices(
+                prio_at(t), cand, cfg.max_new_slices, new_sliced_width_b,
+                max_width, log2d_flat, w)
+            can_rescue = ~fits & (sb._widths(
+                (new_inds_b & ~cand_slices,), log2d_w32,
+                uniform_log2)[0] <= thr)
+            tried = planes.clone()
+            sb._write(tried, torch.stack([p['a'], p['b']], 1), p['upd'],
+                      active)
+            # All replicas at once: per replica, sa_finite.compute_lcc_fw
+            # of the proposed tree, bitwise.
+            lcc_try = _lcc_fw_b(*views(tried), cand_slices, log2d_w32,
+                                uniform_log2=uniform_log2)
+            lt_try = _log2_total_b(lcc_try, n_leaves)
+            rescued = active & can_rescue & sb._accept(
+                cfg.prob_kind, torch.log2(dr['u2'][t]), beta, lt_try, lt)
+            st['slices'] = torch.where(rescued, cand_slices, slices)
+            l_new = torch.where(rescued, lt_try, l_new)
+            accept = accept | rescued
+        sb._apply(planes, w, p, accept, ln_a, ln_b)
+        if rescued is not None:
+            # A rescued replica takes the whole recosted lcc.
+            planes[w + sb.LCC] = torch.where(
+                rescued[:, None], lcc_try.T.contiguous().view(torch.int32),
+                planes[w + sb.LCC])
+        lt = torch.where(accept, l_new, lt)
+        pos_b = torch.where(active, p['a'], pos_b)
+        moves += active.sum()
+        active = active & (pos_b != NULL) & (sb._par_of(planes, w, pos_b) !=
+                                             NULL)
+
+    if update_slices and bool((st['slices'] != 0).any()):
+        c0, c1, inds = views(planes)
+        width = planes[w + sb.WIDTH].view(torch.float32).T
+        new_slices = _greedy_slices_b(c0, inds, width, dr['jitter'],
+                                      max_width, log2d_w32, skip_wb,
+                                      uniform_log2=uniform_log2)
+        new_lcc = _lcc_fw_b(c0, c1, inds, new_slices, log2d_w32,
+                            uniform_log2=uniform_log2)
+        better = (_log2_total_b(new_lcc, n_leaves) <
+                  sb._lt(planes, w, n_leaves))
+        st['slices'] = torch.where(better, new_slices, st['slices'])
+        planes[w + sb.LCC] = torch.where(
+            better[:, None], new_lcc.T.contiguous().view(torch.int32),
+            planes[w + sb.LCC])
+    lt = sb._lt(planes, w, n_leaves)
+    sb._snapshot_min(st, lt, w)
+    return lt, moves
+
+
+def run_sweeps_fw_batched(batch: SABatchFW, betas, update_slices_mask,
+                          max_width, log2d_w32, skip_wb, cfg, *,
+                          uniform_log2=None, draws=None, generator=None):
+    """One width-capped lockstep sweep per beta (``_run_fw``,
+    ``sa_finite_batched.py:748-776``), the reslice-if-better after sweep
+    ``k`` where ``update_slices_mask[k]`` and some replica holds slices
+    (the reference's global condition), on the batch's device; the batch
+    itself is not modified.
+
+    ``uniform_log2`` feeds the slicer and the slice-aware cost as in the
+    JAX function (the runner passes it only for integer log2 dims).
+    ``draws`` (optional): ``leaf [K, B]``, ``rand_bit``, ``u [K, T, B]``
+    and ``jitter [K, n_bits, B]``, plus ``prio [K, T, n_bits, B]`` and
+    ``u2 [K, T, B]`` when ``cfg.max_new_slices > 0``; without it each
+    sweep draws :func:`draw_sweep_fw` from ``generator``.  After the
+    chunk ``hyper`` is refreshed with K1.  Returns the new batch and
+    ``{'log2_total', 'log2_min_total': [K, B], 'moves': [K]}``.
+    """
+    sb.check_prob_kind(cfg)
+    dev = batch.c0.device
+    b = batch.c0.shape[1]
+    dtype = batch.lcc.dtype
+    n_bits = log2d_w32.numel()
+    betas = torch.as_tensor(betas).to(device=dev, dtype=dtype)
+    mask = np.asarray(update_slices_mask, dtype=bool).reshape(-1)
+    k = betas.shape[0]
+    if k == 0 or mask.shape[0] != k:
+        raise ValueError('betas and update_slices_mask must hold one entry '
+                         'per sweep, at least one.')
+    t = sb.max_walk_steps(cfg.n_leaves)
+    rescue = cfg.max_new_slices > 0
+    if draws is not None:
+        spec = {'leaf': ((k, b), 'int'), 'rand_bit': ((k, t, b), 'bool'),
+                'u': ((k, t, b), 'float'),
+                'jitter': ((k, n_bits, b), 'float')}
+        if rescue:
+            spec.update(prio=((k, t, n_bits, b), 'float'),
+                        u2=((k, t, b), 'float'))
+        sb.check_draws(draws, spec, dev)
+    elif generator is None:
+        raise ValueError('Pass draws= or generator=.')
+    max_width = torch.as_tensor(max_width, dtype=dtype, device=dev)
+    w, st = sb._pack_state(batch, ('lcc', 'width'))
+    st['slices'] = batch.slices.clone()
+    st['min_slices'] = batch.min_slices.clone()
+    hist = {'log2_total': [], 'log2_min_total': [], 'moves': []}
+    for i in range(k):
+        if draws is not None:
+            dr = {name: x[i] for name, x in draws.items()}
+
+            def prio_at(step, dr=dr):
+                return dr['prio'][step]
+        else:
+            dr = draw_sweep_fw(generator, cfg.n_leaves, b, n_bits,
+                               bool(mask[i]), rescue, dtype)
+
+            def prio_at(step):
+                return torch.rand((n_bits, b), generator=generator,
+                                  device=dev, dtype=dtype)
+        lt, moves = _sweep_fw(st, w, betas[i], bool(mask[i]), max_width,
+                              log2d_w32, skip_wb, cfg, dr, prio_at,
+                              uniform_log2)
+        hist['log2_total'].append(lt)
+        hist['log2_min_total'].append(st['min_lt'])
+        hist['moves'].append(moves)
+    fields, (lcc, width) = sb._unpack_state(st, w, 2)
+    out = SABatchFW(lcc=lcc, width=width, slices=st['slices'],
+                    min_slices=st['min_slices'], log2_total=lt,
+                    keys=batch.keys.clone(), **fields)
+    return out, {name: torch.stack(v) for name, v in hist.items()}

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 __all__ = ['pad_log2_dims', 'device_dtype', 'pairwise_sum_last',
-           'popcount32', 'LANE_BITS']
+           'popcount32', 'expand_bits', 'width', 'LANE_BITS']
 
 LANE_BITS = 32
 
@@ -54,6 +54,23 @@ def pairwise_sum_last(x: torch.Tensor) -> torch.Tensor:
         h = x.shape[-1] // 2
         x = x[..., :h] + x[..., h:]
     return x[..., 0]
+
+
+def expand_bits(lanes: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """``int32[..., W]`` -> ``dtype[..., W*32]`` 0/1 expansion (bit ``s``
+    of word ``w`` at ``32*w + s``)."""
+    sh = torch.arange(LANE_BITS, dtype=torch.int32, device=lanes.device)
+    bits = (lanes[..., :, None] >> sh) & 1
+    return bits.reshape(*lanes.shape[:-1],
+                        lanes.shape[-1] * LANE_BITS).to(dtype)
+
+
+def width(lanes: torch.Tensor,
+          log2_dims_padded: torch.Tensor) -> torch.Tensor:
+    """Sum of log2 dims over set bits of ``int32[..., W]`` lane sets, in
+    the pinned pairwise order of ``tnco_tpu/ops/bitops.py:85-94``."""
+    return pairwise_sum_last(
+        expand_bits(lanes, log2_dims_padded.dtype) * log2_dims_padded)
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:

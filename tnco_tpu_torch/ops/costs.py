@@ -9,14 +9,26 @@ Exactness, where required, is restored on the host with Python bigints.
 
 import torch
 
-from tnco_tpu_torch.ops.bitops import pairwise_sum_last
+from tnco_tpu_torch.ops.bitops import pairwise_sum_last, width
 
-__all__ = ['pairwise_sum', 'log2_total_from_lcc',
-           'log2_total_from_lcc_last', 'new_total_log2']
+__all__ = ['ccost_log2', 'pairwise_sum', 'log2_total_from_lcc',
+           'log2_total_from_lcc_last', 'new_total_log2', 'mh_log2_accept']
 
 # Floor for the scaled linear sum: if the true new total underflows this,
 # the move is a colossal improvement and is accepted regardless.
 _SCALED_FLOOR = 2.0**-60
+
+
+def ccost_log2(union_lanes, log2_dims_padded, *, sparse_lanes=None,
+               log2_n_projs=None):
+    """log2 of the simple contraction cost of ``in1 | in2`` lanes: the
+    width of the union (``tnco_tpu/ops/costs.py:26-39``; sparse indices
+    are not ported yet)."""
+    if sparse_lanes is not None or log2_n_projs is not None:
+        raise NotImplementedError('Sparse indices are not ported yet '
+                                  '(ROADMAP queue 1, left out of slice 1, '
+                                  'e).')
+    return width(union_lanes, log2_dims_padded)
 
 
 def pairwise_sum(x: torch.Tensor) -> torch.Tensor:
@@ -68,3 +80,10 @@ def new_total_log2(lt, l_a, l_b, ln_a, ln_b):
     s = (torch.exp2(lt - m) - torch.exp2(l_a - m) - torch.exp2(l_b - m) +
          torch.exp2(ln_a - m) + torch.exp2(ln_b - m))
     return m + torch.log2(torch.clamp(s, min=_SCALED_FLOOR))
+
+
+def mh_log2_accept(log2_u, beta, l_new, l_old):
+    """Metropolis-Hastings acceptance in the log2 domain: ``log2(u) <=
+    -beta * (log2_new - log2_old)`` (the reference's ``(new / old) ^
+    -beta``, optimize/prob/mh.hpp:45-59)."""
+    return log2_u <= -beta * (l_new - l_old)

@@ -1,7 +1,7 @@
 """Replica runners (the port of ``tnco_tpu/parallel/replicas.py``):
-:class:`ReplicaRunner` (infinite memory, engines 'walker' and
+:class:`ReplicaRunner` (infinite memory, engines 'batched', 'walker' and
 'multiwalk') and :class:`ReplicaRunnerFW` (finite width, engines
-'walks', 'walker' and 'multiwalk').
+'batched', 'walks', 'walker' and 'multiwalk').
 
 Replicas of one connected component share array shapes, so a batch is
 one stacked state on one device; ``run`` anneals it in chunks with a
@@ -30,11 +30,12 @@ __all__ = ['ReplicaRunner', 'ReplicaRunnerFW']
 
 _ENGINES = ('batched', 'vmapped', 'native', 'multiwalk', 'walker', 'sweep',
             'walks')
-_PORTED = ('walks', 'walker', 'multiwalk')
-_PORTED_IM = ('walker', 'multiwalk')
-# ROADMAP queue 1 items of the IM engines that are not ported yet.
-_IM_ITEMS = {'batched': 'item 9', 'vmapped': 'item 12', 'native': 'item 10',
-             'walks': 'item 10', 'sweep': 'item 13'}
+_PORTED = ('batched', 'walks', 'walker', 'multiwalk')
+_PORTED_IM = ('batched', 'walker', 'multiwalk')
+# ROADMAP queue 1 items of the engines that are not ported yet ('walks'
+# only for infinite memory).
+_ITEMS = {'vmapped': 'item 12', 'native': 'item 10', 'walks': 'item 10',
+          'sweep': 'item 13'}
 
 
 def _accel_available(device: torch.device) -> bool:
@@ -44,7 +45,7 @@ def _accel_available(device: torch.device) -> bool:
 
 
 def _native_available() -> bool:
-    """The port has no native C++ engine yet (ROADMAP queue 1, item 7)."""
+    """The port has no native C++ engine yet (ROADMAP queue 1, item 10)."""
     return False
 
 
@@ -88,10 +89,11 @@ class ReplicaRunner:
         cmodel: Infinite-memory cost model (sparse indices raise).
         disable_shared_inds, prob_kind: Kernel flags; ``prob_kind`` None
             means 'mh'.
-        engine: 'auto', 'walker' or 'multiwalk'.  'auto' resolves by the
-            JAX runner's rule (``replicas.py:282-301``); an engine that is
-            not ported yet raises, naming its ROADMAP item.
-        n_walks: Walks per replica (default 8).
+        engine: 'auto', 'batched', 'walker' or 'multiwalk'.  'auto'
+            resolves by the JAX runner's rule (``replicas.py:282-301``:
+            'batched' for N*W <= 32768); an engine that is not ported yet
+            raises, naming its ROADMAP item.
+        n_walks: Walks per replica (default 8; not used by 'batched').
         on_block, accept_rule: 'multiwalk' options (see
             :func:`~tnco_tpu_torch.kernels.sa_multiwalk.run_multiwalk`).
         device: ``None`` means ``'cuda'``; pass ``'cpu'`` explicitly.
@@ -144,8 +146,8 @@ class ReplicaRunner:
         if engine not in _PORTED_IM:
             raise NotImplementedError(
                 f"engine={engine!r} is not ported to tnco_tpu_torch yet "
-                f"(ROADMAP queue 1, {_IM_ITEMS[engine]}); pass "
-                "engine='walker' or engine='multiwalk'.")
+                f"(ROADMAP queue 1, {_ITEMS[engine]}); pass "
+                "engine='batched', engine='walker' or engine='multiwalk'.")
         if prob_kind is None:
             prob_kind = 'mh'
         on_block = 'advance' if on_block is None else on_block
@@ -155,12 +157,12 @@ class ReplicaRunner:
             raise ValueError(
                 f"engine='walker' does not run on N={len(self.template)}, "
                 f"W={n_lanes} (kernels.walker.walker_supported).")
-        if engine == 'walker' and (on_block, accept_rule) != ('advance',
-                                                              'round'):
+        if engine in ('walker', 'batched') and (on_block, accept_rule) != (
+                'advance', 'round'):
             raise ValueError(
                 "on_block and accept_rule other than 'advance' and 'round' "
                 "are only supported by the 'multiwalk' and 'walks' "
-                "engines (engine='walker').")
+                f"engines (engine={engine!r}).")
         self.cfg = SweepConfig(n_leaves=self.template.n_leaves,
                                n_lanes=n_lanes,
                                disable_shared_inds=disable_shared_inds,
@@ -194,11 +196,13 @@ class ReplicaRunner:
             timeout: float | None = None,
             callback=None,
             exchange_every: int = 0) -> dict:
-        """Runs one iteration per beta in chunks of ``chunk_size`` (the
-        last chunk padded with its last beta, as in the JAX runner),
-        drawing each chunk's streams from the batch's generator.  After
-        each chunk the host checks the wall-clock budget and calls
-        ``callback``.  Island exchange is not ported yet."""
+        """Runs one iteration (a sweep for 'batched') per beta in chunks
+        of ``chunk_size`` (the last chunk padded with its last beta, as in
+        the JAX runner), drawing the streams from the batch's generator.
+        After each chunk the host checks the wall-clock budget and calls
+        ``callback``.  'batched' counts no applied moves (``applied``
+        stays None, as in the JAX runner).  Island exchange is not ported
+        yet."""
         if exchange_every:
             raise NotImplementedError(
                 "Island exchange is not ported yet (ROADMAP queue 1, "
@@ -217,7 +221,11 @@ class ReplicaRunner:
                     [chunk,
                      np.repeat(chunk[-1:], chunk_size - len(chunk), axis=0)])
             chunk = torch.from_numpy(chunk).to(self.device)
-            if self.engine == 'walker':
+            if self.engine == 'batched':
+                self.states, metrics = sb.run_sweeps_batched(
+                    self.states, chunk, self.log2d_w32, self.cfg,
+                    uniform_log2=self.uniform_log2, generator=self.generator)
+            elif self.engine == 'walker':
                 self.states, metrics = kwalker.run_walker(
                     self.states, chunk, self.log2d_w32, self.cfg,
                     self.n_walks, self._mw_pos, generator=self.generator)
@@ -227,11 +235,7 @@ class ReplicaRunner:
                     self.n_walks, self._mw_pos,
                     uniform_log2=self.uniform_log2, on_block=self.on_block,
                     accept_rule=self.accept_rule, generator=self.generator)
-            self._mw_pos = metrics['pos']
-            self.sweeps_done += chunk_size
-            self.moves_done += int(metrics['moves'])
-            self.applied_done = ((self.applied_done or 0) +
-                                 int(metrics['applied']))
+            self._count(metrics, chunk_size)
             pos += chunk_size
             if callback is not None:
                 callback({
@@ -245,6 +249,15 @@ class ReplicaRunner:
             'applied': self.applied_done,
             'runtime_s': time.perf_counter() - start,
         }
+
+    def _count(self, metrics, chunk_size):
+        """Adds a chunk's counts (and keeps the walk engines' positions)."""
+        self._mw_pos = metrics.get('pos', self._mw_pos)
+        self.sweeps_done += chunk_size
+        self.moves_done += int(torch.as_tensor(metrics['moves']).sum())
+        if 'applied' in metrics:
+            self.applied_done = ((self.applied_done or 0) +
+                                 int(metrics['applied']))
 
     def best(self) -> tuple[int, float]:
         """(replica index, log2 cost) of the best replica."""
@@ -288,10 +301,13 @@ class ReplicaRunnerFW:
         seeds: One integer seed per replica (initial slices and the
             batch's ``torch.Generator``).
         cmodel: Finite-width cost model (``max_width``).
-        engine: 'auto', 'walks', 'walker' or 'multiwalk'.  'auto'
-            resolves by the JAX runner's rule (``replicas.py:689-708``),
+        engine: 'auto', 'batched', 'walks', 'walker' or 'multiwalk'.
+            'auto' resolves by the JAX runner's rule (``replicas.py:
+            689-708``: 'batched' for N*W <= 32768 without new slices),
             which never picks 'walker'; an engine that is not ported yet
-            raises.
+            raises, naming its ROADMAP item.
+        max_number_new_slices: Slices a rejected move may add to fit the
+            cap (the rescue; 'batched' only, as in the JAX runner).
         n_walks: Walks per replica (default 128 for 'walks', 8 for
             'walker' and 'multiwalk').
         on_block, accept_rule: 'walks' and 'multiwalk' options ('walker'
@@ -359,9 +375,9 @@ class ReplicaRunnerFW:
         if engine not in _PORTED:
             raise NotImplementedError(
                 f"engine={engine!r} is not ported to tnco_tpu_torch yet "
-                f"(ROADMAP queue 1); pass engine='walks', engine='walker' "
-                f"or engine='multiwalk'.")
-        if max_number_new_slices:
+                f"(ROADMAP queue 1, {_ITEMS[engine]}); pass engine='walks', "
+                "engine='walker', engine='multiwalk' or engine='batched'.")
+        if max_number_new_slices and engine != 'batched':
             raise ValueError(f"engine={engine!r} does not support "
                              "max_number_new_slices.")
         if prob_kind is None:
@@ -373,12 +389,12 @@ class ReplicaRunnerFW:
             raise ValueError(
                 f"engine='walker' does not run on N={len(self.template)}, "
                 f"W={n_lanes} (kernels.walker.walker_supported_fw).")
-        if engine == 'walker' and (self.on_block, self.accept_rule) != (
-                'advance', 'round'):
+        if engine in ('walker', 'batched') and (
+                self.on_block, self.accept_rule) != ('advance', 'round'):
             raise ValueError(
                 "on_block and accept_rule other than 'advance' and 'round' "
                 "are only supported by the 'multiwalk' and 'walks' "
-                "engines (engine='walker').")
+                f"engines (engine={engine!r}).")
         self.cfg = SweepConfigFW(n_leaves=self.template.n_leaves,
                                  n_lanes=n_lanes,
                                  disable_shared_inds=disable_shared_inds,
@@ -391,6 +407,11 @@ class ReplicaRunnerFW:
         self.n_walks = _resolve_walks(engine, n_walks, fw=True)
         self.log2d_w32 = self.log2d.reshape(n_lanes, 32)
         self.uniform_log2 = uniform_log2_dim(self.template.log2_dims_array)
+        if engine == 'batched' and self.uniform_log2 is not None and \
+                not float(self.uniform_log2).is_integer():
+            # The lockstep engine equals the JAX one bitwise only with
+            # popcount widths on integer log2 dims (replicas.py:912-916).
+            self.uniform_log2 = None
 
         self.states = sfb.init_batch_fw(
             ctrees, seeds, float(self.max_width), self.log2d.cpu().numpy(),
@@ -413,10 +434,11 @@ class ReplicaRunnerFW:
             timeout: float | None = None,
             callback=None,
             exchange_every: int = 0) -> dict:
-        """Anneals over ``betas`` in chunks of ``chunk_size`` steps
-        (the last chunk padded with its last beta and no reslice, as in
-        the JAX runner), drawing from the batch's generator.  The reslice
-        mask is global (``step % update_slices == 0``), cut per chunk."""
+        """Anneals over ``betas`` in chunks of ``chunk_size`` steps (sweeps
+        for 'batched'; the last chunk padded with its last beta and no
+        reslice, as in the JAX runner), drawing from the batch's
+        generator.  The reslice mask is global (``step % update_slices ==
+        0``), cut per chunk.  'batched' counts no applied moves."""
         if exchange_every:
             raise NotImplementedError(
                 "Island exchange is not ported yet (ROADMAP queue 1, "
@@ -438,7 +460,12 @@ class ReplicaRunnerFW:
                 chunk = np.concatenate(
                     [chunk, np.repeat(chunk[-1:], pad, axis=0)])
                 mchunk = np.concatenate([mchunk, np.zeros(pad, dtype=bool)])
-            if self.engine == 'walks':
+            if self.engine == 'batched':
+                self.states, metrics = sfb.run_sweeps_fw_batched(
+                    self.states, chunk, mchunk, self.max_width,
+                    self.log2d_w32, self.skip_lanes, self.cfg,
+                    uniform_log2=self.uniform_log2, generator=self.generator)
+            elif self.engine == 'walks':
                 self.states, metrics = swk.run_walks_fw(
                     self.states, chunk, mchunk, self.max_width,
                     self.log2d_w32, self.skip_lanes, self.cfg, self._mw_pos,
@@ -458,11 +485,7 @@ class ReplicaRunnerFW:
                     self._mw_pos, uniform_log2=self.uniform_log2,
                     on_block=self.on_block, accept_rule=self.accept_rule,
                     generator=self.generator)
-            self._mw_pos = metrics['pos']
-            self.sweeps_done += chunk_size
-            self.moves_done += int(metrics['moves'])
-            self.applied_done = ((self.applied_done or 0) +
-                                 int(metrics['applied']))
+            self._count(metrics, chunk_size)
             pos += chunk_size
             if callback is not None:
                 callback({
@@ -476,6 +499,8 @@ class ReplicaRunnerFW:
             'applied': self.applied_done,
             'runtime_s': time.perf_counter() - start,
         }
+
+    _count = ReplicaRunner._count
 
     def min_ctree(self, replica: int):
         s = self.states

@@ -30,6 +30,11 @@ __all__ = ['GatherCase', 'ScatterCase', 'InvCase', 'ProbeCase',
 # lcc, width, par).
 _B, _P, _W, _N = 64, 128, 64, 3328
 _F = 2 * _W + 5
+# The lockstep 'batched' engines on Sycamore m=20 at the app's default
+# fuse (N=855, W=26): the FW sweep state has W + 5 planes (index, c0,
+# c1, par, lcc, width); par is plane W + 2.
+_BW, _BN = 26, 855
+_BF, _BPAR = _BW + 5, _BW + 2
 # The row route's shared memory for one row (csrc/gather.cu:
 # kRowSmemBytes).
 _ROW_SMEM_BYTES = 32 * 1024
@@ -71,6 +76,12 @@ GATHER_CASES = (
     GatherCase('slicer lanes', 1, _B, 2048, None, 2048, 'row'),
     # The union planes and the slice-aware costs (Q = N).
     GatherCase('union', _F, _B, _N, (0, _W), _N, 'sparse'),
+    # The lockstep engines: a walk step's rows of b and a (all planes,
+    # one id), the index rows of c and b's children, the parent reads.
+    GatherCase('batched rows', _BF, _B, _BN, None, 1, 'sparse'),
+    GatherCase('batched index', _BF, _B, _BN, (0, _BW), 3, 'sparse'),
+    GatherCase('batched par', _BF, _B, _BN, (_BPAR, _BPAR + 1), 1,
+               'sparse'),
     # Ragged N and Q (Q % 4 != 0 takes the one-word form), N above the row
     # route's shared memory, B = Q = G = 1, tiny rows with lo > 0.  Every
     # case also runs the route the wrapper does not take, where it fits.
@@ -88,6 +99,11 @@ SCATTER_CASES = (
     ScatterCase('par apply', _F, _B, _N, (_F - 1, _F), 2 * _P, False,
                 'smem'),
     ScatterCase('duplicates', _F, _B, _N, (3, 40), 2 * _P, True, 'smem'),
+    # The lockstep engines' two writes: rows a and b over every plane,
+    # par at c and e.
+    ScatterCase('batched rows', _BF, _B, _BN, None, 2, False, 'smem'),
+    ScatterCase('batched par', _BF, _B, _BN, (_BPAR, _BPAR + 1), 2, False,
+                'smem'),
     ScatterCase('ragged 3241', 6, _B, 3241, (1, 6), 2 * _P, True, 'smem'),
     ScatterCase('ragged 100', 4, 3, 100, None, 300, True, 'smem'),
     # N whose winner map does not fit shared memory.
