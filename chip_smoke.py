@@ -63,10 +63,10 @@ Phases, each fatal on failure:
    shapes, printed as one ``{"kernels": [...]}`` line; K1's row also
    holds, under ``shapes``, its times at the slicer's sorted-space gather,
    at a small pull and at the lockstep sweep's row read (K3's row: its
-   row write; the two rows' ``launches`` sum the FW walks app and the two
-   default-fuse apps), and K1's and K3's rows the bytes of the 32-byte
-   sectors their accesses touch (``sector_bytes``, beside the word
-   bound); each K5 row also holds, under ``tree_route``, its times on a
+   row write; the two rows' ``launches`` sum the FW walks app, the two
+   default-fuse apps and phases 15-17), and K1's and K3's rows the bytes
+   of the 32-byte sectors their accesses touch (``sector_bytes``, beside
+   the word bound); each K5 row also holds, under ``tree_route``, its times on a
    mixed log2-dims table of the same shape (the kernel's tree width
    route, which no main-path launch takes on Sycamore's dims); the
    rows of P1 and K2 also hold a measured floor (``floor_ms``: the loop's
@@ -92,10 +92,33 @@ Phases, each fatal on failure:
    later launches);
 14. one batched sweep (IM, then FW with a reslice) on the card and on
    the CPU from one state and the same draws, at B=64 on the fused
-   network: integer and bit state bitwise equal, totals within 1e-5.
+   network: integer and bit state bitwise equal, totals within 1e-5;
+15. the FW product point on the full network (``fuse=0``, B=64, P=128,
+   reslice every 2, the walks engine): chunks of PRODUCT_K iterations,
+   each observed by ``IslandStallKicker(islands=4, window_chunks=10,
+   min_delta=10, cooldown_chunks=60)``, and every 4 chunks
+   ``exchange_best_fw`` over the islands it leaves active, until every
+   island was kicked once (at least 12 chunks); then one kick with the
+   host slicer.  Min totals never rise across an exchange or a kick;
+   each kicked lane's written total is the exact cost of its (tree,
+   slices) within 1e-3; every replica audited; ms per chunk, per exchange
+   and per kick (both slicers), K1 launches inside the kicks (> 0),
+   proposals/s and applied/s;
+16. the FW throughput point: K1 and K3 against their plain versions at
+   P=320's shapes (routes printed), then ``fw_slicer='ref'``, P=320,
+   reslice every 8: a warm-up, THROUGHPUT_ITERS timed iterations,
+   proposals/s and applied/s, every replica audited;
+17. walks-FW chunks of the product point's runner on
+   ``TemperingLadder(64, beta_max=60)`` rows, swapping on the current
+   totals between chunks: the swap rate, every replica audited;
+18. one exchange (islands 4, island 1 gated) and one device-slicer kick
+   (jitter drawn once) from the product point's state on the card and on
+   the CPU: integer and bit state bitwise equal, totals within 1e-5 (run
+   after phase 15, on copies of the runner).
 
-Phases 11-14 run between phases 9 and 10, whose kernel line carries
-every phase's launch counts; phase 13's profiled sweeps run after 10.
+Phases 11-18 run between phases 9 and 10, whose kernel line carries
+every phase's launch counts (K1's and K3's rows add phases 15-17's);
+phase 13's profiled sweeps run after 10.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
@@ -144,9 +167,11 @@ BENCH_KERNELS = ('gather_gbn', 'inv_ids', 'scatter_rows_gbn', 'walker_im',
 BATCHED_KERNELS = ('gather_gbn', 'scatter_rows_inplace')
 # The main paths whose launches a kernel's row reports (default: the FW
 # walks app, phase 3).
-MAIN_PATHS = {'gather_gbn': ('fw_app', 'batched_fw_app', 'batched_im_app'),
+MAIN_PATHS = {'gather_gbn': ('fw_app', 'batched_fw_app', 'batched_im_app',
+                             'fw_product', 'fw_throughput', 'fw_tempering'),
               'scatter_rows_inplace': ('fw_app', 'batched_fw_app',
-                                       'batched_im_app'),
+                                       'batched_im_app', 'fw_product',
+                                       'fw_throughput', 'fw_tempering'),
               'walker_im': ('im_app',), 'walker_fw': ('fw_walker_app',),
               'inv_ids': ('bench',), 'scatter_rows_gbn': ('bench',),
               'probe_loop': ('bench',), 'probe_take': ('bench',)}
@@ -335,13 +360,34 @@ def phase_app(torch):
     return counts
 
 
+def _exact_sliced(tree, lanes):
+    """``(largest width after slicing, exact log2 of the sliced total)``
+    of ``tree`` under the slice lanes ``lanes`` (bigint products)."""
+    import numpy as np
+
+    log2d = tree.log2_dims_array
+    sl_bits = np.unpackbits(lanes.view(np.uint8),
+                            bitorder='little')[:len(log2d)].astype(bool)
+    bits = np.unpackbits(tree.inds_array.view(np.uint8), axis=1,
+                         bitorder='little')[:, :len(log2d)].astype(bool)
+    dims_l = tree.dims_array
+    sl_mul = math.prod(int(d) for d, s in zip(dims_l, sl_bits) if s)
+    nodes = tree.nodes_array
+    total = 0
+    for pos in range(len(nodes)):
+        if nodes[pos, 0] < 0:
+            continue
+        u = bits[nodes[pos, 0]] | bits[nodes[pos, 1]]
+        total += math.prod(int(d) for d in dims_l[u & ~sl_bits])
+    return ((bits & ~sl_bits) @ log2d).max(), math.log2(total * sl_mul)
+
+
 def _audit_fw_runner(runner, max_width, what):
     """Every replica's best tree is valid, fits the cap after its min
     slices, and its exact sliced bigint total is within 1e-3 in log2 of
     the device's min total.  Returns the largest difference."""
     import numpy as np
 
-    log2d = runner.template.log2_dims_array
     mins = runner.log2_min_totals()
     worst = 0.0
     for r in range(runner.n_replicas):
@@ -349,24 +395,9 @@ def _audit_fw_runner(runner, max_width, what):
         ok, msg = best.is_valid(return_message=True)
         if not ok:
             fail(f'{what}: replica {r}: invalid min tree: {msg}')
-        lanes = runner.min_slices_lanes(r)
-        sl_bits = np.unpackbits(lanes.view(np.uint8),
-                                bitorder='little')[:len(log2d)].astype(bool)
-        bits = np.unpackbits(best.inds_array.view(np.uint8), axis=1,
-                             bitorder='little')[:, :len(log2d)].astype(bool)
-        if ((bits & ~sl_bits) @ log2d).max() > max_width + 1e-9:
+        width, exact = _exact_sliced(best, runner.min_slices_lanes(r))
+        if width > max_width + 1e-9:
             fail(f'{what}: replica {r}: width over the cap after slicing')
-        # Exact sliced total, as a float log2, against the device total.
-        dims_l = best.dims_array
-        sl_mul = math.prod(int(d) for d, s in zip(dims_l, sl_bits) if s)
-        nodes = best.nodes_array
-        total = 0
-        for pos in range(len(nodes)):
-            if nodes[pos, 0] < 0:
-                continue
-            u = bits[nodes[pos, 0]] | bits[nodes[pos, 1]]
-            total += math.prod(int(d) for d in dims_l[u & ~sl_bits])
-        exact = math.log2(total * sl_mul)
         worst = max(worst, abs(exact - float(mins[r])))
     if worst > 1e-3:
         fail(f'{what}: device min totals differ from the exact recompute by '
@@ -423,7 +454,7 @@ def phase_flagship(torch, card):
     mins = runner.log2_min_totals()
     log(f'flagship: {B} replicas audited; best log2 total {mins.min():.4f};'
         f' |device - exact| <= {worst:.2e}')
-    return counts
+    return counts, ctrees
 
 
 def _sycamore():
@@ -1305,6 +1336,371 @@ def phase_batched_card_vs_cpu(torch, ctrees):
             f'equal, totals within {worst:.2e}')
 
 
+# The round-5 FW operating points on the full Sycamore network at B=64:
+# the product point (P=128, reslice every 2 iterations, exchange every
+# EXCHANGE_EVERY chunks over ISLANDS islands, the periodic kick: window 10
+# chunks, delta 10 bits, cooldown 60 chunks) and the throughput point
+# (P=320, slicer 'ref', reslice every 8).  Only the run length is cut: the
+# product point's chunks are PRODUCT_K iterations (256 in
+# benchmarks/quality.py), run until every island was kicked once (at least
+# PRODUCT_MIN_CHUNKS chunks, at most PRODUCT_MAX_CHUNKS, the beta ramp
+# 0..60 spread over the most); the throughput point runs
+# THROUGHPUT_ITERS timed iterations; the ladder TEMPER_CHUNKS chunks of
+# TEMPER_K iterations.
+PRODUCT_K, PRODUCT_MIN_CHUNKS, PRODUCT_MAX_CHUNKS = 2, 12, 48
+EXCHANGE_EVERY, ISLANDS = 4, 4
+P_THROUGHPUT, THROUGHPUT_US, THROUGHPUT_ITERS = 320, 8, 16
+TEMPER_CHUNKS, TEMPER_K = 8, 2
+
+
+def _fw_runner(torch, ctrees, what, **kw):
+    from tnco_tpu_torch.optimize.finite_width import SimpleCostModel
+    from tnco_tpu_torch.parallel import ReplicaRunnerFW
+
+    t0 = time.perf_counter()
+    runner = ReplicaRunnerFW(ctrees, list(range(B)), engine='walks',
+                             cmodel=SimpleCostModel(max_width=30), **kw)
+    log(f'{what}: N={len(ctrees[0])} W={ctrees[0].inds_array.shape[1]} '
+        f'B={B} P={runner.n_walks} engine={runner.engine!r} '
+        f'slicer={runner.fw_slicer!r} set-up '
+        f'{time.perf_counter() - t0:.1f} s')
+    return runner
+
+
+def _synced_ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def _check_mins(runner, before, what):
+    after = runner.log2_min_totals()
+    if (after > before).any():
+        fail(f'{what} raised a min total: {before} -> {after}')
+
+
+def _audit_kicked(runner, lanes, what):
+    """Each kicked lane's written total is the exact cost of its current
+    (tree, slices) within 1e-3 in log2, widths within the cap."""
+    lt = runner.states.log2_total.cpu().numpy()
+    worst = 0.0
+    for v in lanes:
+        tree = runner.ctree(v)
+        ok, msg = tree.is_valid(return_message=True)
+        if not ok:
+            fail(f'{what}: lane {v}: invalid tree: {msg}')
+        width, exact = _exact_sliced(tree, runner.slices_lanes(v))
+        if width > 30 + 1e-9:
+            fail(f'{what}: lane {v}: width {width} over the cap')
+        worst = max(worst, abs(exact - float(lt[v])))
+    if worst > 1e-3:
+        fail(f'{what}: written totals differ from the exact cost by {worst}')
+    return worst
+
+
+def phase_product_point(torch, card, ctrees):
+    """The FW product point driven chunk by chunk as ``parallel/stall.py``
+    and ``benchmarks/quality.py`` drive it: a chunk, the kicker's
+    observation, and every EXCHANGE_EVERY chunks ``exchange_best_fw`` over
+    the islands the kicker leaves active; then one kick with the host
+    slicer.  Returns ``(launch counts, runner)``."""
+    import numpy as np
+
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tnco_tpu_torch.parallel import replicas, stall
+
+    what = 'product point'
+    runner = _fw_runner(torch, ctrees, what, n_walks=P)
+    kicker = stall.IslandStallKicker(runner, islands=ISLANDS,
+                                     window_chunks=10, min_delta=10,
+                                     cooldown_chunks=60)
+    betas = np.linspace(0.0, 60.0, PRODUCT_MAX_CHUNKS * PRODUCT_K)
+    runner.run(betas[:PRODUCT_K], update_slices=2)           # warm-up
+    torch.cuda.synchronize()
+    kicks, chunk_ms, exchange_ms = [], [], []
+    kick = stall.kick_lanes_fw
+
+    def timed_kick(r, lanes, src, seed, **kw):
+        before = r.log2_min_totals()
+        k1 = launch_counts()['gather_gbn']
+        ms = _synced_ms(torch, lambda: kick(r, lanes, src, seed, **kw))
+        kicks.append(dict(ms=ms, lanes=sorted(int(x) for x in lanes),
+                          k1=launch_counts()['gather_gbn'] - k1))
+        _check_mins(r, before, f'{what}: a kick')
+        kicks[-1]['err'] = _audit_kicked(r, kicks[-1]['lanes'], what)
+
+    moves0, applied0 = runner.moves_done, runner.applied_done
+    stall.kick_lanes_fw = timed_kick
+    try:
+        reset_launch_counts()
+        chunk = 0
+        while chunk < PRODUCT_MAX_CHUNKS:
+            lo = chunk * PRODUCT_K
+            chunk += 1
+            chunk_ms.append(_synced_ms(torch, lambda: runner.run(
+                betas[lo:lo + PRODUCT_K], update_slices=2)))
+            kicker.observe(chunk, (chunk - 1) / PRODUCT_MAX_CHUNKS)
+            if chunk % EXCHANGE_EVERY == 0:
+                before = runner.log2_min_totals()
+                active = kicker.exchange_active(chunk)
+
+                def exchange():
+                    runner.states = replicas.exchange_best_fw(
+                        runner.states, islands=ISLANDS, active=active)
+                exchange_ms.append(_synced_ms(torch, exchange))
+                _check_mins(runner, before, f'{what}: an exchange')
+            kicked = {k['island'] for k in kicker.kicks}
+            if chunk >= PRODUCT_MIN_CHUNKS and len(kicked) == ISLANDS:
+                break
+        counts = launch_counts()
+    finally:
+        stall.kick_lanes_fw = kick
+    moves = runner.moves_done - moves0
+    applied = runner.applied_done - applied0
+    if len({k['island'] for k in kicker.kicks}) != ISLANDS:
+        fail(f'{what}: islands kicked {kicker.kicks} in {chunk} chunks, '
+             f'not all {ISLANDS}')
+    if not all(counts[k] > 0 for k in FW_KERNELS):
+        fail(f'{what}: a kernel of the path was never launched: {counts}')
+    k1_kicks = sum(k['k1'] for k in kicks)
+    if not all(k['k1'] > 0 for k in kicks):
+        fail(f'{what}: a device kick launched no K1: {kicks}')
+
+    # One kick with the host slicer: island 0's lanes but its two leaders
+    # from its best, as the kicker picks them.
+    lt = runner.states.log2_total.cpu().numpy()
+    bg = B // ISLANDS
+    order = np.argsort(lt[:bg], kind='stable')
+    lanes, src = [int(x) for x in order[2:]], int(order[0])
+    before = runner.log2_min_totals()
+    host_ms = _synced_ms(torch, lambda: replicas.kick_lanes_fw(
+        runner, lanes, src, seed=12345, slicer='host'))
+    _check_mins(runner, before, f'{what}: the host kick')
+    host_err = _audit_kicked(runner, lanes, what)
+    worst = _audit_fw_runner(runner, 30, what)
+
+    anneal_s = sum(chunk_ms) / 1e3
+    dev_ms = [k['ms'] for k in kicks]
+    stats = dict(
+        card=card, chunks=chunk, iterations_per_chunk=PRODUCT_K,
+        ms_per_chunk=float(np.median(chunk_ms)),
+        ms_per_chunk_min_max=[min(chunk_ms), max(chunk_ms)],
+        exchanges=len(exchange_ms),
+        ms_per_exchange=float(np.median(exchange_ms)),
+        kicks_device=len(kicks), victims_per_kick=len(kicks[0]['lanes']),
+        ms_per_kick_device=float(np.median(dev_ms)),
+        ms_per_kick_device_min_max=[min(dev_ms), max(dev_ms)],
+        ms_per_kick_host=host_ms, k1_launches_in_kicks=k1_kicks,
+        kicks=[dict(k, ms=m) for k, m in zip(kicker.kicks, dev_ms)],
+        proposals_per_s=moves / anneal_s, applied_per_s=applied / anneal_s,
+        best_log2_total=float(runner.log2_min_totals().min()))
+    log(f'{what}: {chunk} chunks of {PRODUCT_K} iterations, '
+        f"{stats['ms_per_chunk']:.3f} ms/chunk (median; "
+        f'{min(chunk_ms):.3f}-{max(chunk_ms):.3f}) on {card}; launches '
+        f'{counts}')
+    log(f"{what}: {len(exchange_ms)} exchanges, "
+        f"{stats['ms_per_exchange']:.3f} ms each (median); {len(kicks)} "
+        f"device kicks of {stats['victims_per_kick']} lanes, "
+        f"{stats['ms_per_kick_device']:.3f} ms each (median; "
+        f'{min(dev_ms):.3f}-{max(dev_ms):.3f}), K1 launches inside the '
+        f"kicks {k1_kicks}; one host kick of {len(lanes)} lanes "
+        f'{host_ms:.3f} ms')
+    log(f"proposals/s {what}: {stats['proposals_per_s']:.6g} ({card})")
+    log(f"applied/s {what}: {stats['applied_per_s']:.6g} ({card})")
+    log(f'{what}: kicks {kicker.kicks}; kicked totals within '
+        f"{max(host_err, *(k['err'] for k in kicks)):.2e} of the exact "
+        f'cost; {B} replicas audited; best log2 total '
+        f"{stats['best_log2_total']:.4f}; |device - exact| <= {worst:.2e}")
+    log(json.dumps({'phase': what, **stats}))
+    return counts, runner
+
+
+def _check_rows_at(torch, p):
+    """K1 and K3 against their plain versions at the throughput point's
+    shapes (P=p, no union planes): the index gather at Q=5p and the merged
+    apply at Q=2p over the W+4 planes below par.  Returns the routes."""
+    from tnco_tpu_torch.kernels import gather as kg
+    from tnco_tpu_torch.kernels import scatter as ks
+
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    f = W + 5
+    vals = torch.randint(-2**31, 2**31 - 1, (f, B, N_PAD), generator=gen,
+                         device=dev, dtype=torch.int32)
+    ids = _rand_ids(torch, gen, B, 5 * p, 3241, frac_high=0.0)
+    if _max_abs_err(torch, kg.gather_gbn(vals, ids, planes=(0, W)),
+                    kg.gather_plain(vals, ids, (0, W))) != 0:
+        fail(f'gather_gbn != plain at P={p}')
+    ids = _unique_ids(torch, gen, B, 2 * p, 3241)
+    upd = torch.randint(-2**31, 2**31 - 1, (f - 1, B, 2 * p), generator=gen,
+                        device=dev, dtype=torch.int32)
+    v1, v2 = vals.clone(), vals.clone()
+    ks.scatter_rows_inplace(v1, ids, upd, planes=(0, f - 1))
+    ks.scatter_rows_inplace_plain(v2, ids, upd, (0, f - 1))
+    if _max_abs_err(torch, v1, v2) != 0:
+        fail(f'scatter_rows_inplace != plain at P={p}')
+    return dict(gather_gbn=kg.gather_route(N_PAD, 5 * p),
+                scatter_rows_inplace=ks.scatter_route(N_PAD, 2 * p))
+
+
+def phase_throughput_point(torch, card, ctrees):
+    """The FW throughput point: ``fw_slicer='ref'`` (no union planes; the
+    reslice unpacks the state), P=320, reslice every 8; a warm-up, then
+    THROUGHPUT_ITERS timed iterations, audited."""
+    import numpy as np
+
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    what = 'throughput point'
+    routes = _check_rows_at(torch, P_THROUGHPUT)
+    log(f'{what}: K1 and K3 == plain bitwise at P={P_THROUGHPUT} (routes '
+        f'{routes})')
+    runner = _fw_runner(torch, ctrees, what, n_walks=P_THROUGHPUT,
+                        fw_slicer='ref')
+    betas = np.linspace(0.0, 60.0, THROUGHPUT_US + THROUGHPUT_ITERS)
+    runner.run(betas[:THROUGHPUT_US], update_slices=THROUGHPUT_US)
+    torch.cuda.synchronize()
+    moves0, applied0 = runner.moves_done, runner.applied_done
+    reset_launch_counts()
+    ms = _synced_ms(torch, lambda: runner.run(
+        betas[THROUGHPUT_US:], update_slices=THROUGHPUT_US))
+    counts = launch_counts()
+    if not all(counts[k] > 0 for k in FW_KERNELS):
+        fail(f'{what}: a kernel of the path was never launched: {counts}')
+    moves = runner.moves_done - moves0
+    applied = runner.applied_done - applied0
+    worst = _audit_fw_runner(runner, 30, what)
+    stats = dict(card=card, iterations=THROUGHPUT_ITERS,
+                 ms_per_iteration=ms / THROUGHPUT_ITERS,
+                 proposals_per_s=moves / (ms / 1e3),
+                 applied_per_s=applied / (ms / 1e3), routes=routes,
+                 best_log2_total=float(runner.log2_min_totals().min()))
+    log(f'{what}: {THROUGHPUT_ITERS} iterations in {ms:.3f} ms '
+        f"({stats['ms_per_iteration']:.2f} ms/iteration) on {card}; "
+        f'launches {counts}')
+    log(f"proposals/s {what}: {stats['proposals_per_s']:.6g} ({card})")
+    log(f"applied/s {what}: {stats['applied_per_s']:.6g} ({card})")
+    log(f'{what}: {B} replicas audited; best log2 total '
+        f"{stats['best_log2_total']:.4f}; |device - exact| <= {worst:.2e}")
+    log(json.dumps({'phase': what, **stats}))
+    return counts
+
+
+def phase_tempering(torch, card, runner):
+    """Walks-FW chunks of the product point's runner (B=64, P=128, its
+    state as phase 15 left it) on a ``TemperingLadder(64, beta_max=60)``,
+    swapping on the current totals between chunks: the swap rate,
+    audited."""
+    import numpy as np
+
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tnco_tpu_torch.parallel.tempering import TemperingLadder
+
+    what = 'tempering'
+    ladder = TemperingLadder(B, beta_max=60.0)
+    chunk_ms, accepted = [], []
+    reset_launch_counts()
+    for _ in range(TEMPER_CHUNKS):
+        chunk_ms.append(_synced_ms(torch, lambda: runner.run(
+            ladder.betas_for(TEMPER_K), update_slices=2)))
+        accepted.append(ladder.swap(runner.states.log2_total.cpu().numpy()))
+    counts = launch_counts()
+    if not all(counts[k] > 0 for k in FW_KERNELS):
+        fail(f'{what}: a kernel of the path was never launched: {counts}')
+    if sorted(ladder.lane_betas()) != sorted(ladder.ladder):
+        fail(f'{what}: the lane betas are no longer the ladder')
+    worst = _audit_fw_runner(runner, 30, what)
+    stats = dict(card=card, chunks=TEMPER_CHUNKS,
+                 iterations_per_chunk=TEMPER_K,
+                 ms_per_chunk=float(np.median(chunk_ms)),
+                 swaps_proposed=ladder.swaps_proposed,
+                 swaps_accepted=ladder.swaps_accepted,
+                 swap_rate=ladder.swap_rate,
+                 best_log2_total=float(runner.log2_min_totals().min()))
+    log(f'{what}: {TEMPER_CHUNKS} chunks of {TEMPER_K} iterations, '
+        f"{stats['ms_per_chunk']:.3f} ms/chunk (median) on {card}; swaps "
+        f'accepted per chunk {accepted}, swap rate {ladder.swap_rate:.4f} '
+        f'({ladder.swaps_accepted}/{ladder.swaps_proposed}); launches '
+        f'{counts}')
+    log(f'{what}: {B} replicas audited; best log2 total '
+        f"{stats['best_log2_total']:.4f}; |device - exact| <= {worst:.2e}")
+    log(json.dumps({'phase': what, **stats}))
+    return counts
+
+
+def _runner_on(torch, runner, dev):
+    """A copy of ``runner`` with its state and tables on ``dev``."""
+    import copy
+
+    out = copy.copy(runner)
+    s = runner.states
+    out.states = type(s)(**{k: getattr(s, k).to(dev)
+                            for k in s.field_names()})
+    for name in ('_mw_pos', 'log2d', 'log2d_w32', 'max_width',
+                 'skip_lanes'):
+        setattr(out, name, getattr(runner, name).to(dev))
+    out.device = torch.device(dev)
+    return out
+
+
+def phase_exchange_kick_card_vs_cpu(torch, runner):
+    """One exchange (ISLANDS islands, island 1 gated) and one device-
+    slicer kick (island 1's lanes but its two leaders, jitter drawn once on
+    the host) from the product point's state, on the card and on the CPU:
+    integer and bit state bitwise, totals within 1e-5."""
+    import numpy as np
+
+    from tnco_tpu_torch.convert import batch_fw_to_numpy
+    from tnco_tpu_torch.parallel import replicas
+
+    t0 = time.perf_counter()
+    card = _runner_on(torch, runner, 'cuda')
+    cpu = _runner_on(torch, runner, 'cpu')
+    start = batch_fw_to_numpy(cpu.states)
+    active = np.array([True, False, True, True])
+    bg = B // ISLANDS
+
+    def compare(what):
+        want, got = (batch_fw_to_numpy(r.states) for r in (cpu, card))
+        worst = 0.0
+        for k, v in want.items():
+            if k in ('log2_total', 'min_log2_total'):
+                worst = max(worst, float(np.abs(got[k] - v).max()))
+            elif not np.array_equal(got[k], v):
+                fail(f'card vs CPU {what}: {k} differs in '
+                     f'{int((got[k] != v).sum())} entries')
+        if worst > 1e-5 or not torch.equal(card._mw_pos.cpu(), cpu._mw_pos):
+            fail(f'card vs CPU {what}: totals differ by {worst} or walk '
+                 'positions differ')
+        return want, worst
+
+    for r in (cpu, card):
+        r.states = replicas.exchange_best_fw(r.states, islands=ISLANDS,
+                                             active=active)
+    after, worst_x = compare('exchange')
+    moved = np.flatnonzero((after['c0'] != start['c0']).any(axis=0))
+    if not moved.size or (moved // bg == 1).any():
+        fail(f'card vs CPU exchange: lanes moved {moved.tolist()}')
+    lt = after['log2_total']
+    order = bg + np.argsort(lt[bg:2 * bg], kind='stable')
+    lanes, src = [int(x) for x in order[2:]], int(order[0])
+    jitter = torch.rand((runner.log2d_w32.numel(), len(lanes)),
+                        generator=torch.Generator().manual_seed(9))
+    for r in (cpu, card):
+        replicas.kick_lanes_fw(r, lanes, src, seed=77, jitter=jitter)
+    kicked, worst_k = compare('kick')
+    if np.array_equal(kicked['slices'][:, lanes], after['slices'][:, lanes]):
+        fail('card vs CPU kick: no victim took a new slice set')
+    log(f'card vs CPU exchange and kick: B={B}, islands {ISLANDS} (island 1 '
+        f'gated), {moved.size} lanes exchanged, {len(lanes)} lanes kicked '
+        f'from lane {src}: integer and bit state bitwise equal, totals '
+        f'within {max(worst_x, worst_k):.2e} '
+        f'({time.perf_counter() - t0:.2f} s)')
+
+
 def _time_ms(torch, fn, reps=50, rounds=11):
     """Device ms of one call of ``fn``: ``reps`` calls captured in one
     CUDA graph, replayed between two events, median over ``rounds``.
@@ -1887,9 +2283,9 @@ def main() -> int:
         phase_walker_checks(torch)
         phase_walker_fw_checks(torch)
         phase_k4_p1_checks(torch)
-        counts = {'fw_app': phase_app(torch),
-                  'fw_flagship': phase_flagship(torch, card),
-                  'im_app': phase_app_im(torch)}
+        counts = {'fw_app': phase_app(torch)}
+        counts['fw_flagship'], fw_trees = phase_flagship(torch, card)
+        counts['im_app'] = phase_app_im(torch)
         counts['im_flagship'], im_runner = phase_flagship_im(torch, card)
         counts['fw_walker_app'] = phase_app_fw_walker(torch)
         counts['fw_walker_flagship'], fw_runner = phase_flagship_fw_walker(
@@ -1902,6 +2298,12 @@ def main() -> int:
         counts['batched_im_flagship'], _, im_prof = phase_flagship_batched(
             torch, card, fw=False)
         phase_batched_card_vs_cpu(torch, ctrees)
+        counts['fw_product'], product = phase_product_point(torch, card,
+                                                            fw_trees)
+        phase_exchange_kick_card_vs_cpu(torch, product)
+        counts['fw_throughput'] = phase_throughput_point(torch, card,
+                                                         fw_trees)
+        counts['fw_tempering'] = phase_tempering(torch, card, product)
         rows = phase_times(torch, counts, im_runner, fw_runner)
         phase_batched_launches(torch, card, (fw_prof, im_prof))
     finally:

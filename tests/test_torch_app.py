@@ -83,8 +83,13 @@ def test_runner_timeout_and_unported_paths():
     assert runner.n_walks == 128
     info = runner.run([1.0] * 4, timeout=-1.0)
     assert info['sweeps'] == 0
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        runner.run([1.0], exchange_every=1)
+    # Exchange runs between chunks (one replica: no lane is worse than
+    # its island best, so the state anneals as without it).
+    runner.run([1.0] * 4, chunk_size=1, update_slices=2, exchange_every=1)
+    assert runner.ctree(0).is_valid(check_shared_inds=True)
+    assert runner.min_ctree(0).is_valid(check_shared_inds=True)
+    with pytest.raises(NotImplementedError, match='ROADMAP.*item 15'):
+        runner.run([1.0], exchange_every=1, exchange_axes=('ici',))
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         ReplicaRunnerFW(ctrees, [1], mesh=object(), **kw)
     with pytest.raises(ValueError, match='One seed'):

@@ -113,8 +113,11 @@ def test_runner_options_and_unported_paths():
                         max_number_new_slices=2, **kw)
     runner = ReplicaRunnerFW(ctrees, [1], engine='walker', n_walks=3, **kw)
     assert runner.run([1.0] * 4, timeout=-1.0)['sweeps'] == 0
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        runner.run([1.0], exchange_every=1)
+    runner.run([1.0] * 4, chunk_size=1, update_slices=2, exchange_every=1)
+    assert runner.ctree(0).is_valid(check_shared_inds=True)
+    assert runner.min_ctree(0).is_valid(check_shared_inds=True)
+    with pytest.raises(NotImplementedError, match='ROADMAP.*item 15'):
+        runner.run([1.0], exchange_every=1, exchange_axes=('ici',))
     wide = _trees('dim2', 1, 0, 46, 46)             # 4140 indices: W = 130
     assert wide[0].inds_array.shape[1] > 123
     with pytest.raises(ValueError, match='walker_supported_fw'):

@@ -82,8 +82,11 @@ def test_runner_timeout_and_unported_paths():
     runner = ReplicaRunner(ctrees, [1], engine='walker', device='cpu')
     info = runner.run([1.0] * 4, timeout=-1.0)
     assert info['sweeps'] == 0
-    with pytest.raises(NotImplementedError, match='ROADMAP.*item 10'):
-        runner.run([1.0], exchange_every=1)
+    runner.run([1.0] * 4, chunk_size=1, exchange_every=1)
+    assert runner.ctree(0).is_valid(check_shared_inds=True)
+    assert runner.min_ctree(0).is_valid(check_shared_inds=True)
+    with pytest.raises(NotImplementedError, match='ROADMAP.*item 15'):
+        runner.run([1.0], exchange_every=1, exchange_axes=('ici',))
     with pytest.raises(NotImplementedError, match='ROADMAP.*item 15'):
         ReplicaRunner(ctrees, [1], engine='walker', mesh=object(),
                       device='cpu')

@@ -29,6 +29,7 @@ from tnco_tpu.kernels import sa_walks as jsw
 from tnco_tpu.kernels.sa_finite import SweepConfigFW
 from tnco_tpu.kernels.sa_fullsweep import uniform_log2_dim
 from tnco_tpu.ops import bitops as jbit
+from tnco_tpu.ops import costs as jcosts
 from tnco_tpu.testing.utils import generate_random_tensors
 from tnco_tpu.utils.tn import get_random_contraction_path
 from tnco_tpu_torch.convert import batch_fw_from_numpy, batch_fw_to_numpy
@@ -45,6 +46,12 @@ def _setup(net, seed):
     if net == 'lattice':
         ts, out, dims = lattice_2d(5, 5)
         max_width = 4.0
+    elif net == 'mixed':           # dims 2 and 3: the reference slicer
+        ts, out, dims = generate_random_tensors(
+            seed, n_tensors=24, min_dim=2, max_dim=3, n_extra_edges=14,
+            use_mixed_labels=False)
+        assert len(set(dims.values())) == 2
+        max_width = 7.0
     else:
         ts, out, dims = generate_random_tensors(
             seed, n_tensors=24, min_dim=2, max_dim=2, n_extra_edges=14,
@@ -82,7 +89,7 @@ def _fields(batch):
 
 
 def _assert_same(ref, got, what):
-    g = batch_fw_to_numpy(got)
+    g = got if isinstance(got, dict) else batch_fw_to_numpy(got)
     for k, v in _fields(ref).items():
         if k == 'keys':
             continue
@@ -126,6 +133,136 @@ def test_one_iteration_matches_jax(random_seed, net):
         applied += int(mref['applied'])
         batch, pos = ref, mref['pos']
     assert applied > 0
+
+
+def _iterations(net, seed, schedule, slicer):
+    """Both engines, one iteration at a time from the JAX state, the port
+    on the JAX draws, with ``slicer``; yields ``(it, ref, got, mref,
+    mgot)``."""
+    batch, cfg, log2d_w32, max_width, ul = _setup(net, seed)
+    w = cfg.n_lanes
+    tcfg = TConfigFW(n_leaves=cfg.n_leaves, n_lanes=w)
+    skip = jnp.zeros(w, jnp.uint32)
+    pos = jnp.full((P, B), -1, jnp.int32)
+    for it, (beta, reslice) in enumerate(schedule):
+        draws = {k: v[None] for k, v in _jax_draws(batch.keys, cfg).items()}
+        start = batch_fw_from_numpy(_fields(batch), 'cpu')
+        pos_t = torch.from_numpy(np.asarray(pos).copy())
+        ref, mref = jsw.run_walks_fw(
+            batch, jnp.asarray([beta], jnp.float32), jnp.asarray([reslice]),
+            jnp.float32(max_width), log2d_w32, skip, cfg, pos,
+            uniform_log2=ul, slicer=slicer)
+        got, mgot = tsw.run_walks_fw(
+            start, [beta], [reslice], max_width,
+            torch.from_numpy(np.array(log2d_w32)),
+            torch.zeros(w, dtype=torch.int32), tcfg, pos_t,
+            uniform_log2=ul, slicer=slicer, draws=draws, device='cpu')
+        yield it, batch, ref, got, mref, mgot
+        batch, pos = ref, mref['pos']
+
+
+def reslice_ties(start, ref, got, log2d_w32, ul, n_leaves):
+    """Settles reslice-if-better decisions made by a float tie.
+
+    A replica's reslice keeps its slices and incrementally kept ``lcc``
+    or takes the fresh slice set and its recomputed ``lcc``, whichever
+    total is lower; where the two totals tie within the float bound
+    (each side's own exp2/log2), the JAX engine and the port may decide
+    differently.  For a replica whose tree matches but whose slices or
+    ``lcc`` differ, each side's pair must be one of the two outcomes
+    (slices as at the start, or ``lcc`` equal to the JAX ``_lcc_fw_b`` of
+    the tree and those slices) and the outcomes' totals must tie; the
+    port's fields are then set to the JAX result, so that the caller
+    checks every other field bitwise.  Returns the replicas settled."""
+    r, g, s0 = _fields(ref), got, _fields(start)
+
+    def fresh(slices):
+        return np.asarray(jsfb._lcc_fw_b(
+            jnp.asarray(r['c0']), jnp.asarray(r['c1']),
+            jnp.asarray(r['inds']), jnp.asarray(slices), log2d_w32, None,
+            None, uniform_log2=ul))
+
+    sides = {'jax': (r, fresh(r['slices'])), 'port': (g, fresh(g['slices']))}
+    settled = []
+    for i in range(r['c0'].shape[1]):
+        if (np.array_equal(g['slices'][:, i], r['slices'][:, i]) and
+                np.array_equal(g['lcc'][:, i], r['lcc'][:, i])):
+            continue
+        for k in ('c0', 'c1', 'par', 'inds'):
+            np.testing.assert_array_equal(g[k][..., i], r[k][..., i],
+                                          err_msg=f'replica {i}: {k}')
+        for side, (x, lcc_fresh) in sides.items():
+            kept = np.array_equal(x['slices'][:, i], s0['slices'][:, i])
+            taken = np.array_equal(x['lcc'][:, i], lcc_fresh[:, i])
+            assert kept or taken, f'replica {i}: {side} is neither outcome'
+        pair = np.stack([r['lcc'][:, i], g['lcc'][:, i]], axis=1)
+        totals = np.asarray(jcosts.log2_total_from_lcc(jnp.asarray(pair),
+                                                       n_leaves))
+        assert abs(totals[0] - totals[1]) <= TOTAL_ATOL, (
+            f'replica {i}: reslice decided {totals} apart, over the float '
+            f'bound {TOTAL_ATOL}')
+        g['slices'][:, i] = r['slices'][:, i]
+        g['lcc'][:, i] = r['lcc'][:, i]
+        settled.append(i)
+    return settled
+
+
+@pytest.mark.parametrize('net', ['lattice', 'mixed'])
+def test_ref_slicer_matches_jax(random_seed, net):
+    """``slicer='ref'`` (no union planes; the reslice unpacks the state
+    and runs the reference-shaped slicer) against the JAX engine's 'ref'
+    branch, one iteration at a time, on dims 2 (where the slicer takes
+    the sorted-space path through K1) and on mixed dims 2 and 3 (pinned
+    widths; the 'auto' choice there too)."""
+    schedule = [(0.5, True), (2.0, False), (8.0, True), (1.0, True),
+                (30.0, True)]
+    applied = taken = 0
+    seed = random_seed % 1000
+    _, cfg, log2d_w32, _, ul = _setup(net, seed)
+    for it, start, ref, got, mref, mgot in _iterations(net, seed, schedule,
+                                                       'ref'):
+        what = f'{net} iteration {it}'
+        g = batch_fw_to_numpy(got)
+        reslice_ties(start, ref, g, log2d_w32, ul, cfg.n_leaves)
+        _assert_same(ref, g, what)
+        assert int(mgot['applied']) == int(mref['applied']), what
+        np.testing.assert_array_equal(mgot['pos'].numpy(),
+                                      np.asarray(mref['pos']), err_msg=what)
+        applied += int(mref['applied'])
+        taken += int((np.asarray(ref.slices) !=
+                      np.asarray(start.slices)).any(axis=0).sum())
+    assert applied > 0
+    assert taken > 0, 'no replica took a new slice set'
+
+
+def test_ref_slicer_equals_plane_on_uniform_dims(random_seed):
+    """On uniform power-of-two dims the two slicers give one result:
+    ``slicer='ref'`` equals the plane slicer bitwise, totals included."""
+    batch, cfg, log2d_w32, max_width, ul = _setup('lattice',
+                                                  random_seed % 1000)
+    w = cfg.n_lanes
+    tcfg = TConfigFW(n_leaves=cfg.n_leaves, n_lanes=w)
+    gen = torch.Generator().manual_seed(random_seed)
+    draws = [tsw.draw_walks(gen, cfg.n_leaves, B, P, 32 * w, torch.float32)
+             for _ in range(6)]
+    draws = {k: torch.stack([d[k] for d in draws]) for k in draws[0]}
+    betas = [0.5, 2.0, 8.0, 1.0, 30.0, 3.0]
+    mask = [True, False, True, True, False, True]
+    outs = []
+    for slicer in (None, 'plane', 'ref'):
+        out, m = tsw.run_walks_fw(
+            batch_fw_from_numpy(_fields(batch), 'cpu'), betas, mask,
+            max_width, torch.from_numpy(np.array(log2d_w32)),
+            torch.zeros(w, dtype=torch.int32), tcfg,
+            torch.full((P, B), -1, dtype=torch.int32), uniform_log2=ul,
+            slicer=slicer, draws=draws, device='cpu')
+        outs.append((batch_fw_to_numpy(out), int(m['applied'])))
+    (plane, a0), *others = outs
+    assert a0 > 0
+    for got, applied in others:
+        assert applied == a0
+        for k, v in plane.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
 def _packed(batch, cfg):
@@ -272,10 +409,15 @@ def test_unported_options_raise(random_seed):
             torch.full((P, B), -1, dtype=torch.int32))
     gen = torch.Generator()
     for kw in ({'claim': 'pairwise'}, {'on_block': 'restart'},
-               {'accept_rule': 'chained'}, {'slicer': 'ref'},
-               {'uniform_log2': None}):
+               {'accept_rule': 'chained'}):
         kw.setdefault('uniform_log2', ul)
         with pytest.raises(NotImplementedError, match='ROADMAP'):
+            tsw.run_walks_fw(*args, generator=gen, device='cpu', **kw)
+    # The plane slicer needs uniform power-of-two dims (sa_walks.py:753).
+    for kw in ({'slicer': 'plane', 'uniform_log2': None},
+               {'slicer': 'plane', 'uniform_log2': float(np.log2(3))},
+               {'slicer': 'bogus', 'uniform_log2': ul}):
+        with pytest.raises(ValueError, match='slicer'):
             tsw.run_walks_fw(*args, generator=gen, device='cpu', **kw)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tsw.run_walks_fw(*args[:6], TConfigFW(n_leaves=cfg.n_leaves,

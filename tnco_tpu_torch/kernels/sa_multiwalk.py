@@ -187,8 +187,11 @@ def _propose(st, pos, leaf, rand_bit, cfg, n):
 
 def _accept(cfg, u, beta, l_new, lt, ev):
     """The acceptance rule of every walk against the pre-round total;
-    root-adjacent walks (no uncle) only advance."""
+    root-adjacent walks (no uncle) only advance.  ``beta`` is 0-dim or
+    ``[B]`` (one temperature per replica)."""
     if cfg.prob_kind == 'mh':
+        if beta.ndim:
+            beta = beta[:, None]
         acc = torch.log2(u) <= -beta * (l_new - lt[:, None])
     elif cfg.prob_kind == 'greedy':
         acc = l_new <= lt[:, None]
@@ -377,14 +380,17 @@ def padded_state(c0, c1, par, inds, lcc, width=None) -> dict:
     return st
 
 
-def as_betas(betas, device) -> torch.Tensor:
-    """``[K]`` float32 betas on ``device`` (a host sequence is copied)."""
+def as_betas(betas, device, b=None) -> torch.Tensor:
+    """``[K]`` or per-replica ``[K, B]`` float32 betas on ``device`` (a
+    host sequence is copied; ``b`` checks ``B``)."""
     betas = torch.as_tensor(
         betas if isinstance(betas, torch.Tensor) else
         np.asarray(betas, dtype=np.float32),
         dtype=torch.float32, device=device)
-    if betas.dim() != 1:
-        raise ValueError(f"betas must be 1-D, got {tuple(betas.shape)}.")
+    if betas.dim() not in (1, 2) or (
+            betas.dim() == 2 and b is not None and betas.shape[1] != b):
+        raise ValueError(f"betas must be [K] or [K, {b}], got "
+                         f"{tuple(betas.shape)}.")
     return betas
 
 
@@ -397,7 +403,7 @@ def run_multiwalk(batch: SABatch, betas, log2d_w32, cfg, n_walks: int, pos,
 
     Args:
         batch: :class:`SABatch`.
-        betas: ``[K]`` inverse temperatures.
+        betas: ``[K]`` inverse temperatures, or ``[K, B]`` per replica.
         log2d_w32: ``float32 [W, 32]`` padded log2 dims.
         cfg: :class:`~tnco_tpu_torch.kernels.sa_infinite.SweepConfig`.
         n_walks: walks per replica ``P``.
@@ -419,7 +425,7 @@ def run_multiwalk(batch: SABatch, betas, log2d_w32, cfg, n_walks: int, pos,
     if tuple(pos.shape) != (n_walks, b):
         raise ValueError(f"pos must be [{n_walks}, {b}], got "
                          f"{tuple(pos.shape)}.")
-    betas = as_betas(betas, dev)
+    betas = as_betas(betas, dev, b)
     k = betas.shape[0]
     if draws is None:
         if generator is None:
@@ -475,7 +481,7 @@ def run_multiwalk_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
 
     Args:
         batch: :class:`~tnco_tpu_torch.kernels.sa_finite_batched.SABatchFW`.
-        betas: ``[K]`` inverse temperatures.
+        betas: ``[K]`` inverse temperatures, or ``[K, B]`` per replica.
         update_slices_mask: ``[K]`` host booleans; iteration ``t`` ends
             with the greedy reslice-if-better where it is true (and some
             replica has a slice).
@@ -505,7 +511,7 @@ def run_multiwalk_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
     if tuple(pos.shape) != (n_walks, b):
         raise ValueError(f"pos must be [{n_walks}, {b}], got "
                          f"{tuple(pos.shape)}.")
-    betas = as_betas(betas, dev)
+    betas = as_betas(betas, dev, b)
     mask = np.asarray(update_slices_mask, dtype=bool)
     if mask.shape != (betas.shape[0],):
         raise ValueError("update_slices_mask must match betas, got "

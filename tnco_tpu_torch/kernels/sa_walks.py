@@ -23,10 +23,13 @@ which writes the state IN PLACE where the JAX engine donated its buffer.
 Semantics follow the JAX engine operation by operation, so integer state
 and slices are bitwise equal on the same state and draws, and totals
 agree within the float bound of ``exp2``/``log2`` (tests inject the JAX
-draws through ``draws=``).  This slice ports ``claim='sequential'``,
+draws through ``draws=``).  The port covers ``claim='sequential'``,
 ``on_block='advance'``, ``accept_rule='round'``, ``prob_kind='mh'``,
-float32 and the plane slicer on uniform power-of-two dims; the other
-options raise ``NotImplementedError`` naming their ROADMAP item.
+float32, and both slicers: the plane slicer on uniform power-of-two dims
+(the state then carries the union planes) and the reference-shaped one
+(``slicer='ref'``, and every other dims table: no union planes, the
+reslice unpacks the state); the other options raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 import numpy as np
@@ -37,8 +40,9 @@ from tnco_tpu_torch.kernels.gather import gather_gbn
 from tnco_tpu_torch.kernels.sa_batched import compute_hyper_b
 from tnco_tpu_torch.kernels.sa_finite import _WIDTH_EPS
 from tnco_tpu_torch.kernels.sa_finite_batched import (SABatchFW,
+                                                      _greedy_slices_b,
                                                       _greedy_slices_fast,
-                                                      _pc_width)
+                                                      _lcc_fw_b, _pc_width)
 from tnco_tpu_torch.kernels.sa_fullsweep import (_join_f, _nk, _split_f,
                                                  _width_bn)
 from tnco_tpu_torch.kernels.sa_infinite import SweepConfig
@@ -257,20 +261,34 @@ def _apply_walks(S, ev, kept, cfg: SweepConfig, dtype, with_width=False,
 
 def _reslice(S, slices, lt_post, jitter, thr_width, log2d_w32, skip_w,
              cfg, uniform_log2, dtype, up):
-    """Plane-layout reslice-if-better: the sorted-space slicer reads the
-    index planes in place and lcc is rebuilt by one popcount pass over
-    the union planes; replicas whose new total is lower take the new
-    slices and lcc (written into ``S`` in place)."""
+    """Reslice-if-better on the packed state (``sa_walks.py:637-685``).
+
+    With union planes (``up = W``, the plane slicer) the sorted-space
+    slicer reads the index planes in place and lcc is one popcount pass
+    over the union planes.  Without them (``up = 0``, ``slicer='ref'``)
+    the state is unpacked on its padded node axis (pad rows are inert
+    leaves) and the reference-shaped slicer and slice-aware cost run on
+    it.  Replicas whose new total is lower take the new slices and lcc
+    (written into ``S`` in place)."""
     w = cfg.n_lanes
     nk = _nk(dtype)
-    width_nb = _join_f(S[w + up + 2 + nk:w + up + 2 + 2 * nk], dtype).T
-    new_slices = _greedy_slices_fast(S, (0, w), width_nb, jitter,
-                                     thr_width, log2d_w32, skip_w,
-                                     uniform_log2)
-    internal = S[w + up] != NULL                             # [B, N]
-    union = S[w:w + up] | new_slices[:, :, None]
-    lcc_bn = _pc_width(union, uniform_log2, dtype, word_axis=0)
-    new_lcc_bn = torch.where(internal, lcc_bn, -torch.inf).to(dtype)
+    if up:
+        width_nb = _join_f(S[w + up + 2 + nk:w + up + 2 + 2 * nk], dtype).T
+        new_slices = _greedy_slices_fast(S, (0, w), width_nb, jitter,
+                                         thr_width, log2d_w32, skip_w,
+                                         uniform_log2)
+        internal = S[w + up] != NULL                         # [B, N]
+        union = S[w:w + up] | new_slices[:, :, None]
+        lcc_bn = _pc_width(union, uniform_log2, dtype, word_axis=0)
+        new_lcc_bn = torch.where(internal, lcc_bn, -torch.inf).to(dtype)
+    else:
+        c0, c1, _par, inds, _lcc, width = _unpack_w(S, w, dtype, S.shape[2],
+                                                    fw=True, u=up)
+        new_slices = _greedy_slices_b(c0, inds, width, jitter, thr_width,
+                                      log2d_w32, skip_w,
+                                      uniform_log2=uniform_log2)
+        new_lcc_bn = _lcc_fw_b(c0, c1, inds, new_slices, log2d_w32,
+                               uniform_log2=uniform_log2).T
     new_lt = costs_ops.log2_total_from_lcc_last(new_lcc_bn, cfg.n_leaves)
     better = new_lt < lt_post
     slices = torch.where(better[None, :], new_slices, slices)
@@ -282,15 +300,16 @@ def _reslice(S, slices, lt_post, jitter, thr_width, log2d_w32, skip_w,
 
 
 def _iter_walks_fw(st, beta, update_slices, max_width, log2d_w32, skip_w,
-                   cfg: SweepConfig, uniform_log2, dr):
-    """One iteration on the state dict ``st`` (updated in place)."""
+                   cfg: SweepConfig, uniform_log2, dr, up):
+    """One iteration on the state dict ``st`` (updated in place); ``up``
+    is the union-plane count of ``S`` (``W`` for the plane slicer, else
+    0)."""
     S = st['S']
     w = cfg.n_lanes
     dtype = log2d_w32.dtype
     nk = _nk(dtype)
     pos = st['pos']
     p = pos.shape[1]
-    up = w  # union-plane count (the plane-slicer path)
     slices = st['slices']
 
     pos, ev = _propose_walks(S, pos, dr['leaf'], dr['rand_bit'], cfg,
@@ -325,8 +344,8 @@ def _iter_walks_fw(st, beta, update_slices, max_width, log2d_w32, skip_w,
     return ev, keep
 
 
-def _check_options(cfg, dtype, claim, on_block, accept_rule, slicer,
-                   sparse_wb, log2_n_projs, fast_slicer):
+def _check_options(cfg, dtype, claim, on_block, accept_rule, sparse_wb,
+                   log2_n_projs):
     if claim != 'sequential':
         raise _not_ported(f"claim={claim!r}")
     if on_block != 'advance':
@@ -342,12 +361,20 @@ def _check_options(cfg, dtype, claim, on_block, accept_rule, slicer,
         raise _not_ported("Sparse indices")
     if dtype != torch.float32:
         raise _not_ported("float64 state (nk=2)")
+
+
+def _union_planes(slicer, uniform_log2, w) -> int:
+    """The slicer resolution of ``sa_walks.py:749-760``: the plane slicer
+    (``W`` union planes) on uniform power-of-two dims unless ``slicer=
+    'ref'``; ``'plane'`` on other dims raises."""
     if slicer not in (None, 'plane', 'ref'):
         raise ValueError(f"slicer must be None, 'plane' or 'ref', "
                          f"got {slicer!r}.")
-    if slicer == 'ref' or not fast_slicer:
-        raise _not_ported("The reference-shaped slicer (slicer='ref', "
-                          "non-uniform or non-power-of-two dims)")
+    fast = uniform_log2 is not None and float(uniform_log2).is_integer()
+    if slicer == 'plane' and not fast:
+        raise ValueError("slicer='plane' needs uniform power-of-two dims "
+                         "and no sparse indices.")
+    return w if fast and slicer != 'ref' else 0
 
 
 def run_walks_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
@@ -359,12 +386,16 @@ def run_walks_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
 
     Args:
         batch: :class:`SABatchFW` on ``device``.
-        betas: ``[T]`` inverse temperatures (float32 on the device).
+        betas: ``[T]`` inverse temperatures, or ``[T, B]`` one per
+            replica (float32 on the device).
         update_slices_mask: ``[T]`` host booleans, reslice after step t.
         max_width: the width cap.
         log2d_w32: ``float32 [W, 32]`` padded log2 dims.
         skip_wb: ``int32 [W]`` (or ``[W, 1]``) lanes never sliced.
         pos: ``int32 [P, B]`` walk positions (-1 = start a fresh walk).
+        slicer: None (the plane slicer on uniform power-of-two dims, the
+            reference-shaped one elsewhere), ``'plane'`` (required; other
+            dims raise) or ``'ref'`` (forced).
         draws: optional pre-drawn streams, a dict of per-iteration stacks
             ``leaf [T, B, P]``, ``rand_bit [T, B, P]``, ``u [T, B, P]``,
             ``jitter [T, n_bits, B]`` (the tests inject the JAX draws).
@@ -382,10 +413,9 @@ def run_walks_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
     nl = cfg.n_leaves
     dtype = log2d_w32.dtype
     nk = _nk(dtype)
-    fast_slicer = (uniform_log2 is not None and sparse_wb is None
-                   and float(uniform_log2).is_integer())
-    _check_options(cfg, dtype, claim, on_block, accept_rule, slicer,
-                   sparse_wb, log2_n_projs, fast_slicer)
+    _check_options(cfg, dtype, claim, on_block, accept_rule, sparse_wb,
+                   log2_n_projs)
+    up = _union_planes(slicer, uniform_log2, w)
     if draws is None and generator is None:
         raise ValueError("Pass draws= or generator=.")
     betas = torch.as_tensor(
@@ -403,17 +433,20 @@ def run_walks_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
                 width=batch.width)
     S_min = _pack_w(batch.min_c0, batch.min_c1, batch.min_par,
                     batch.min_inds, batch.lcc, width=batch.width)
-    # Union planes U = inds[c0] | inds[c1], between the index planes and
-    # c0 so the merged {B, A} apply scatter covers them in one range.
-    c0_pad = S[w].contiguous()
-    c1_pad = S[w + 1].contiguous()
-    U = (gather_gbn(S, c0_pad, planes=(0, w)) |
-         gather_gbn(S, c1_pad, planes=(0, w)))
-    S = torch.cat([S[:w], U, S[w:]], dim=0).contiguous()
-    # S_min's union planes are never read; they keep the snap shapes equal.
-    S_min = torch.cat([S_min[:w], U, S_min[w:]], dim=0).contiguous()
+    if up:
+        # Union planes U = inds[c0] | inds[c1], between the index planes
+        # and c0 so the merged {B, A} apply scatter covers them in one
+        # range.
+        c0_pad = S[w].contiguous()
+        c1_pad = S[w + 1].contiguous()
+        U = (gather_gbn(S, c0_pad, planes=(0, w)) |
+             gather_gbn(S, c1_pad, planes=(0, w)))
+        S = torch.cat([S[:w], U, S[w:]], dim=0).contiguous()
+        # S_min's union planes are never read; they keep the snap shapes
+        # equal.
+        S_min = torch.cat([S_min[:w], U, S_min[w:]], dim=0).contiguous()
 
-    st = dict(S=S, lt=_lt_from_S(S, w, nk, nl, dtype, u=w),
+    st = dict(S=S, lt=_lt_from_S(S, w, nk, nl, dtype, u=up),
               slices=batch.slices.clone(), S_min=S_min,
               min_slices=batch.min_slices.clone(),
               min_lt=batch.min_log2_total.clone(),
@@ -427,7 +460,7 @@ def run_walks_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
         else:
             dr = {k: v[t] for k, v in draws.items()}
         _iter_walks_fw(st, betas[t], bool(mask[t]), max_width, log2d_w32,
-                       skip_w, cfg, uniform_log2, dr)
+                       skip_w, cfg, uniform_log2, dr, up)
 
     S, lt, S_min = st['S'], st['lt'], st['S_min']
     improved = lt < st['min_lt']
@@ -436,9 +469,10 @@ def run_walks_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
     min_slices = torch.where(improved[None, :], st['slices'],
                              st['min_slices'])
     n = batch.c0.shape[0]
-    c0, c1, par, inds, lcc, width = _unpack_w(S, w, dtype, n, fw=True, u=w)
+    c0, c1, par, inds, lcc, width = _unpack_w(S, w, dtype, n, fw=True,
+                                              u=up)
     mc0, mc1, mpar, minds, _ml, _mw = _unpack_w(S_min, w, dtype, n,
-                                                fw=True, u=w)
+                                                fw=True, u=up)
     hyper = compute_hyper_b(c0, c1, inds)
     out = SABatchFW(c0, c1, par, inds, hyper, lcc, width, st['slices'], lt,
                     min_lt, mc0, mc1, mpar, minds, min_slices,

@@ -178,6 +178,17 @@ def kernel_inputs(batch, betas, log2d_w32, pos, draws):
                 log2d=log2d_w32.reshape(-1).contiguous())
 
 
+def _one_beta_per_iteration(betas) -> None:
+    """K5 reads one beta per iteration (``pallas_walker.py:549``), so
+    per-replica ``[K, B]`` betas (a tempering ladder) raise, on the CPU
+    too, rather than run on one row."""
+    ndim = betas.dim() if isinstance(betas, torch.Tensor) else np.ndim(betas)
+    if ndim != 1:
+        raise ValueError(
+            "The walker takes one beta per iteration ([K]); per-replica "
+            "betas [K, B] run on 'batched', 'walks' and 'multiwalk'.")
+
+
 def run_walker(batch, betas, log2d_w32, cfg, n_walks: int, pos, *,
                draws=None, generator=None):
     """K iterations of ``n_walks``-walk SA per replica, one per beta.
@@ -202,6 +213,7 @@ def run_walker(batch, betas, log2d_w32, cfg, n_walks: int, pos, *,
     Returns ``(batch, {'moves', 'applied', 'pos'})``.
     """
     global launches
+    _one_beta_per_iteration(betas)
     if batch.c0.device.type == 'cpu':
         return run_walker_plain(batch, betas, log2d_w32, cfg, n_walks, pos,
                                 draws=draws, generator=generator)
@@ -459,6 +471,7 @@ def run_walker_fw(batch, betas, update_slices_mask, max_width, log2d_w32,
 
     Returns ``(batch, {'moves', 'applied', 'pos'})``.
     """
+    _one_beta_per_iteration(betas)
     _check(batch, cfg, n_walks, pos, log2d_w32, fw=True)
     dev = batch.c0.device
     b = batch.c0.shape[1]

@@ -1,7 +1,9 @@
 """Replica runners (the port of ``tnco_tpu/parallel/replicas.py``):
 :class:`ReplicaRunner` (infinite memory, engines 'batched', 'walker' and
 'multiwalk') and :class:`ReplicaRunnerFW` (finite width, engines
-'batched', 'walks', 'walker' and 'multiwalk').
+'batched', 'walks', 'walker' and 'multiwalk'), and the population
+operators that run between chunks: island exchange (:func:`exchange_best`,
+:func:`exchange_best_fw`) and the slice-kick (:func:`kick_lanes_fw`).
 
 Replicas of one connected component share array shapes, so a batch is
 one stacked state on one device; ``run`` anneals it in chunks with a
@@ -10,6 +12,8 @@ slice set every ``update_slices`` steps, reference finite_width/sa.py:
 228).
 """
 
+import dataclasses
+from random import Random
 import time
 
 import numpy as np
@@ -21,17 +25,23 @@ from tnco_tpu_torch.kernels import sa_finite_batched as sfb
 from tnco_tpu_torch.kernels import sa_multiwalk as smw
 from tnco_tpu_torch.kernels import sa_walks as swk
 from tnco_tpu_torch.kernels import walker as kwalker
-from tnco_tpu_torch.kernels.sa_finite import SweepConfigFW
+from tnco_tpu_torch.kernels.sa_finite import (SweepConfigFW,
+                                              greedy_slices_host)
 from tnco_tpu_torch.kernels.sa_fullsweep import uniform_log2_dim
 from tnco_tpu_torch.kernels.sa_infinite import SweepConfig
 from tnco_tpu_torch.ops import bitops
+from tnco_tpu_torch.ops import costs as costs_ops
 
-__all__ = ['ReplicaRunner', 'ReplicaRunnerFW']
+__all__ = ['ReplicaRunner', 'ReplicaRunnerFW', 'exchange_best',
+           'exchange_best_fw', 'kick_lanes_fw']
 
 _ENGINES = ('batched', 'vmapped', 'native', 'multiwalk', 'walker', 'sweep',
             'walks')
 _PORTED = ('batched', 'walks', 'walker', 'multiwalk')
 _PORTED_IM = ('batched', 'walker', 'multiwalk')
+# Every ported engine keeps the replica axis last, so exchange and the
+# kick run on all of them (the JAX runners' ``_LANE_MAJOR``).
+_LANE_MAJOR = _PORTED
 # ROADMAP queue 1 items of the engines that are not ported yet ('walks'
 # only for infinite memory).
 _ITEMS = {'vmapped': 'item 12', 'native': 'item 10', 'walks': 'item 10',
@@ -77,6 +87,24 @@ def _resolve_walks(engine: str, n_walks, fw: bool = False) -> int:
     if engine == 'walks':
         return 128 if fw else 32
     return 8
+
+
+def _check_exchange_axes(exchange_axes) -> None:
+    if exchange_axes is not None:
+        raise NotImplementedError(
+            "exchange_axes names mesh axes; multi-device runs are not "
+            "ported yet (ROADMAP queue 1, item 15).")
+
+
+def _check_betas(betas, n_replicas: int) -> np.ndarray:
+    """``betas`` as float32 host rows: ``[n]``, or ``[n, B]``, one beta
+    per lane (a tempering ladder; the walker refuses those)."""
+    betas = np.asarray(betas, dtype=np.float32)
+    if betas.ndim not in (1, 2) or (betas.ndim == 2 and
+                                    betas.shape[1] != n_replicas):
+        raise ValueError(f"betas must be [n] or [n, {n_replicas}], got "
+                         f"{betas.shape}.")
+    return betas
 
 
 class ReplicaRunner:
@@ -195,22 +223,29 @@ class ReplicaRunner:
             chunk_size: int = 128,
             timeout: float | None = None,
             callback=None,
-            exchange_every: int = 0) -> dict:
+            exchange_every: int = 0,
+            exchange_fraction: float = 0.25,
+            exchange_islands: int = 1,
+            exchange_axes=None) -> dict:
         """Runs one iteration (a sweep for 'batched') per beta in chunks
         of ``chunk_size`` (the last chunk padded with its last beta, as in
         the JAX runner), drawing the streams from the batch's generator.
+        ``betas`` is ``[n]`` or per lane ``[n, B]`` (a tempering ladder;
+        not on 'walker', whose kernel reads one beta per iteration).
         After each chunk the host checks the wall-clock budget and calls
         ``callback``.  'batched' counts no applied moves (``applied``
-        stays None, as in the JAX runner).  Island exchange is not ported
-        yet."""
-        if exchange_every:
-            raise NotImplementedError(
-                "Island exchange is not ported yet (ROADMAP queue 1, "
-                "item 10).")
-        betas = np.asarray(betas, dtype=np.float32)
+        stays None, as in the JAX runner).
+
+        ``exchange_every``: every that many chunks (not after the last),
+        :func:`exchange_best` restarts the worst ``exchange_fraction`` of
+        each of ``exchange_islands`` islands from its best lane.
+        ``exchange_axes`` names mesh axes, so it raises (one device)."""
+        _check_exchange_axes(exchange_axes)
+        betas = _check_betas(betas, self.n_replicas)
         start = time.perf_counter()
         n = len(betas)
         pos = 0
+        n_chunks = 0
         chunk_size = max(1, min(chunk_size, n))
         while pos < n:
             if timeout is not None and time.perf_counter() - start > timeout:
@@ -237,6 +272,10 @@ class ReplicaRunner:
                     accept_rule=self.accept_rule, generator=self.generator)
             self._count(metrics, chunk_size)
             pos += chunk_size
+            n_chunks += 1
+            if exchange_every and pos < n and n_chunks % exchange_every == 0:
+                self.states = exchange_best(self.states, exchange_fraction,
+                                            exchange_islands)
             if callback is not None:
                 callback({
                     'progress': min(pos, n) / n,
@@ -433,22 +472,26 @@ class ReplicaRunnerFW:
             chunk_size: int = 128,
             timeout: float | None = None,
             callback=None,
-            exchange_every: int = 0) -> dict:
-        """Anneals over ``betas`` in chunks of ``chunk_size`` steps (sweeps
-        for 'batched'; the last chunk padded with its last beta and no
-        reslice, as in the JAX runner), drawing from the batch's
-        generator.  The reslice mask is global (``step % update_slices ==
-        0``), cut per chunk.  'batched' counts no applied moves."""
-        if exchange_every:
-            raise NotImplementedError(
-                "Island exchange is not ported yet (ROADMAP queue 1, "
-                "item 7).")
-        betas = np.asarray(betas, dtype=np.float32)
+            exchange_every: int = 0,
+            exchange_fraction: float = 0.25,
+            exchange_islands: int = 1,
+            exchange_axes=None) -> dict:
+        """Anneals over ``betas`` (``[n]`` or per lane ``[n, B]``, not on
+        'walker') in chunks of ``chunk_size`` steps (sweeps for 'batched';
+        the last chunk padded with its last beta and no reslice, as in the
+        JAX runner), drawing from the batch's generator.  The reslice mask
+        is global (``step % update_slices == 0``), cut per chunk.
+        'batched' counts no applied moves.  Exchange as in
+        :meth:`ReplicaRunner.run`, with :func:`exchange_best_fw` (the
+        slice set travels with the tree)."""
+        _check_exchange_axes(exchange_axes)
+        betas = _check_betas(betas, self.n_replicas)
         n = len(betas)
         mask = ((np.arange(n) % max(1, update_slices)) == 0
                 if update_slices else np.zeros(n, dtype=bool))
         start = time.perf_counter()
         pos = 0
+        n_chunks = 0
         chunk_size = max(1, min(chunk_size, n))
         while pos < n:
             if timeout is not None and time.perf_counter() - start > timeout:
@@ -487,6 +530,10 @@ class ReplicaRunnerFW:
                     generator=self.generator)
             self._count(metrics, chunk_size)
             pos += chunk_size
+            n_chunks += 1
+            if exchange_every and pos < n and n_chunks % exchange_every == 0:
+                self.states = exchange_best_fw(
+                    self.states, exchange_fraction, exchange_islands)
             if callback is not None:
                 callback({
                     'progress': min(pos, n) / n,
@@ -521,3 +568,232 @@ class ReplicaRunnerFW:
 
     def log2_min_totals(self) -> np.ndarray:
         return self.states.min_log2_total.cpu().numpy()
+
+
+def _island_exchange_plan(lt, fraction: float, islands: int, active):
+    """Worst lanes and sources of the exchange (``replicas.py:1086``).
+
+    The replica axis splits into ``islands`` equal contiguous groups; in
+    each, the lanes at or above the ``(bg - k)``-th sorted total (``k =
+    max(1, int(bg * fraction))``) and strictly worse than the group's
+    best are the worst, so lanes tied with the best keep their trees.
+    ``active`` (``bool[G]``, optional) gates exchange per island.  Returns
+    ``(worst_mask [B], src_idx [G], best_val [G, 1])``; ``argmin`` takes
+    the first lane on ties, as ``jnp.argmin`` does.
+    """
+    b = lt.shape[0]
+    g = max(1, int(islands))
+    if b % g:
+        raise ValueError(f"islands={g} must divide the replica count {b}.")
+    bg = b // g
+    k = max(1, int(bg * fraction))
+    lt2 = lt.reshape(g, bg)
+    best = torch.argmin(lt2, dim=1)                              # [G]
+    best_val = torch.take_along_dim(lt2, best[:, None], dim=1)   # [G, 1]
+    thresh = torch.sort(lt2, dim=1).values[:, bg - k]
+    worst2 = (lt2 >= thresh[:, None]) & (lt2 > best_val)
+    if active is not None:
+        worst2 = worst2 & torch.as_tensor(
+            np.asarray(active, dtype=bool), device=lt.device).reshape(g, 1)
+    return worst2.reshape(b), best, best_val
+
+
+def _island_mix(cur, worst, best, g):
+    """Copies each island's best lane into its worst lanes (replica axis
+    LAST)."""
+    b = cur.shape[-1]
+    lead = tuple(cur.shape[:-1])
+    cur2 = cur.reshape(lead + (g, b // g))
+    idx = best.reshape((1,) * len(lead) + (g, 1))
+    src = torch.take_along_dim(cur2, idx.expand(lead + (g, 1)), dim=-1)
+    mask = worst.reshape((1,) * len(lead) + (g, b // g))
+    return torch.where(mask, src, cur2).reshape(cur.shape)
+
+
+def _exchange(states, fraction, islands, active, names):
+    lt = states.log2_total
+    g = max(1, int(islands))
+    worst, best, best_val = _island_exchange_plan(lt, fraction, g, active)
+    lt_best = best_val.expand(g, lt.shape[0] // g).reshape(-1)
+    mixed = {k: _island_mix(getattr(states, k), worst, best, g)
+             for k in names}
+    return dataclasses.replace(states, log2_total=torch.where(
+        worst, lt_best, lt), **mixed)
+
+
+def exchange_best(states: sb.SABatch, fraction: float = 0.25,
+                  islands: int = 1, active=None) -> sb.SABatch:
+    """Population exchange (``replicas.py:1137``): the worst ``fraction``
+    of each island's lanes (by current total) restart from the island
+    best's current tree (``c0, c1, par, inds, hyper, lcc`` and the
+    total).  Min snapshots and ``keys`` are untouched; walk positions
+    live in the runner and stay as they are.  ``islands``/``active``: see
+    :func:`_island_exchange_plan`.  Returns a new batch."""
+    return _exchange(states, fraction, islands, active,
+                     ('c0', 'c1', 'par', 'inds', 'hyper', 'lcc'))
+
+
+def exchange_best_fw(states: sfb.SABatchFW, fraction: float = 0.25,
+                     islands: int = 1, active=None) -> sfb.SABatchFW:
+    """Finite-width population exchange (``replicas.py:1247``): as
+    :func:`exchange_best`, with the pre-slicing widths and the slice set
+    travelling with the tree."""
+    return _exchange(states, fraction, islands, active,
+                     ('c0', 'c1', 'par', 'inds', 'hyper', 'lcc', 'width',
+                      'slices'))
+
+
+def _kick_keys(seed: int, lanes) -> np.ndarray:
+    """The victims' seed words ``[0, (seed * 2654435761 + 7919 * lane) &
+    0xFFFFFFFF]`` (the ``init_batch_fw`` layout), ``int32 [K, 2]``."""
+    words = np.asarray([(seed * 2654435761 + 7919 * int(lane)) & 0xFFFFFFFF
+                        for lane in lanes], dtype=np.uint32)
+    return np.stack([np.zeros_like(words), words], axis=1).view(np.int32)
+
+
+def _kick_cols_host(runner, src: int, lanes, seed: int):
+    """Host half of the slice-kick (``replicas.py:1484-1544``): one fresh
+    greedy slice set of ``src``'s tree per victim (``random.Random((seed
+    * 1000003 + lane) & 0x7FFFFFFF)`` jitter) and its float64 slice-aware
+    ``lcc`` and total.  Returns ``(slices uint32 [W, K], lcc float64 [N,
+    K], lt float64 [K])``."""
+    s = runner.states
+    inds_src = s.inds[..., src].cpu().numpy().view(np.uint32)   # [N, W]
+    c0_src = s.c0[:, src].cpu().numpy()
+    c1_src = s.c1[:, src].cpu().numpy()
+    n, w = inds_src.shape
+    log2d = runner.log2d.cpu().numpy().astype(np.float64)       # [w*32]
+    mw = float(runner.max_width)
+    shifts = np.arange(32, dtype=np.uint32)
+
+    def expand(lanes_u32):  # [..., w] -> bool [..., w*32]
+        bits = (lanes_u32[..., :, None] >> shifts) & 1
+        return bits.astype(bool).reshape(*lanes_u32.shape[:-1], w * 32)
+
+    skip_np = runner.skip_lanes.cpu().numpy().view(np.uint32)
+    skip_bits = expand(skip_np) if skip_np.any() else None
+    k = len(lanes)
+    new_slices = np.empty((w, k), dtype=np.uint32)
+    for j, lane in enumerate(lanes):
+        new_slices[:, j] = greedy_slices_host(
+            inds_src, log2d, mw,
+            Random((seed * 1000003 + int(lane)) & 0x7FFFFFFF),
+            skip_bits=skip_bits)
+
+    internal = c0_src >= 0
+    inds_c0 = np.take_along_axis(
+        inds_src, np.where(internal, c0_src, 0)[:, None], axis=0)
+    inds_c1 = np.take_along_axis(
+        inds_src, np.where(internal, c1_src, 0)[:, None], axis=0)
+    n_leaves = runner.template.n_leaves
+    new_lcc = np.empty((n, k), dtype=np.float64)
+    new_lt = np.empty(k, dtype=np.float64)
+    for j in range(k):
+        union = expand(inds_c0 | inds_c1 | new_slices[None, :, j])
+        lcc_j = np.where(internal, union @ log2d, -np.inf)
+        new_lcc[:, j] = lcc_j
+        tail = lcc_j[n_leaves:]
+        if tail.size:
+            m = tail.max()
+            new_lt[j] = m + np.log2(np.exp2(tail - m).sum())
+        else:
+            new_lt[j] = -np.inf
+    return new_slices, new_lcc, new_lt
+
+
+def _kick_cols_device(runner, src: int, k: int, jitter):
+    """Device half of the slice-kick (``_kick_cols_fw``,
+    ``replicas.py:1350``), for the ``k`` victims' columns only: the
+    device slicer (:func:`sfb._greedy_slices_b`, which reaches K1 through
+    the plane slicer on uniform integer dims) on ``src``'s tree broadcast
+    over ``k`` columns, one jitter column each, then the slice-aware
+    ``lcc`` (:func:`sfb._lcc_fw_b`) and its pinned total.  (The JAX
+    package computed all ``B`` columns to keep one compiled shape; each
+    column is independent of the others, so the victims' columns are the
+    same values.)  Returns ``(slices [W, k], lcc [N, k], lt [k])``."""
+    s = runner.states
+    n, w = s.inds.shape[:2]
+    inds_k = s.inds[..., src:src + 1].expand(n, w, k)
+    c0_k = s.c0[:, src:src + 1].expand(n, k)
+    c1_k = s.c1[:, src:src + 1].expand(n, k)
+    width_k = s.width[:, src:src + 1].expand(n, k)
+    ul = uniform_log2_dim(runner.template.log2_dims_array)
+    slices = sfb._greedy_slices_b(c0_k, inds_k, width_k, jitter,
+                                  runner.max_width, runner.log2d_w32,
+                                  runner.skip_lanes, uniform_log2=ul)
+    lcc = sfb._lcc_fw_b(c0_k, c1_k, inds_k, slices, runner.log2d_w32,
+                        uniform_log2=ul)
+    lt = costs_ops.log2_total_from_lcc(lcc, runner.template.n_leaves)
+    return slices, lcc, lt
+
+
+def kick_lanes_fw(runner: ReplicaRunnerFW, lanes, src: int, seed: int, *,
+                  slicer: str = 'device', jitter=None) -> None:
+    """Slice-kick (``replicas.py:1398``): restart ``lanes`` from ``src``'s
+    current tree with FORCED fresh slice sets and fresh seed words.
+
+    Each victim takes ``src``'s ``c0, c1, par, inds, hyper, width``, an
+    UNGATED fresh greedy slice set, its slice-aware ``lcc`` and total,
+    the ``keys`` ``[0, (seed * 2654435761 + 7919 * lane) & 0xFFFFFFFF]``
+    and a restarted walk position (-1).  Non-victims and every min
+    snapshot stay bitwise as they were, so the reported best never
+    regresses.  Updates ``runner.states`` and ``runner._mw_pos``.
+
+    ``slicer='device'`` runs the device slicer on the victims' columns
+    (:func:`_kick_cols_device`) with ``jitter [n_bits, K]`` for the
+    ``K`` sorted victims, drawn from ``runner.generator`` unless given;
+    ``'host'`` is the per-victim host slicer with the JAX package's
+    ``random.Random`` streams and float64 costs (bitwise its values).
+    Drive it from :class:`tnco_tpu_torch.parallel.stall.
+    IslandStallKicker`.
+    """
+    if runner.engine not in _LANE_MAJOR or runner.states is None:
+        raise ValueError("kick_lanes_fw needs a lane-major device engine "
+                         f"(engine={runner.engine!r}).")
+    if slicer not in ('device', 'host'):
+        raise ValueError(f"slicer must be 'device' or 'host', got "
+                         f"{slicer!r}.")
+    s = runner.states
+    b = int(s.log2_total.shape[0])
+    lanes = np.asarray(sorted(set(int(x) for x in lanes)), dtype=np.int64)
+    if lanes.size == 0:
+        return
+    dev = s.c0.device
+    src = int(src)
+    k = lanes.size
+    lanes_t = torch.from_numpy(lanes).to(dev)
+    mask = torch.zeros(b, dtype=torch.bool, device=dev)
+    mask[lanes_t] = True
+
+    if slicer == 'device':
+        n_bits = runner.log2d_w32.numel()
+        if jitter is None:
+            jitter = torch.rand((n_bits, k), generator=runner.generator,
+                                device=dev, dtype=s.lcc.dtype)
+        elif tuple(jitter.shape) != (n_bits, k):
+            raise ValueError(f"jitter must be [{n_bits}, {k}], got "
+                             f"{tuple(jitter.shape)}.")
+        slices, lcc, lt = _kick_cols_device(runner, src, k,
+                                            jitter.to(dev, s.lcc.dtype))
+    else:
+        slices, lcc, lt = (torch.from_numpy(x) for x in
+                           _kick_cols_host(runner, src, lanes, seed))
+        slices = slices.view(torch.int32)
+
+    def mix(cur):
+        m = mask.reshape((1,) * (cur.ndim - 1) + (b,))
+        return torch.where(m, cur[..., src:src + 1], cur)
+
+    def put(cur, new):
+        out = cur.clone()
+        out[..., lanes_t] = new.to(dev, cur.dtype)
+        return out
+
+    keys = s.keys.clone()
+    keys[lanes_t] = torch.from_numpy(_kick_keys(seed, lanes)).to(dev)
+    runner.states = dataclasses.replace(
+        s, c0=mix(s.c0), c1=mix(s.c1), par=mix(s.par), inds=mix(s.inds),
+        hyper=mix(s.hyper), width=mix(s.width), lcc=put(s.lcc, lcc),
+        slices=put(s.slices, slices), log2_total=put(s.log2_total, lt),
+        keys=keys)
+    runner._mw_pos = torch.where(mask[None, :], -1, runner._mw_pos)
