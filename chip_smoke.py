@@ -114,11 +114,39 @@ Phases, each fatal on failure:
 18. one exchange (islands 4, island 1 gated) and one device-slicer kick
    (jitter drawn once) from the product point's state on the card and on
    the CPU: integer and bit state bitwise equal, totals within 1e-5 (run
-   after phase 15, on copies of the runner).
+   after phase 15, on copies of the runner);
+19. circuits at full width through ``load_tn`` and ``Optimizer``: the
+   Sycamore-53 m=20 circuit as an fSim gate list (``Optimizer(max_width=
+   30, seed=0)``) and as QASM text with cz couplers (``Optimizer(seed=
+   0)``) at the default fuse, and QAOA-26 p=4 at fuse=3 (``Optimizer(
+   max_width=30, seed=0)``), 64 runs x BATCHED_APP_STEPS sweeps each:
+   load seconds, N, W, tensors, hyper-indices and the engine 'auto'
+   picks ('batched', whose K1 and K3 must launch); every result audited
+   as in phases 3 and 5; then K1 and K3 bitwise against their plain
+   versions, by every route, at each shape the ``optimize`` launched
+   them (recorded by ``kernel_cases.recorded_cases``);
+20. the CLI as a subprocess: ``python3 -m tnco_tpu_torch.app.cli
+   optimize`` on the Sycamore QASM file (max_width 30, 64 runs x 32
+   sweeps), its network equal to ``load_tn``'s and its best result
+   audited, with its wall time; ``sample`` on a 3-qubit GHZ circuit,
+   whose hits must lie in {000, 111};
+21. the BGL ``Sampler`` (QAOA with each ZZ written CX, Rz, CX; the
+   checks' prefix networks optimized with 8 sweeps): every probability
+   the sampling loop contracts on QAOA-10 p=2 equals the statevector's
+   within 1e-10; the same circuit under a width cap two below its widest
+   contraction (sliced amplitudes within 1e-10 relative of the unsliced
+   ones); 1000 samples of QAOA-4 p=2 within 0.15 of the statevector's
+   distribution in total variation; a timed run on QAOA-26 at depth
+   SAMPLER_P (cut from 4) with the CLI's ``sample`` defaults (50 sweeps
+   a prefix network): seconds to build the state (one card optimization
+   per non-classical gate; K1 and K3 must launch) and per sample, each
+   of SAMPLER_SAMPLES samples timed alone (median, min, max); then K1 and
+   K3 bitwise against their plain versions at each shape the phase
+   launched them, as in phase 19.
 
-Phases 11-18 run between phases 9 and 10, whose kernel line carries
-every phase's launch counts (K1's and K3's rows add phases 15-17's);
-phase 13's profiled sweeps run after 10.
+Phases 11-21 run between phases 9 and 10, whose kernel line carries
+every phase's launch counts (K1's and K3's rows add phases 15-17's and
+19's and 21's); phase 13's profiled sweeps run after 10.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
@@ -167,11 +195,14 @@ BENCH_KERNELS = ('gather_gbn', 'inv_ids', 'scatter_rows_gbn', 'walker_im',
 BATCHED_KERNELS = ('gather_gbn', 'scatter_rows_inplace')
 # The main paths whose launches a kernel's row reports (default: the FW
 # walks app, phase 3).
+CIRCUIT_PATHS = ('circuit_fsim', 'circuit_qasm', 'circuit_qaoa', 'sampler')
 MAIN_PATHS = {'gather_gbn': ('fw_app', 'batched_fw_app', 'batched_im_app',
-                             'fw_product', 'fw_throughput', 'fw_tempering'),
+                             'fw_product', 'fw_throughput', 'fw_tempering',
+                             *CIRCUIT_PATHS),
               'scatter_rows_inplace': ('fw_app', 'batched_fw_app',
                                        'batched_im_app', 'fw_product',
-                                       'fw_throughput', 'fw_tempering'),
+                                       'fw_throughput', 'fw_tempering',
+                                       *CIRCUIT_PATHS),
               'walker_im': ('im_app',), 'walker_fw': ('fw_walker_app',),
               'inv_ids': ('bench',), 'scatter_rows_gbn': ('bench',),
               'probe_loop': ('bench',), 'probe_take': ('bench',)}
@@ -1701,6 +1732,318 @@ def phase_exchange_kick_card_vs_cpu(torch, runner):
         f'({time.perf_counter() - t0:.2f} s)')
 
 
+# The circuit front door (phases 19-21): Sycamore-53 m=20 as an fSim gate
+# list and as QASM text (cz), QAOA-26 p=4 at fuse=3 (benchmarks/run.py's
+# set-up); the sampler's checks on QAOA in its CX form.
+CIRCUIT_M, QAOA_N, QAOA_P = 20, 26, 4
+# Optimizer options of the sampler's prefix networks: the CLI's
+# `sample` defaults for the timed run; 8 sweeps for the checks, whose
+# amplitudes do not depend on the path's quality.
+SAMPLER_OPT = dict(betas=(0, 50), n_steps=50, n_runs=1)
+CHECK_OPT = dict(SAMPLER_OPT, n_steps=8)
+# Phase 21's timed run on QAOA-26: depth cut from QAOA_P to fit the
+# phase's budget (the only cut), and the samples it times one by one.
+SAMPLER_P, SAMPLER_SAMPLES = 1, 20
+
+
+def _hyper_count(tn):
+    """Indices of ``tn`` shared by more than two tensors."""
+    from tnco_tpu_torch.utils.tn import get_hyper_count
+    return sum(c > 1 for c in get_hyper_count(tn.ts_inds).values())
+
+
+def _check_recorded(torch, seen, what):
+    """K1 and K3 against their plain versions, bitwise, by every route,
+    at each distinct shape ``seen`` recorded on the main path
+    (``kernel_cases.recorded_cases``), on fresh inputs."""
+    from tnco_tpu_torch.testing import kernel_cases as kc
+
+    if not seen:
+        fail(f'{what}: no K1 or K3 launch was recorded')
+    dev = torch.device('cuda')
+    t0 = time.perf_counter()
+    for case, dtype in sorted(seen, key=repr):
+        check = kc.check_gather if isinstance(case, kc.GatherCase) else \
+            kc.check_scatter
+        bad = check(case, dtype, dev)
+        torch.cuda.synchronize()
+        if bad:
+            fail(f'{what}: {type(case).__name__} {case.name} ({dtype}) != '
+                 f'plain by {bad}')
+    n_k1 = sum(isinstance(c, kc.GatherCase) for c, _ in seen)
+    ns = sorted({c.n for c, _ in seen})
+    log(f'{what}: K1 and K3 == plain bitwise at the {n_k1} K1 and '
+        f'{len(seen) - n_k1} K3 shapes the path launched (N from {ns[0]} '
+        f'to {ns[-1]}; {time.perf_counter() - t0:.2f} s)')
+
+
+def phase_circuits(torch):
+    """Phase 19: Sycamore-53 m=20 (fSim gate list, QASM text) and
+    QAOA-26 p=4 through ``load_tn`` and ``Optimizer`` on the card."""
+    from tnco_tpu_torch.app import Optimizer, load_tn
+    from tnco_tpu_torch.app.finite_width import sa as fw_sa
+    from tnco_tpu_torch.app.infinite_memory import sa as im_sa
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tnco_tpu_torch.testing.kernel_cases import recorded_cases
+    from tnco_tpu_torch.testing.networks import (qaoa_circuit,
+                                                 sycamore_circuit,
+                                                 sycamore_qasm)
+
+    cases = (('circuit_fsim', f'Sycamore-53 m={CIRCUIT_M} fSim',
+              sycamore_circuit(CIRCUIT_M, 0), {}, 30.0),
+             ('circuit_qasm', f'Sycamore-53 m={CIRCUIT_M} QASM (cz)',
+              sycamore_qasm(CIRCUIT_M, 0), {}, None),
+             ('circuit_qaoa', f'QAOA-{QAOA_N} p={QAOA_P}',
+              qaoa_circuit(QAOA_N, QAOA_P, 0),
+              dict(fuse=3, simplify_circuit=False), 30.0))
+    counts = {}
+    for key, what, circuit, load_kw, max_width in cases:
+        fw = max_width is not None
+        t0 = time.perf_counter()
+        loaded = load_tn(circuit, seed=0, **load_kw)
+        load_s = time.perf_counter() - t0
+        log(f'{what}: load_tn {load_s:.3f} s; {loaded.n_tensors} tensors, '
+            f'{_hyper_count(loaded)} hyper-indices, N='
+            f'{2 * loaded.n_tensors - 1} W={-(-loaded.n_inds // 32)}')
+        runners, restore = (_record_runners(fw_sa, 'ReplicaRunnerFW') if fw
+                            else _record_runners(im_sa, 'ReplicaRunner'))
+        try:
+            opt = (Optimizer(max_width=max_width, seed=0) if fw else
+                   Optimizer(seed=0))
+            with recorded_cases() as seen:
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                tn_out, res = opt.optimize(circuit, betas=(0, 60),
+                                           n_steps=BATCHED_APP_STEPS,
+                                           n_runs=B, **load_kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts[key] = launch_counts()
+        finally:
+            restore()
+        (runner,) = runners
+        log(f'{what}: optimize {B} runs x {BATCHED_APP_STEPS} sweeps in '
+            f'{wall:.2f} s incl. load (runner set-up + anneal '
+            f'{res[0].runtime_s:.2f} s); engine {runner.engine!r}; '
+            f'launches {counts[key]}')
+        if runner.engine != 'batched':
+            fail(f"{what}: 'auto' picked {runner.engine!r}, not 'batched'")
+        if not all(counts[key][k] > 0 for k in BATCHED_KERNELS):
+            fail(f'{what}: a kernel of the path was never launched')
+        _check_recorded(torch, seen, what)
+        if tn_out.ts_inds != loaded.ts_inds:
+            fail(f'{what}: optimize loaded another network')
+        if fw:
+            for r in res:
+                _audit_result(r, tn_out, max_width)
+            worst = _audit_fw_runner(runner, max_width, what)
+            log(f'{what}: {len(res)} results audited; best log2 cost '
+                f'{math.log2(int(res[0].cost)):.4f}; |device - exact| <= '
+                f'{worst:.2e}')
+        else:
+            _audit_im_results(res, tn_out, runner, what)
+    return counts
+
+
+def _tuples(x):
+    """JSON lists back to the tuples they were."""
+    return tuple(_tuples(y) for y in x) if isinstance(x, list) else x
+
+
+def _run_cli(*args):
+    """``python3 -m tnco_tpu_torch.app.cli *args`` from the repository
+    root: ``(parsed JSON of its output, wall seconds)``; fails unless it
+    exits 0."""
+    import os
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-m', 'tnco_tpu_torch.app.cli',
+                           *args], cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f'cli {args[0]} exited {proc.returncode}: '
+             f'{proc.stderr[-2000:]}')
+    return json.loads(proc.stdout), wall
+
+
+def phase_cli(torch):
+    """Phase 20: the CLI as a subprocess: ``optimize`` on the Sycamore
+    QASM file (FW, max_width 30) with its best result audited, and
+    ``sample`` on a 3-qubit GHZ circuit."""
+    import os
+    from types import SimpleNamespace
+
+    from tnco_tpu_torch.app import load_tn
+    from tnco_tpu_torch.testing.networks import sycamore_qasm
+
+    del torch
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(root, 'build', 'smoke')
+    os.makedirs(out_dir, exist_ok=True)
+    qasm = os.path.join(out_dir, f'sycamore_m{CIRCUIT_M}.qasm')
+    with open(qasm, 'w') as f:
+        f.write(sycamore_qasm(CIRCUIT_M, 0))
+    out, wall = _run_cli('optimize', qasm, '--max-width', '30', '--betas',
+                         '(0, 60)', '--n-steps', '32', '--n-runs', str(B),
+                         '--seed', '0')
+    tn = load_tn(qasm, seed=0)
+    if out['tn'] != json.loads(tn.to_json()):
+        fail('cli optimize: its network differs from load_tn of the file')
+    best = out['res'][0]
+    if len(out['res']) != B or \
+            [Decimal(r['cost']) for r in out['res']] != sorted(
+                Decimal(r['cost']) for r in out['res']):
+        fail('cli optimize: results missing or not sorted by cost')
+    _audit_result(SimpleNamespace(
+        path=[tuple(p) for p in best['path']],
+        slices=frozenset(_tuples(x) for x in best['slices']),
+        cost=Decimal(best['cost']),
+        disconnected_costs=[int(Decimal(best['cost']))]), tn, 30.0)
+    log(f'cli optimize (Sycamore m={CIRCUIT_M} QASM, max_width 30, {B} runs '
+        f'x 32 sweeps): exit 0 in {wall:.2f} s wall incl. interpreter start '
+        f'and kernel load; best log2 cost '
+        f'{math.log2(int(Decimal(best["cost"]))):.4f}, '
+        f'{len(best["slices"])} slices, audited')
+    ghz = os.path.join(out_dir, 'ghz3.qasm')
+    with open(ghz, 'w') as f:
+        f.write('OPENQASM 2.0;\ninclude "qelib1.inc";\nqreg q[3];\n'
+                'h q[0];\ncx q[0],q[1];\ncx q[1],q[2];\n')
+    out, wall = _run_cli('sample', ghz, '--n-samples', '40', '--seed', '0')
+    if not set(out['hits']) <= {'000', '111'} or \
+            abs(sum(out['hits'].values()) - 1) > 1e-9:
+        fail(f'cli sample GHZ: hits {out["hits"]}')
+    log(f'cli sample (GHZ-3, 40 samples): exit 0 in {wall:.2f} s; hits '
+        f'{out["hits"]}')
+
+
+def _widest(tree):
+    """The largest log2 width of a node of ``tree``."""
+    import numpy as np
+
+    n = len(tree.inds_order)
+    bits = np.unpackbits(tree.inds_array.view(np.uint8), axis=1,
+                         bitorder='little')[:, :n].astype(bool)
+    return float((bits @ tree.log2_dims_array).max())
+
+
+def phase_sampler(torch):
+    """Phase 21: the BGL ``Sampler`` on the card: visited probabilities
+    against a statevector (QAOA-10, p=2), sampled frequencies against it
+    (QAOA-4, p=2, 1000 samples), the sliced amplitudes against the
+    unsliced ones, and a timed run on QAOA-26 at depth SAMPLER_P; then K1
+    and K3 at every shape the phase launched them."""
+    from tnco_tpu_torch.testing.kernel_cases import recorded_cases
+
+    with recorded_cases() as seen:
+        counts = _sampler_runs(torch)
+    _check_recorded(torch, seen, 'sampler')
+    return counts
+
+
+def _sampler_runs(torch):
+    """The runs of phase 21; returns the timed run's launch counts."""
+    import statistics
+
+    from tnco_tpu_torch.app.circuit import Sampler
+    from tnco_tpu_torch.ctree import ContractionTree
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tnco_tpu_torch.testing import sampling as ts
+    from tnco_tpu_torch.testing.networks import qaoa_sampling_circuit
+
+    def state_of(sampler, gates, opt=CHECK_OPT):
+        t0 = time.perf_counter()
+        state = sampler.sample(gates, return_intermediate_state_only=True,
+                               **opt)
+        torch.cuda.synchronize()
+        return state, time.perf_counter() - t0
+
+    def n_prefix(state):
+        return sum(e[0] is not None for e in state)
+
+    # Visited probabilities: QAOA-10, p=2.
+    gates = qaoa_sampling_circuit(10, 2, 0)
+    order = tuple(range(10))
+    state, secs = state_of(Sampler(seed=0), gates)
+    with ts.recorded_amplitudes(state) as unsliced:
+        Sampler(seed=0).sample(state, n_samples=20, qubit_order=order)
+    err = ts.visited_probability_error(unsliced, gates, order)
+    log(f'sampler QAOA-10 p=2: state of {n_prefix(state)} prefix networks '
+        f'in {secs:.2f} s; {len(unsliced)} visited probabilities within '
+        f'{err:.2e} of the statevector')
+    if err > 1e-10:
+        fail(f'sampler: visited probabilities differ by {err}')
+
+    # Sliced against unsliced, same circuit and sampler seed: a cap two
+    # under the widest unsliced contraction.
+    widest = max(_widest(ContractionTree(e[1].path, e[0].ts_inds, e[0].dims,
+                                         output_inds=()))
+                 for e in state if e[0] is not None)
+    cap = widest - 2
+    sliced_state, secs = state_of(Sampler(seed=0, max_width=cap), gates)
+    n_sliced = sum(bool(e[1].slices) for e in sliced_state
+                   if e[0] is not None)
+    if not n_sliced:
+        fail(f'sampler: max_width {cap} forced no slice')
+    with ts.recorded_amplitudes(sliced_state) as sliced:
+        Sampler(seed=0, max_width=cap).sample(sliced_state, n_samples=2,
+                                              qubit_order=order)
+    if [r[:2] for r in sliced] != [r[:2] for r in unsliced[:len(sliced)]]:
+        fail('sampler: the sliced run visited other bitstrings')
+    rel = max(abs(a[2] - b[2]) / max(abs(b[2]), 1e-300)
+              for a, b in zip(sliced, unsliced))
+    log(f'sampler QAOA-10 p=2, max_width {cap:g} (widest unsliced '
+        f'{widest:g}): {n_sliced} sliced prefix networks, state in '
+        f'{secs:.2f} s; {len(sliced)} amplitudes within {rel:.2e} relative '
+        'of the unsliced ones')
+    if rel > 1e-10:
+        fail(f'sampler: sliced amplitudes differ by {rel} relative')
+
+    # Distribution: QAOA-4, p=2, 1000 samples.
+    gates = qaoa_sampling_circuit(4, 2, 0)
+    order = tuple(range(4))
+    sampler = Sampler(seed=1)
+    state, _ = state_of(sampler, gates)
+    t0 = time.perf_counter()
+    hits, _ = sampler.sample(state, n_samples=1000, qubit_order=order,
+                             normalize=False)
+    tv = ts.tv_distance(hits, order, gates)
+    log(f'sampler QAOA-4 p=2: 1000 samples in '
+        f'{time.perf_counter() - t0:.2f} s, total variation {tv:.4f} from '
+        'the statevector (bound 0.15, about 0.05 expected)')
+    if tv > 0.15:
+        fail(f'sampler: total variation {tv}')
+
+    # Timed: QAOA-26 at depth SAMPLER_P.
+    gates = qaoa_sampling_circuit(QAOA_N, SAMPLER_P, 0)
+    sampler = Sampler(seed=2)
+    reset_launch_counts()
+    state, secs = state_of(sampler, gates, SAMPLER_OPT)
+    counts = launch_counts()
+    # One sample a call, each timed: the spread of the per-sample time.
+    secs_each, n_hits = [], 0
+    for _ in range(SAMPLER_SAMPLES):
+        t0 = time.perf_counter()
+        hits, _ = sampler.sample(state, n_samples=1, normalize=False)
+        secs_each.append(time.perf_counter() - t0)
+        n_hits += sum(hits.values())
+    log(f'sampler QAOA-{QAOA_N} p={SAMPLER_P} (cut from p={QAOA_P}): '
+        f'{len(gates)} gates, state of {n_prefix(state)} prefix networks '
+        f'optimized on the card in {secs:.2f} s '
+        f'({secs / n_prefix(state):.3f} s each); s per sample over '
+        f'{SAMPLER_SAMPLES} samples (host numpy contractions): median '
+        f'{statistics.median(secs_each):.3f}, min {min(secs_each):.3f}, '
+        f'max {max(secs_each):.3f}, mean '
+        f'{sum(secs_each) / SAMPLER_SAMPLES:.3f}; launches {counts}')
+    if not all(counts[k] > 0 for k in BATCHED_KERNELS):
+        fail('sampler: a kernel of the path was never launched')
+    if n_hits != SAMPLER_SAMPLES:
+        fail(f'sampler: {n_hits} hits in {SAMPLER_SAMPLES} samples')
+    return counts
+
+
 def _time_ms(torch, fn, reps=50, rounds=11):
     """Device ms of one call of ``fn``: ``reps`` calls captured in one
     CUDA graph, replayed between two events, median over ``rounds``.
@@ -2304,6 +2647,14 @@ def main() -> int:
         counts['fw_throughput'] = phase_throughput_point(torch, card,
                                                          fw_trees)
         counts['fw_tempering'] = phase_tempering(torch, card, product)
+        t0 = time.perf_counter()
+        counts.update(phase_circuits(torch))
+        t1 = time.perf_counter()
+        phase_cli(torch)
+        t2 = time.perf_counter()
+        counts['sampler'] = phase_sampler(torch)
+        log(f'phases 19 / 20 / 21: {t1 - t0:.1f} / {t2 - t1:.1f} / '
+            f'{time.perf_counter() - t2:.1f} s')
         rows = phase_times(torch, counts, im_runner, fw_runner)
         phase_batched_launches(torch, card, (fw_prof, im_prof))
     finally:

@@ -156,8 +156,15 @@ def test_optimizer_device_rule_and_unported(monkeypatch):
         ReplicaRunnerFW([], [], cmodel=SimpleCostModel(max_width=4))
     from tnco_tpu_torch.app.infinite_memory.sa import Optimizer as IMOpt
     assert isinstance(Optimizer(device='cpu'), IMOpt)
-    with pytest.raises(NotImplementedError, match='QASM'):
-        load_tn('OPENQASM 2.0;\nqreg q[1];')
+    # QASM loads since the circuit front door was ported; the network
+    # equals the JAX package's.
+    qasm = 'OPENQASM 2.0;\nqreg q[1];\nh q[0];\nt q[0];\n'
+    for kw in (dict(), dict(fuse=0, final_state=None)):
+        got, want = load_tn(qasm, **kw), japp.load_tn(qasm, **kw)
+        assert got.ts_inds == want.ts_inds
+        assert got.output_inds == want.output_inds
+        for a, b in zip(got.arrays, want.arrays):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     tn = load_tn([[2, 'a', 'b'], [2, 'b', 'c']], fuse=0)
     assert tn.n_tensors == 3
 

@@ -174,6 +174,29 @@ def test_plain_versions_do_not_count_launches():
                                'probe_take': 0}
 
 
+def test_recorded_cases(monkeypatch):
+    """``recorded_cases`` keeps one case per distinct launch shape, passes
+    each launch on, and puts the launchers back."""
+    calls = []
+    monkeypatch.setattr(kg, '_launch', lambda *a: calls.append('K1'))
+    monkeypatch.setattr(ks, '_launch_scatter',
+                        lambda *a: calls.append('K3'))
+    vals = torch.zeros((7, 3, 5), dtype=torch.int32)
+    ids = torch.zeros((3, 2), dtype=torch.int32)
+    with kc.recorded_cases() as seen:
+        for _ in range(2):
+            kg._launch(vals, ids, torch.empty((4, 3, 2)), 1, 'sparse')
+        kg._launch(vals.float(), ids, torch.empty((7, 3, 2)), 0, 'row')
+        ks._launch_scatter(vals, ids[:, :1], None, 2, 3, 'smem')
+    assert calls == ['K1', 'K1', 'K1', 'K3']
+    assert kg._launch.__name__ == '<lambda>'
+    assert ks._launch_scatter.__name__ == '<lambda>'
+    assert {(c[1:], d) for c, d in seen} == {
+        ((7, 3, 5, (1, 5), 2, 'sparse'), torch.int32),
+        ((7, 3, 5, (0, 7), 2, 'row'), torch.float32),
+        ((7, 3, 5, (2, 3), 1, False, 'smem'), torch.int32)}
+
+
 @pytest.mark.parametrize('case', ['meta', 'ids_dtype', 'rows', 'planes',
                                   'upd_shape', 'itemsize'])
 def test_wrappers_reject_bad_inputs(case):

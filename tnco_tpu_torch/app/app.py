@@ -1,9 +1,6 @@
 """Application logic: ingestion, results, optimizer factory (the port's
 copy of ``tnco_tpu/app/app.py``).
 
-QASM strings, gate lists and cirq/qiskit circuits raise until the
-circuit utilities are ported (ROADMAP queue 1, item 14).
-
 Reference surface: tnco/app/app.py — ``load_file`` (compressed/json/text
 autodetect, :97-151), ``load_tn`` universal ingester (:154-570),
 ``dump_results`` (:573-712), ``BaseContractionResults`` (:48-94),
@@ -115,12 +112,6 @@ def load_file(filename: str) -> Any:
         return load(file.read())
 
 
-def _circuits_not_ported(what: str):
-    return NotImplementedError(
-        f"{what} are not supported by tnco_tpu_torch yet: utils/qasm and "
-        "utils/circuit are not ported (ROADMAP queue 1, item 14).")
-
-
 def load_tn(obj: Any,
             *,
             fuse: float = 4,
@@ -207,7 +198,8 @@ def load_tn(obj: Any,
             (ln.strip() for ln in obj.splitlines()
              if ln.strip() and not ln.strip().startswith('//')), '')
         if first_line.upper().startswith('OPENQASM'):
-            raise _circuits_not_ported('QASM strings')
+            from tnco_tpu_torch.utils.qasm import parse_qasm
+            return load_tn(parse_qasm(obj), **options)
 
         # Index-map text block?
         if obj.strip() and not any(
@@ -237,7 +229,9 @@ def load_tn(obj: Any,
 
     if isinstance(obj, dict):
         if 'cirq_type' in obj:
-            raise _circuits_not_ported('cirq JSON')
+            from cirq import read_json
+            return load_tn(read_json(io.StringIO(json.dumps(obj))),
+                           **options)
 
     # List of index rows?
     if (is_random_access(obj) and len(obj) and all(
@@ -255,12 +249,35 @@ def load_tn(obj: Any,
                 output_inds=output_inds,
                 sparse_inds=sparse_inds), **options)
 
-    # Lists of gates and third-party circuits need the circuit utilities.
+    # List of gates?
     if is_random_access(obj) and len(obj) and all(is_gate(x) for x in obj):
-        raise _circuits_not_ported('Lists of gates')
+        from tnco_tpu_torch.utils.circuit import load
+
+        arrays, ts_inds, output_inds = load(obj,
+                                            initial_state=initial_state,
+                                            final_state=final_state,
+                                            simplify=simplify_circuit,
+                                            decompose_hyper_inds=False,
+                                            fuse=False,
+                                            atol=atol,
+                                            dtype=dtype,
+                                            backend=backend,
+                                            seed=seed,
+                                            verbose=verbose)
+        return load_tn(
+            TensorNetwork(
+                (Tensor(xs, array=a) for xs, a in zip(ts_inds, arrays)),
+                output_inds=output_inds), **options)
+
+    # Third-party circuits (gated imports)
     mod = type(obj).__module__
-    if mod.startswith(('cirq.', 'qiskit.')):
-        raise _circuits_not_ported('cirq/qiskit circuits')
+    if mod.startswith('cirq.') and type(obj).__name__ in ('Circuit',
+                                                          'FrozenCircuit'):
+        from tnco_tpu_torch.utils.circuit import cirq_to_gates
+        return load_tn(cirq_to_gates(obj), **options)
+    if mod.startswith('qiskit.') and type(obj).__name__ == 'QuantumCircuit':
+        from tnco_tpu_torch.utils.circuit import qiskit_to_gates
+        return load_tn(qiskit_to_gates(obj), **options)
 
     raise TypeError("'obj' is not recognized.")
 

@@ -7,8 +7,12 @@ width, ``SABatchFW``) take the JAX batch's fields as numpy arrays
 (``uint32`` words become ``int32`` bit patterns) and build the port's
 batch on a device; :func:`batch_to_numpy` and :func:`batch_fw_to_numpy`
 go back (``int32`` words of the bitset and key fields return as
-``uint32``).
+``uint32``).  :func:`sampling_state_from_numpy` does the same for the
+sampler's intermediate state, so that both sampling loops run on the
+same optimized paths.
 """
+
+from decimal import Decimal
 
 import numpy as np
 import torch
@@ -17,7 +21,7 @@ from tnco_tpu_torch.kernels.sa_batched import SABatch
 from tnco_tpu_torch.kernels.sa_finite_batched import SABatchFW
 
 __all__ = ['batch_from_numpy', 'batch_to_numpy', 'batch_fw_from_numpy',
-           'batch_fw_to_numpy']
+           'batch_fw_to_numpy', 'sampling_state_from_numpy']
 
 # Fields that hold uint32 words in the JAX package.
 _UINT32_FIELDS = ('inds', 'hyper', 'slices', 'min_inds', 'min_slices',
@@ -62,3 +66,43 @@ def batch_fw_from_numpy(fields: dict, device) -> SABatchFW:
 def batch_fw_to_numpy(batch: SABatchFW) -> dict:
     """:class:`SABatchFW` -> ``{name: np.ndarray}`` in the JAX layout."""
     return _to_numpy(batch)
+
+
+def sampling_state_from_numpy(data, qubits):
+    """Plain tuples of a JAX ``SamplingIntermediateState`` -> the port's.
+
+    ``data`` holds one entry per circuit operation: ``(None, perm,
+    op_qubits)`` for a classical operation (its 0/1 permutation matrix),
+    else ``(ts_inds, arrays, cost, path, slices, output_qubits,
+    op_qubits)``: the prefix network's tensor indices (projectors last),
+    its numpy arrays (without the projectors), the best result's exact
+    cost, path and sliced indices (None for an infinite-memory result).
+    The results carry no per-component fields, which the sampling loop
+    does not read.
+    """
+    from tnco_tpu_torch.app.circuit import SamplingIntermediateState
+    from tnco_tpu_torch.app.finite_width.sa import \
+        ContractionResults as FWResults
+    from tnco_tpu_torch.app.infinite_memory.sa import \
+        ContractionResults as IMResults
+    from tnco_tpu_torch.app.tn import Tensor, TensorNetwork
+
+    entries = []
+    for entry in data:
+        if entry[0] is None:
+            _, perm, op_qubits = entry
+            entries.append((None, None, np.asarray(perm), None,
+                            tuple(op_qubits)))
+            continue
+        ts_inds, arrays, cost, path, slices, output_qubits, op_qubits = entry
+        tn = TensorNetwork([Tensor(xs, dims=2) for xs in ts_inds],
+                           output_inds=())
+        common = dict(cost=Decimal(cost), runtime_s=0.0,
+                      path=[tuple(p) for p in path], disconnected_costs=[],
+                      disconnected_paths=[])
+        result = (IMResults(**common) if slices is None else
+                  FWResults(**common, disconnected_slices=[],
+                            slices=frozenset(slices)))
+        entries.append((tn, result, [np.asarray(a) for a in arrays],
+                        tuple(output_qubits), tuple(op_qubits)))
+    return SamplingIntermediateState(entries, qubits)

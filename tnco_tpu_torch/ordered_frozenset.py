@@ -113,6 +113,12 @@ class OrderedFrozenSet(Set, Hashable):
             out = out & OrderedFrozenSet(other)
         return out
 
+    def difference(self, *others: Iterable[Any]) -> 'OrderedFrozenSet':
+        out = self
+        for other in others:
+            out = out - OrderedFrozenSet(other)
+        return out
+
     def issubset(self, other: Iterable[Any]) -> bool:
         other = frozenset(other)
         return all(x in other for x in self)

@@ -10,6 +10,7 @@ and in-range duplicates, and float32 vals hold NaN payloads, infinities
 and -0.
 """
 
+from contextlib import contextmanager
 from typing import NamedTuple
 
 import numpy as np
@@ -23,7 +24,7 @@ __all__ = ['GatherCase', 'ScatterCase', 'InvCase', 'ProbeCase',
            'GATHER_CASES', 'SCATTER_CASES', 'INV_CASES', 'PROBE_CASES',
            'gather_routes', 'scatter_routes', 'loop_routes',
            'check_gather', 'check_scatter', 'check_inv', 'check_probe',
-           'probe_ids']
+           'probe_ids', 'recorded_cases']
 
 # Sycamore m=20 at B=64, P=128: W=64 index planes, N padded to 3328; the
 # walks engine's packed state has F = 2W+5 planes (index, union, c0, c1,
@@ -261,6 +262,41 @@ def _inv_ids(r, case):
         ids[:, 2] = -2**31
         ids[:, 3] = 2**31 - 1
     return torch.from_numpy(ids)
+
+
+@contextmanager
+def recorded_cases():
+    """Records the shape of every K1 and K3 launch made inside the block.
+
+    Yields a set that fills with one ``(case, dtype)`` pair for each
+    distinct shape (a :class:`GatherCase` or :class:`ScatterCase` with the
+    launch's planes, Q and route), for :func:`check_gather` and
+    :func:`check_scatter` to hold the kernels at the shapes a path gave
+    them.  The launches themselves are unchanged.
+    """
+    seen = set()
+    launch, launch_scatter = kg._launch, ks._launch_scatter
+
+    def gather(vals, ids, out, lo, route):
+        g, b, n = vals.shape
+        planes, q = (lo, lo + out.shape[0]), ids.shape[1]
+        seen.add((GatherCase(f'G={g} B={b} N={n} planes={planes} Q={q}',
+                             g, b, n, planes, q, route), vals.dtype))
+        launch(vals, ids, out, lo, route)
+
+    def scatter(vals, ids, upd, lo, hi, route):
+        g, b, n = vals.shape
+        q = ids.shape[1]
+        seen.add((ScatterCase(f'G={g} B={b} N={n} planes={(lo, hi)} Q={q}',
+                              g, b, n, (lo, hi), q, False, route),
+                  vals.dtype))
+        launch_scatter(vals, ids, upd, lo, hi, route)
+
+    kg._launch, ks._launch_scatter = gather, scatter
+    try:
+        yield seen
+    finally:
+        kg._launch, ks._launch_scatter = launch, launch_scatter
 
 
 def check_inv(case, device, seed=0):

@@ -1,22 +1,27 @@
 """Array-level tensor utilities (numpy; the port's copy of
-``tnco_tpu/utils/tensor.py`` for the functions the FW path uses).
+``tnco_tpu/utils/tensor.py``).
 
 Backend dispatch is numpy by default and torch on request; there is no
-jax branch.  Diagonal detection, recursive hyper-index decomposition and
-pairwise ``tensordot`` with hyper (batched-diagonal) semantics follow the
-reference toolbox (tnco/utils/tensor.py:34-257).
+jax branch.  Diagonal detection, recursive hyper-index decomposition,
+einsum subscripts, pairwise ``tensordot`` with hyper (batched-diagonal)
+semantics and truncated SVD follow the reference toolbox
+(tnco/utils/tensor.py:34-360).
 """
 
 from collections.abc import Iterable
 import functools as fts
 import itertools as its
 import operator as op
+from random import Random
+from string import ascii_letters
+from typing import Any
 
 import numpy as np
 
 from tnco_tpu_torch.ordered_frozenset import OrderedFrozenSet
 
-__all__ = ['decompose_hyper_inds', 'tensordot', 'is_diagonal', 'asarray']
+__all__ = ['decompose_hyper_inds', 'get_einsum_subscripts', 'tensordot',
+           'svd', 'is_diagonal', 'asarray']
 
 
 def asarray(array, like=None, dtype=None):
@@ -101,6 +106,23 @@ def decompose_hyper_inds(array,
                                 _hyper_inds=_hyper_inds)
 
 
+def get_einsum_subscripts(inds_a, inds_b, output_inds, /) -> str:
+    """Einsum subscripts for ``inds_a, inds_b -> output_inds``.
+
+    Reference: tnco/utils/tensor.py:146-173.
+
+    Examples:
+        >>> from tnco_tpu_torch.utils.tensor import get_einsum_subscripts
+        >>> get_einsum_subscripts(['i', 'j'], ['j', 'k'], ['i', 'k'])
+        'ab,bc->ac'
+    """
+    uniq = dict.fromkeys(its.chain(inds_a, inds_b, output_inds))
+    cntr = dict(zip(uniq, ascii_letters))
+    return (''.join(cntr[x] for x in inds_a) + ',' +
+            ''.join(cntr[x] for x in inds_b) + '->' +
+            ''.join(cntr[x] for x in output_inds))
+
+
 def tensordot(x, y, /, *, hyper_inds=None, return_inds_only: bool = False):
     """Contracts two labeled tensors with hyper-index semantics.
 
@@ -143,3 +165,54 @@ def tensordot(x, y, /, *, hyper_inds=None, return_inds_only: bool = False):
 
     az = (ax @ ay).reshape(tuple(dims[i] for i in zs))
     return az, tuple(zs)
+
+
+def svd(array,
+        inds: Iterable,
+        left_inds: Iterable,
+        *,
+        svd_index_name: Any | None = None,
+        atol: float = 1e-8,
+        seed: int | None = None):
+    """Truncated SVD of a labeled tensor: returns [(U, .), (s, .), (Vh, .)].
+
+    Reference: tnco/utils/tensor.py:260-360.
+    """
+    array = np.asarray(array)
+    inds = tuple(inds)
+    left_inds = tuple(left_inds)
+
+    if array.ndim != len(inds):
+        raise ValueError("Wrong number of indices.")
+    if not frozenset(left_inds).issubset(inds):
+        raise ValueError("'left_inds' must be a subset of 'inds'.")
+    if svd_index_name in inds:
+        raise ValueError("'svd_index_name' must be different from 'inds'.")
+
+    if svd_index_name is None:
+        rng = Random(seed)
+        while (svd_index_name := ''.join(rng.choices(ascii_letters,
+                                                     k=10))) in inds:
+            pass
+
+    if len(left_inds) in (0, array.ndim):
+        left_inds = inds if len(left_inds) == 0 else left_inds
+        return [(array.transpose(tuple(inds.index(x) for x in left_inds)),
+                 left_inds)]
+
+    dims = dict(zip(inds, array.shape))
+    right_inds = tuple(x for x in inds if x not in left_inds)
+    left_size = fts.reduce(op.mul, (dims[x] for x in left_inds), 1)
+
+    array = array.transpose(tuple(
+        inds.index(x) for x in left_inds + right_inds)).reshape(
+            (left_size, -1))
+
+    u, s, vh = np.linalg.svd(array, full_matrices=False)
+    pos = s >= atol
+    u, s, vh = u[:, pos], s[pos], vh[pos]
+
+    u = u.reshape(tuple(dims[x] for x in left_inds) + (-1,))
+    vh = vh.reshape((-1,) + tuple(dims[x] for x in right_inds))
+    return ((u, (*left_inds, svd_index_name)), (s, (svd_index_name,)),
+            (vh, (svd_index_name, *right_inds)))

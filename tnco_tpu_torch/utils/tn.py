@@ -2,10 +2,11 @@
 ``tnco_tpu/utils/tn.py``).
 
 Hyper-counts, connected components, randomized greedy initial paths,
-path merging, the index-map text format, tensor fusion and a contraction
-executor with hyper-index semantics (reference tnco/utils/tn.py:39-1070).
-The greedy paths come from the port's own copy of opt_einsum's greedy
-(:mod:`tnco_tpu_torch.utils.greedy`), so no ``opt_einsum`` is needed.
+path merge/split, the index-map text format, tensor fusion, and a
+contraction executor with hyper-index semantics, also over slices
+(reference tnco/utils/tn.py:39-1070).  The greedy paths come from the
+port's own copy of opt_einsum's greedy (:mod:`tnco_tpu_torch.utils.greedy`),
+so no ``opt_einsum`` is needed.
 """
 
 from bisect import bisect_left
@@ -23,7 +24,8 @@ from tnco_tpu_torch.utils.greedy import greedy_path
 __all__ = [
     'get_random_contraction_path', 'get_symbol', 'get_einsum_subscripts',
     'read_inds', 'fuse', 'decompose_hyper_inds', 'merge_contraction_paths',
-    'contract', 'get_hyper_count',
+    'split_contraction_path', 'contract', 'contract_sliced',
+    'get_hyper_count',
     'get_connected_components'
 ]
 
@@ -224,6 +226,62 @@ def merge_contraction_paths(n_tensors: int,
     if autocomplete:
         merged_path += [(0, 1)] * (len(merged_pos) - 1)
     return merged_path
+
+
+def split_contraction_path(n_tensors: int,
+                           path,
+                           return_connected_components: bool = False,
+                           normalize_paths: bool = False,
+                           verbose: int = 0):
+    """Splits a linear path into per-connected-component paths.
+
+    Reference: tnco/utils/tn.py:404-517.
+    """
+    del verbose
+    path = list(path)
+
+    tensors = list(range(n_tensors))
+    connectivity = [[] for _ in range(n_tensors + len(path) + 1)]
+    n_intermediate = n_tensors
+    for i, (x, y) in enumerate(map(sorted, path)):
+        n_intermediate += 1
+        t_y = tensors.pop(y)
+        t_x = tensors.pop(x)
+        connectivity[t_x].append(i)
+        connectivity[t_y].append(i)
+        connectivity[n_intermediate].append(i)
+        tensors.append(n_intermediate)
+
+    cc = [
+        c for c in get_connected_components(connectivity)
+        if list(c) != [n_tensors]
+    ]
+
+    tensors = list(range(n_tensors))
+    cc_tensors = ([sorted(c) for c in cc] if normalize_paths else
+                  [list(range(n_tensors)) for _ in cc])
+    paths = [[] for _ in cc]
+
+    n_intermediate = n_tensors
+    for x, y in map(sorted, path):
+        n_intermediate += 1
+        t_x, t_y = tensors[x], tensors[y]
+        cc_loc = next(i for i, s in enumerate(cc) if t_x in s)
+        assert t_y in cc[cc_loc]
+        tensors.pop(y)
+        tensors.pop(x)
+        tensors.append(n_intermediate)
+        lx, ly = sorted(
+            (cc_tensors[cc_loc].index(t_x), cc_tensors[cc_loc].index(t_y)))
+        paths[cc_loc].append((lx, ly))
+        cc_tensors[cc_loc].pop(ly)
+        cc_tensors[cc_loc].pop(lx)
+        cc_tensors[cc_loc].append(n_intermediate)
+
+    if return_connected_components:
+        cc = [frozenset(t for t in s if t < n_tensors) for s in cc]
+        return paths, cc
+    return [p for p in paths if p]
 
 
 def read_inds(inds_map,
@@ -526,3 +584,74 @@ def contract(path,
     if arrays is None:
         return ts_inds, output_inds
     return ts_inds, output_inds, arrays
+
+
+def contract_sliced(path,
+                    ts_inds,
+                    slices,
+                    output_inds=(),
+                    arrays=None,
+                    *,
+                    backend=None):
+    """Executes a SLICED contraction: sum over every assignment of the
+    sliced indices of the projected network contracted along ``path``.
+
+    This is the executable meaning of the finite-width cost model
+    (every contraction repeats per slice assignment,
+    include/tnco/optimize/finite_width/cost_model/simple.hpp:139-144):
+    for each value of the sliced indices, every tensor containing one
+    is projected onto that value, the projected network is contracted
+    along the SAME path, and the scalar/array results are summed.
+    The reference never executes sliced contractions (its finite-width
+    sampler raises NotImplementedError, tnco/app/circuit/
+    sampling.py:479-481) — this extends it.
+
+    Sliced indices must not be output indices (an output slice would
+    concatenate, not sum).  Returns ``(ts_inds, output_inds, arrays)``
+    like :func:`contract` with arrays.
+    """
+    import numpy as _np
+
+    if arrays is None:
+        raise ValueError("'arrays' must be provided.")
+    slices = tuple(dict.fromkeys(slices))
+    output_inds = frozenset(output_inds)
+    if output_inds & set(slices):
+        raise ValueError("Sliced indices cannot be output indices.")
+    ts_inds = [tuple(xs) for xs in ts_inds]
+    dims = {}
+    for xs, a in zip(ts_inds, arrays):
+        for x, d in zip(xs, _np.shape(a)):
+            dims[x] = d
+    missing = [x for x in slices if x not in dims]
+    if missing:
+        raise ValueError(f'Sliced indices not in the network: {missing}')
+
+    total = None
+    out_inds_final = None
+    ts_out = None
+    for assignment in its.product(*(range(dims[x]) for x in slices)):
+        proj_inds = []
+        proj_arrays = []
+        for xs, a in zip(ts_inds, arrays):
+            for x, v in zip(slices, assignment):
+                while x in xs:  # repeated label = in-tensor diagonal
+                    k = xs.index(x)
+                    a = _np.take(_np.asarray(a), v, axis=k)
+                    xs = xs[:k] + xs[k + 1:]
+            proj_inds.append(xs)
+            proj_arrays.append(a)
+        ts_out, out_inds_final, out_arrays = contract(
+            path, proj_inds, output_inds=output_inds,
+            arrays=proj_arrays, backend=backend)
+        if len(out_arrays) != 1:
+            # Summing per-tensor terms is only exact (linearity) when the
+            # path reduces the projected network to ONE tensor: a product
+            # of >=2 slice-dependent tensors does not distribute over the
+            # slice sum.
+            raise ValueError(
+                "'path' must contract the network to a single tensor "
+                f"(got {len(out_arrays)}).")
+        term = out_arrays[0]
+        total = term if total is None else total + term
+    return ts_out, out_inds_final, [total]
