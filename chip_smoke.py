@@ -142,11 +142,30 @@ Phases, each fatal on failure:
    per non-classical gate; K1 and K3 must launch) and per sample, each
    of SAMPLER_SAMPLES samples timed alone (median, min, max); then K1 and
    K3 bitwise against their plain versions at each shape the phase
-   launched them, as in phase 19.
+   launched them, as in phase 19;
+22. sparse networks: the Sycamore-53 m=20 fSim circuit and QAOA-26 p=4
+   through ``load_tn`` with open outputs, unfused, the outputs marked
+   sparse (N=3135, W=64 and N=623, W=15): (a) ``Optimizer(seed=0)`` and
+   ``Optimizer(max_width=30, seed=0)`` with ``n_projs=2**20``, 64 runs x
+   BATCHED_APP_STEPS sweeps each, where 'auto' picks 'vmapped' (K1 and
+   K3 must launch): load seconds, N, W, ms a sweep; every result audited
+   by the sparse exact bigint cost (the cost model's
+   ``contraction_cost`` over the tree) and, finite width, its widths
+   within the cap after slicing; (b) QAOA-26 FW (max_width 30,
+   ``n_projs=2**10``), where 'auto' picks 'batched', audited the same
+   way; (c) the sparse walks point: ``ReplicaRunnerFW(engine='walks')``
+   from (a)'s best trees at B=64, P=128, reslice every 2 (the reference
+   slicer), ms per iteration, proposals/s and applied/s over
+   SPARSE_WALKS_ITERS iterations, every replica audited; (d) one
+   'vmapped' IM sweep, one 'vmapped' FW sweep with a reslice and one
+   walks-FW iteration on the card and on the CPU from one state and the
+   same draws (SPARSE_CHECK_B replicas): integer and bit state bitwise,
+   totals within 1e-5; (e) K1 and K3 bitwise against their plain
+   versions at each shape the phase launched them.
 
-Phases 11-21 run between phases 9 and 10, whose kernel line carries
-every phase's launch counts (K1's and K3's rows add phases 15-17's and
-19's and 21's); phase 13's profiled sweeps run after 10.
+Phases 11-22 run between phases 9 and 10, whose kernel line carries
+every phase's launch counts (K1's and K3's rows add phases 15-17's, 19's,
+21's and 22's); phase 13's profiled sweeps run after 10.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
@@ -196,13 +215,14 @@ BATCHED_KERNELS = ('gather_gbn', 'scatter_rows_inplace')
 # The main paths whose launches a kernel's row reports (default: the FW
 # walks app, phase 3).
 CIRCUIT_PATHS = ('circuit_fsim', 'circuit_qasm', 'circuit_qaoa', 'sampler')
+SPARSE_PATHS = ('sparse_im', 'sparse_fw', 'sparse_qaoa', 'sparse_walks')
 MAIN_PATHS = {'gather_gbn': ('fw_app', 'batched_fw_app', 'batched_im_app',
                              'fw_product', 'fw_throughput', 'fw_tempering',
-                             *CIRCUIT_PATHS),
+                             *CIRCUIT_PATHS, *SPARSE_PATHS),
               'scatter_rows_inplace': ('fw_app', 'batched_fw_app',
                                        'batched_im_app', 'fw_product',
                                        'fw_throughput', 'fw_tempering',
-                                       *CIRCUIT_PATHS),
+                                       *CIRCUIT_PATHS, *SPARSE_PATHS),
               'walker_im': ('im_app',), 'walker_fw': ('fw_walker_app',),
               'inv_ids': ('bench',), 'scatter_rows_gbn': ('bench',),
               'probe_loop': ('bench',), 'probe_take': ('bench',)}
@@ -611,14 +631,25 @@ def phase_walker_checks(torch):
 
 def _record_runners(module, name):
     """Replaces the runner class ``module.<name>`` by a subclass that
-    records its instances; returns ``(runners, restore)``."""
+    records its instances, each with the host seconds of its set-up
+    (``setup_s``) and of its ``run`` calls (``run_s``, which end in a
+    read of the min totals); returns ``(runners, restore)``."""
     cls = getattr(module, name)
     runners = []
 
     class Recorded(cls):
         def __init__(self, *args, **kwargs):
+            t0 = time.perf_counter()
             super().__init__(*args, **kwargs)
+            self.setup_s = time.perf_counter() - t0
+            self.run_s = 0.0
             runners.append(self)
+
+        def run(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = super().run(*args, **kwargs)
+            self.run_s += time.perf_counter() - t0
+            return out
 
     setattr(module, name, Recorded)
     return runners, lambda: setattr(module, name, cls)
@@ -2044,6 +2075,331 @@ def _sampler_runs(torch):
     return counts
 
 
+# Phase 22: sparse networks.  Sycamore-53 m=20 (fSim) and QAOA-26 p=4
+# with open outputs, uncut (fuse=0; sparse networks are never fused), the
+# outputs marked sparse: n_projs bitstrings of their amplitudes, about a
+# million for Sycamore (the order of the Sycamore experiment's sample
+# sets, Arute et al., Nature 574, 505, 2019), 1024 for QAOA.  The two
+# Sycamore calls run SPARSE_APP_STEPS sweeps (cut from BATCHED_APP_STEPS
+# for the phase's time; QAOA keeps it); the walks point runs
+# SPARSE_WALKS_ITERS timed iterations after SPARSE_WALKS_WARM; the card
+# is held against the CPU at SPARSE_CHECK_B replicas.
+SPARSE_N_PROJS, SPARSE_QAOA_N_PROJS = 2 ** 20, 2 ** 10
+SPARSE_APP_STEPS = 16
+SPARSE_WALKS_WARM, SPARSE_WALKS_ITERS, SPARSE_US = 2, 4, 2
+SPARSE_CHECK_B = 16
+
+
+def _sparse_tn(circuit):
+    """``circuit`` through ``load_tn`` with open outputs, unfused, the
+    outputs marked sparse; returns ``(network, load seconds)``."""
+    from tnco_tpu_torch.app import load_tn
+    from tnco_tpu_torch.app.tn import TensorNetwork
+
+    t0 = time.perf_counter()
+    tn = load_tn(circuit, final_state=None, fuse=0,
+                 decompose_hyper_inds=False)
+    load_s = time.perf_counter() - t0
+    return TensorNetwork(tn.tensors, output_inds=tn.output_inds,
+                         sparse_inds=tn.output_inds, tags=tn.tags), load_s
+
+
+def _sparse_cost(tree, cm, slices=frozenset()):
+    """Exact bigint total of ``tree`` under the sparse cost model ``cm``:
+    its ``contraction_cost`` summed over the tree's contractions."""
+    inds, dims = list(tree.inds), tree.dims
+    return sum(cm.contraction_cost(inds[n.children[0]], inds[n.children[1]],
+                                   inds[p], dims, slices)
+               for p, n in enumerate(tree.nodes) if not n.is_leaf())
+
+
+def _sparse_width(tree, cm, slices=frozenset()):
+    """Largest width of ``tree`` after ``slices``, the sparse part capped
+    at log2(n_projs) (``cm.width`` of every node, on the bit matrix)."""
+    import numpy as np
+
+    order = tree.inds_order
+    bits = np.unpackbits(tree.inds_array.view(np.uint8), axis=1,
+                         bitorder='little')[:, :len(order)].astype(bool)
+    bits &= ~np.asarray([x in slices for x in order])
+    sp = np.asarray([x in cm.sparse_inds for x in order])
+    log2d = tree.log2_dims_array
+    return float(((bits & ~sp) @ log2d + np.minimum(
+        (bits & sp) @ log2d, math.log2(cm.n_projs))).max())
+
+
+def _audit_sparse(res, tn, cm, runner, what):
+    """Every result is a valid path of ``tn`` whose cost is the sparse
+    exact bigint cost, its widths within the cap after its slices (finite
+    width), and the results' log2 costs are the replicas' device min
+    totals (within 1e-3)."""
+    import numpy as np
+
+    from tnco_tpu_torch.ctree import ContractionTree
+
+    t0 = time.perf_counter()
+    fw = math.isfinite(cm.max_width)
+    costs = []
+    for r in res:
+        tree = ContractionTree(r.path, tn.ts_inds, tn.dims,
+                               output_inds=tn.output_inds)
+        ok, msg = tree.is_valid(return_message=True)
+        if not ok:
+            fail(f'{what}: invalid path: {msg}')
+        slices = r.slices if fw else frozenset()
+        total = _sparse_cost(tree, cm, slices)
+        if r.cost != Decimal(0) + Decimal(total):
+            fail(f'{what}: cost {r.cost} != sparse exact recompute {total}')
+        if fw and _sparse_width(tree, cm, slices) > cm.max_width + 1e-9:
+            fail(f'{what}: width over the cap after slicing')
+        costs.append(math.log2(total))
+    gap = float(np.abs(np.sort(costs) -
+                       np.sort(runner.log2_min_totals())).max())
+    if gap > 1e-3:
+        fail(f'{what}: result costs differ from the device min totals by '
+             f'{gap}')
+    log(f'{what}: {len(res)} results audited by the sparse exact cost in '
+        f'{time.perf_counter() - t0:.1f} s; log2 cost best {min(costs):.4f}'
+        f' median {float(np.median(costs)):.4f}; |device - exact| <= '
+        f'{gap:.2e}')
+    return min(costs)
+
+
+def _audit_sparse_runner(runner, cm, what):
+    """Every replica's best tree is valid, fits the cap after its min
+    slices (sparse part capped), and its sparse exact bigint total is
+    within 1e-3 in log2 of the device min total."""
+    from tnco_tpu_torch.bitset import Bitset
+
+    order = runner.template.inds_order
+    mins = runner.log2_min_totals()
+    worst = 0.0
+    for r in range(runner.n_replicas):
+        tree = runner.min_ctree(r)
+        ok, msg = tree.is_valid(return_message=True)
+        if not ok:
+            fail(f'{what}: replica {r}: invalid min tree: {msg}')
+        slices = frozenset(order[p] for p in Bitset.from_lanes(
+            runner.min_slices_lanes(r), len(order)).positions())
+        if _sparse_width(tree, cm, slices) > cm.max_width + 1e-9:
+            fail(f'{what}: replica {r}: width over the cap after slicing')
+        worst = max(worst, abs(math.log2(_sparse_cost(tree, cm, slices)) -
+                               float(mins[r])))
+    if worst > 1e-3:
+        fail(f'{what}: device min totals differ from the sparse exact '
+             f'recompute by {worst}')
+    return worst
+
+
+def _states_on(torch, states, dev, b):
+    """Replicas ``[:b]`` of a state (replica-major, or lane-major with
+    ``keys`` replica-first) as a copy on ``dev``."""
+    lane_major = hasattr(states, 'keys')
+
+    def take(name, x):
+        if not lane_major or name == 'keys':
+            return x[:b].to(dev)
+        return x[..., :b].to(dev)
+
+    return type(states)(**{k: take(k, getattr(states, k))
+                           for k in states.field_names()})
+
+
+def _fields_cpu(states):
+    return {k: getattr(states, k).cpu() for k in states.field_names()}
+
+
+def _same_on_card(torch, runs, what):
+    """``runs``: ``{'cpu': (state, metrics), 'cuda': ...}``: integer and
+    bit state bitwise equal, totals within 1e-5; returns the worst total
+    difference."""
+    (cpu, m_cpu), (card, m_card) = runs['cpu'], runs['cuda']
+    a, b = _fields_cpu(cpu), _fields_cpu(card)
+    worst = 0.0
+    for k, v in a.items():
+        if k in ('log2_total', 'min_log2_total'):
+            worst = max(worst, float((b[k] - v).abs().max()))
+        elif not torch.equal(b[k], v):
+            fail(f'sparse card vs CPU {what}: {k} differs in '
+                 f'{int((b[k] != v).sum())} entries')
+    for k in ('moves', 'applied', 'pos'):
+        if k in m_cpu and not torch.equal(
+                torch.as_tensor(m_card[k]).cpu(),
+                torch.as_tensor(m_cpu[k]).cpu()):
+            fail(f'sparse card vs CPU {what}: {k} differs')
+    if worst > 1e-5:
+        fail(f'sparse card vs CPU {what}: totals differ by {worst}')
+    return worst
+
+
+def _sparse_card_vs_cpu(torch, im_runner, fw_runner, walks):
+    """Phase 22d: one 'vmapped' IM sweep, one 'vmapped' FW sweep with a
+    reslice and one sparse walks-FW iteration with a reslice, each from
+    one state (the first SPARSE_CHECK_B replicas of the phase's runners)
+    with the same draws on the card and on the CPU."""
+    from tnco_tpu_torch.kernels import sa_batched as sb
+    from tnco_tpu_torch.kernels import sa_finite as saf
+    from tnco_tpu_torch.kernels import sa_finite_batched as sfb
+    from tnco_tpu_torch.kernels import sa_infinite as sa
+    from tnco_tpu_torch.kernels import sa_multiwalk as smw
+    from tnco_tpu_torch.kernels import sa_walks as swk
+
+    b = SPARSE_CHECK_B
+    n_leaves = im_runner.cfg.n_leaves
+    n_bits = im_runner.log2d.numel()
+    gen = torch.Generator().manual_seed(22)
+    dr_im = {k: v[None] for k, v in sb.draw_sweep(gen, n_leaves, b).items()}
+    dr_fw = {k: v[None] for k, v in sfb.draw_sweep_fw(
+        gen, n_leaves, b, n_bits, True, False).items()}
+    dr_wk = {k: v[None] for k, v in smw.draw_walks(
+        gen, n_leaves, b, walks.n_walks, n_bits).items()}
+    runs = {'IM sweep': {}, 'FW sweep': {}, 'walks iteration': {}}
+    t0 = time.perf_counter()
+    for dev in ('cpu', 'cuda'):
+        def on(x):
+            return None if x is None else x.to(dev)
+
+        def draws(d):
+            return {k: v.to(dev) for k, v in d.items()}
+
+        r = im_runner
+        runs['IM sweep'][dev] = sa.run_sweeps_batch(
+            _states_on(torch, r.states, dev, b), [20.0], on(r.log2d), r.cfg,
+            on(r.sparse_lanes), r.log2_n_projs, uniform_log2=r.uniform_log2,
+            draws=draws(dr_im))
+        r = fw_runner
+        runs['FW sweep'][dev] = saf.run_sweeps_fw_batch(
+            _states_on(torch, r.states, dev, b), [20.0], [True],
+            on(r.max_width), on(r.log2d), on(r.skip_lanes), r.cfg,
+            on(r.sparse_lanes), r.log2_n_projs, uniform_log2=r.uniform_log2,
+            draws=draws(dr_fw))
+        r = walks
+        runs['walks iteration'][dev] = swk.run_walks_fw(
+            _states_on(torch, r.states, dev, b), [20.0], [True],
+            on(r.max_width), on(r.log2d_w32), on(r.skip_lanes), r.cfg,
+            r._mw_pos[:, :b].to(dev), on(r.sparse_wb), r.log2_n_projs,
+            uniform_log2=r.uniform_log2, slicer=r.fw_slicer,
+            draws=draws(dr_wk), device=dev)
+        torch.cuda.synchronize()
+    worst = max(_same_on_card(torch, v, k) for k, v in runs.items())
+    moved = int((runs['IM sweep']['cpu'][0].nodes !=
+                 _states_on(torch, im_runner.states, 'cpu', b).nodes).sum())
+    if not moved:
+        fail('sparse card vs CPU: the IM sweep applied no move')
+    log(f'sparse card vs CPU: B={b}: one vmapped IM sweep ({moved} node '
+        'entries changed), one vmapped FW sweep with a reslice and one '
+        f'walks-FW iteration (P={walks.n_walks}, the reference slicer, '
+        'reslice): integer and bit state bitwise '
+        f'equal, totals within {worst:.2e} '
+        f'({time.perf_counter() - t0:.2f} s)')
+
+
+def phase_sparse(torch):
+    """Phase 22: sparse networks through ``Optimizer`` ('auto' ->
+    'vmapped' on Sycamore, 'batched' on QAOA), the sparse walks point,
+    the card against the CPU, and K1 and K3 at every shape launched."""
+    import numpy as np
+
+    from tnco_tpu_torch.app import Optimizer
+    from tnco_tpu_torch.app.finite_width import sa as fw_sa
+    from tnco_tpu_torch.app.infinite_memory import sa as im_sa
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tnco_tpu_torch.optimize.finite_width import SimpleCostModel
+    from tnco_tpu_torch.parallel import ReplicaRunnerFW
+    from tnco_tpu_torch.testing.kernel_cases import recorded_cases
+    from tnco_tpu_torch.testing.networks import (qaoa_circuit,
+                                                 sycamore_circuit)
+
+    syc, syc_s = _sparse_tn(sycamore_circuit(CIRCUIT_M, 0))
+    qaoa, qaoa_s = _sparse_tn(qaoa_circuit(QAOA_N, QAOA_P, 0))
+    counts, runners, seen_all = {}, {}, set()
+    cases = (('sparse_im', f'sparse Sycamore-53 m={CIRCUIT_M} IM', syc,
+              syc_s, None, SPARSE_N_PROJS, SPARSE_APP_STEPS, 'vmapped'),
+             ('sparse_fw', f'sparse Sycamore-53 m={CIRCUIT_M} FW', syc,
+              syc_s, 30.0, SPARSE_N_PROJS, SPARSE_APP_STEPS, 'vmapped'),
+             ('sparse_qaoa', f'sparse QAOA-{QAOA_N} p={QAOA_P} FW', qaoa,
+              qaoa_s, 30.0, SPARSE_QAOA_N_PROJS, BATCHED_APP_STEPS,
+              'batched'))
+    for key, what, tn, load_s, max_width, n_projs, steps, engine in cases:
+        fw = max_width is not None
+        log(f'{what}: load_tn {load_s:.3f} s; {tn.n_tensors} tensors, '
+            f'{len(tn.sparse_inds)} sparse outputs, n_projs={n_projs}, '
+            f'N={2 * tn.n_tensors - 1} W={-(-tn.n_inds // 32)}')
+        recorded, restore = (_record_runners(fw_sa, 'ReplicaRunnerFW') if fw
+                             else _record_runners(im_sa, 'ReplicaRunner'))
+        try:
+            opt = (Optimizer(max_width=max_width, seed=0) if fw else
+                   Optimizer(seed=0))
+            with recorded_cases() as seen:
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                tn_out, res = opt.optimize(tn, betas=(0, 60), n_steps=steps,
+                                           n_runs=B, n_projs=n_projs,
+                                           fuse=False,
+                                           decompose_hyper_inds=False)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts[key] = launch_counts()
+            seen_all |= seen
+        finally:
+            restore()
+        (runner,) = recorded
+        runners[key] = runner
+        log(f'{what}: optimize {B} runs x {steps} sweeps in {wall:.2f} s '
+            f'(runner set-up {runner.setup_s:.2f} s, anneal '
+            f'{runner.run_s:.2f} s: {1e3 * runner.run_s / steps:.1f} ms a '
+            f'sweep); engine {runner.engine!r}; launches {counts[key]}')
+        if runner.engine != engine:
+            fail(f"{what}: 'auto' picked {runner.engine!r}, not {engine!r}")
+        if not all(counts[key][k] > 0 for k in BATCHED_KERNELS):
+            fail(f'{what}: a kernel of the path was never launched')
+        cm = SimpleCostModel(max_width=max_width if fw else float('inf'),
+                             sparse_inds=tn.sparse_inds, n_projs=n_projs)
+        _audit_sparse(res, tn_out, cm, runner, what)
+
+    # The sparse walks point: the FW runner's best trees at B=64, P=128,
+    # reslice every SPARSE_US iterations ('auto' takes the reference
+    # slicer for sparse indices).
+    fw_app = runners['sparse_fw']
+    cm = SimpleCostModel(max_width=30.0, sparse_inds=syc.sparse_inds,
+                         n_projs=SPARSE_N_PROJS)
+    t0 = time.perf_counter()
+    walks = ReplicaRunnerFW([fw_app.min_ctree(r) for r in range(B)],
+                            list(range(B)), cmodel=cm, engine='walks',
+                            n_walks=P)
+    set_up = time.perf_counter() - t0
+    betas = np.linspace(10, 60, SPARSE_WALKS_WARM + SPARSE_WALKS_ITERS,
+                        dtype=np.float32)
+    with recorded_cases() as seen:
+        reset_launch_counts()
+        walks.run(betas[:SPARSE_WALKS_WARM], update_slices=SPARSE_US,
+                  chunk_size=SPARSE_WALKS_WARM)
+        applied0 = walks.applied_done
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        walks.run(betas[SPARSE_WALKS_WARM:], update_slices=SPARSE_US,
+                  chunk_size=SPARSE_WALKS_ITERS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts['sparse_walks'] = launch_counts()
+    seen_all |= seen
+    if not all(counts['sparse_walks'][k] > 0 for k in FW_KERNELS):
+        fail('sparse walks: a kernel of the path was never launched')
+    worst = _audit_sparse_runner(walks, cm, 'sparse walks')
+    applied = walks.applied_done - applied0
+    log(f'sparse walks: N={len(walks.template)} B={B} P={walks.n_walks} '
+        f'engine {walks.engine!r}, reslice every {SPARSE_US} (the '
+        f'reference slicer), set-up {set_up:.1f} s: '
+        f'{1e3 * secs / SPARSE_WALKS_ITERS:.2f} ms per iteration over '
+        f'{SPARSE_WALKS_ITERS}, {B * P * SPARSE_WALKS_ITERS / secs:.0f} '
+        f'proposals/s, {applied / secs:.0f} applied/s; every replica '
+        f'audited (|device - exact| <= {worst:.2e}); launches '
+        f'{counts["sparse_walks"]}')
+    _sparse_card_vs_cpu(torch, runners['sparse_im'], fw_app, walks)
+    _check_recorded(torch, seen_all, 'sparse (phase 22)')
+    return counts
+
+
 def _time_ms(torch, fn, reps=50, rounds=11):
     """Device ms of one call of ``fn``: ``reps`` calls captured in one
     CUDA graph, replayed between two events, median over ``rounds``.
@@ -2653,8 +3009,10 @@ def main() -> int:
         phase_cli(torch)
         t2 = time.perf_counter()
         counts['sampler'] = phase_sampler(torch)
-        log(f'phases 19 / 20 / 21: {t1 - t0:.1f} / {t2 - t1:.1f} / '
-            f'{time.perf_counter() - t2:.1f} s')
+        t3 = time.perf_counter()
+        counts.update(phase_sparse(torch))
+        log(f'phases 19 / 20 / 21 / 22: {t1 - t0:.1f} / {t2 - t1:.1f} / '
+            f'{t3 - t2:.1f} / {time.perf_counter() - t3:.1f} s')
         rows = phase_times(torch, counts, im_runner, fw_runner)
         phase_batched_launches(torch, card, (fw_prof, im_prof))
     finally:

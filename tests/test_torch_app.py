@@ -192,9 +192,5 @@ def test_auto_engine_matches_jax_rule(monkeypatch, size, accel, kw):
     monkeypatch.setattr(trep, '_accel_available', lambda device: accel)
     ctrees = [TContractionTree(path, ts, dims, output_inds=out)]
     args = dict(cmodel=SimpleCostModel(max_width=40), device='cpu', **kw)
-    if want in ('walks', 'batched'):
-        assert ReplicaRunnerFW(ctrees, [0], **args).engine == want
-    else:
-        with pytest.raises(NotImplementedError,
-                           match=f"engine='{want}'.*engine='walks'"):
-            ReplicaRunnerFW(ctrees, [0], **args)
+    assert want in ('walks', 'batched', 'vmapped')
+    assert ReplicaRunnerFW(ctrees, [0], **args).engine == want

@@ -364,8 +364,8 @@ def test_runner_fw_batched(random_seed, kind, mns):
 
 
 def test_runner_fw_rescue_rules(monkeypatch):
-    """New slices only with 'batched'; 'auto' with new slices keeps the
-    JAX rule ('vmapped', not ported: item 12); the device rule."""
+    """New slices only with 'batched' and 'vmapped'; 'auto' with new
+    slices keeps the JAX rule ('vmapped'); the device rule."""
     from tnco_tpu_torch.ctree import ContractionTree as TContractionTree
     from tnco_tpu_torch.optimize.finite_width import SimpleCostModel
     from tnco_tpu_torch.parallel import ReplicaRunnerFW
@@ -379,9 +379,8 @@ def test_runner_fw_rescue_rules(monkeypatch):
         with pytest.raises(ValueError, match='max_number_new_slices'):
             ReplicaRunnerFW(ctrees, [1], engine=engine,
                             max_number_new_slices=2, **kw)
-    with pytest.raises(NotImplementedError,
-                       match="engine='vmapped'.*item 12.*engine='walks'"):
-        ReplicaRunnerFW(ctrees, [1], max_number_new_slices=2, **kw)
+    runner = ReplicaRunnerFW(ctrees, [1], max_number_new_slices=2, **kw)
+    assert runner.engine == 'vmapped' and runner.cfg.max_new_slices == 2
     for engine, item in (('native', 'item 10'), ('sweep', 'item 13')):
         with pytest.raises(NotImplementedError, match=f'ROADMAP.*{item}'):
             ReplicaRunnerFW(ctrees, [1], engine=engine, **kw)

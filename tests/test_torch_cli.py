@@ -105,25 +105,40 @@ def _run(args, hashseed):
                           cwd=_ROOT, timeout=300)
 
 
-@pytest.mark.parametrize('what', ['chain', 'qasm'])
+@pytest.mark.parametrize('what', ['chain', 'qasm', 'sample'])
 def test_cli_determinism_across_hashseeds(what, tmp_path):
+    """The same JSON under several string hash seeds: ``optimize`` of an
+    index map and of a QASM file, and ``sample`` of the Bell circuit,
+    whose default qubit order is the circuit's (hash seeds 4, 6 and 7
+    put ``('q', 1)`` first when it iterated a frozenset)."""
+    hashseeds = ('1', '4242')
     if what == 'chain':
         tn, extra = '2 a b\n2 b c\n2 c d', ['--fuse=False']
-    else:
+    elif what == 'qasm':
         tn = tmp_path / 'syc.qasm'
         tn.write_text(sycamore_qasm(3, seed=1))
         tn, extra = str(tn), ['--max-width=6']
+    else:
+        hashseeds = ('0', '4', '6', '7')
     outs = []
-    for hashseed in ('1', '4242'):
-        proc = _run(['optimize', tn, '--betas=(0, 30)', '--n-steps=30',
-                     '--n-runs=2', '--seed=11', '--device=cpu', *extra],
-                    hashseed)
+    for hashseed in hashseeds:
+        if what == 'sample':
+            args = ['sample', BELL, '--n-samples=40', '--seed=5',
+                    '--fuse=False', '--decompose-hyper-inds=False',
+                    '--betas=(0, 30)', '--n-steps=30', '--device=cpu']
+        else:
+            args = ['optimize', tn, '--betas=(0, 30)', '--n-steps=30',
+                    '--n-runs=2', '--seed=11', '--device=cpu', *extra]
+        proc = _run(args, hashseed)
         assert proc.returncode == 0, proc.stderr
         outs.append(json.loads(proc.stdout))
     for out in outs:
-        for r in out['res']:
+        for r in out.get('res', ()):
             r.pop('runtime_s')
-    assert outs[0] == outs[1]
+    if what == 'sample':
+        assert outs[0]['qubits'] == ["('q', 0)", "('q', 1)"]
+    for out in outs[1:]:
+        assert out == outs[0]
 
 
 def test_cli_refuses_without_cuda(monkeypatch, capsys):

@@ -158,9 +158,15 @@ def test_expand_bits_width_and_ccost(random_seed, dims):
     np.testing.assert_array_equal(
         tcost.ccost_log2(_t(lanes), tl).numpy(),
         np.asarray(jcost.ccost_log2(jnp.asarray(lanes), jl)))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tcost.ccost_log2(_t(lanes), tl, sparse_lanes=_t(lanes[0]),
-                         log2_n_projs=2.0)
+    # Sparse indices: the dense part plus min(sparse part, log2 n_projs),
+    # equal to JAX's at caps below, within and above the sparse widths.
+    for cap in (0.5, 2.0, 7.0, 40.0):
+        np.testing.assert_array_equal(
+            tcost.ccost_log2(_t(lanes), tl, sparse_lanes=_t(lanes[0]),
+                             log2_n_projs=np.float32(cap)).numpy(),
+            np.asarray(jcost.ccost_log2(jnp.asarray(lanes), jl,
+                                        sparse_lanes=jnp.asarray(lanes[0]),
+                                        log2_n_projs=np.float32(cap))))
 
 
 def test_mh_log2_accept(random_seed):

@@ -275,11 +275,20 @@ def test_unsupported_and_unported_raise():
     pos = torch.full((4, B), -1, dtype=torch.int32)
     gen = torch.Generator()
     args = (batch, [1.0], log2d_w32, tcfg, 4, pos)
-    for kw in ({'on_block': 'restart'}, {'accept_rule': 'chained'},
-               {'sparse_wb': torch.zeros((tcfg.n_lanes, 1),
-                                         dtype=torch.int32)}):
+    for kw in ({'on_block': 'restart'}, {'accept_rule': 'chained'}):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             tsmw.run_multiwalk(*args, generator=gen, **kw)
+    # Sparse indices: the multi-walk engine takes them (an empty sparse
+    # set gives the dense run), the walker refuses them as JAX's does.
+    sparse = {'sparse_wb': torch.zeros((tcfg.n_lanes, 1), dtype=torch.int32),
+              'log2_n_projs': 3.0}
+    runs = [tsmw.run_multiwalk(*args, generator=torch.Generator()
+                               .manual_seed(5), **kw)[0]
+            for kw in ({}, sparse)]
+    for name in tsb.SABatch.field_names():
+        assert torch.equal(getattr(runs[0], name), getattr(runs[1], name))
+    with pytest.raises(NotImplementedError, match='dense cost model only'):
+        tw.run_walker(*args, generator=gen, **sparse)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tsmw.run_multiwalk(*args[:2], log2d_w32.double(), *args[3:],
                            generator=gen)

@@ -415,10 +415,20 @@ def test_unsupported_and_unported_raise():
     args = (tb, [1.0], [True], MAX_WIDTH, _t(log2d_w32),
             torch.zeros(w, dtype=torch.int32), tcfg, 4,
             torch.full((4, B), -1, dtype=torch.int32))
-    for kw in ({'on_block': 'restart'}, {'accept_rule': 'chained'},
-               {'sparse_wb': torch.zeros((w, 1), dtype=torch.int32)}):
+    for kw in ({'on_block': 'restart'}, {'accept_rule': 'chained'}):
         with pytest.raises(NotImplementedError, match='ROADMAP'):
             tsmw.run_multiwalk_fw(*args, generator=gen, **kw)
+    # Sparse indices: the multi-walk engine takes them (an empty sparse
+    # set gives the dense run), the walker refuses them as JAX's does.
+    sparse = {'sparse_wb': torch.zeros((w, 1), dtype=torch.int32),
+              'log2_n_projs': 3.0}
+    runs = [tsmw.run_multiwalk_fw(*args, generator=torch.Generator()
+                                  .manual_seed(5), **kw)[0]
+            for kw in ({}, sparse)]
+    for name in tsfb.SABatchFW.field_names():
+        assert torch.equal(getattr(runs[0], name), getattr(runs[1], name))
+    with pytest.raises(NotImplementedError, match='dense cost model only'):
+        tw.run_walker_fw(*args, generator=gen, **sparse)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tsmw.run_multiwalk_fw(*args[:4], args[4].double(), *args[5:],
                               generator=gen)
@@ -435,9 +445,9 @@ def test_unsupported_and_unported_raise():
     bad = _random_draws(0, 1, 4, B, tcfg, [True, True])
     with pytest.raises(ValueError, match="draws\\['jitter'\\]"):
         tw.run_walker_fw(*args, draws=bad)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tsfb._lcc_fw_b(tb.c0, tb.c1, tb.inds, tb.slices, args[4],
-                       sparse_wb=torch.zeros((w, 1), dtype=torch.int32))
+    dense = tsfb._lcc_fw_b(tb.c0, tb.c1, tb.inds, tb.slices, args[4])
+    assert torch.equal(tsfb._lcc_fw_b(tb.c0, tb.c1, tb.inds, tb.slices,
+                                      args[4], **sparse), dense)
 
 
 def _skip_without_card():

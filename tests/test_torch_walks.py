@@ -161,7 +161,8 @@ def _iterations(net, seed, schedule, slicer):
         batch, pos = ref, mref['pos']
 
 
-def reslice_ties(start, ref, got, log2d_w32, ul, n_leaves):
+def reslice_ties(start, ref, got, log2d_w32, ul, n_leaves, sparse_wb=None,
+                 log2_n_projs=None):
     """Settles reslice-if-better decisions made by a float tie.
 
     A replica's reslice keeps its slices and incrementally kept ``lcc``
@@ -173,14 +174,16 @@ def reslice_ties(start, ref, got, log2d_w32, ul, n_leaves):
     (slices as at the start, or ``lcc`` equal to the JAX ``_lcc_fw_b`` of
     the tree and those slices) and the outcomes' totals must tie; the
     port's fields are then set to the JAX result, so that the caller
-    checks every other field bitwise.  Returns the replicas settled."""
+    checks every other field bitwise.  ``sparse_wb``, ``log2_n_projs``:
+    the JAX sparse engine inputs, if any.  Returns the replicas
+    settled."""
     r, g, s0 = _fields(ref), got, _fields(start)
 
     def fresh(slices):
         return np.asarray(jsfb._lcc_fw_b(
             jnp.asarray(r['c0']), jnp.asarray(r['c1']),
-            jnp.asarray(r['inds']), jnp.asarray(slices), log2d_w32, None,
-            None, uniform_log2=ul))
+            jnp.asarray(r['inds']), jnp.asarray(slices), log2d_w32,
+            sparse_wb, log2_n_projs, uniform_log2=ul))
 
     sides = {'jax': (r, fresh(r['slices'])), 'port': (g, fresh(g['slices']))}
     settled = []

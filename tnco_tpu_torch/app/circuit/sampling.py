@@ -58,7 +58,9 @@ class SamplingIntermediateState:
     ``data`` holds one entry per circuit operation: either
     ``(None, None, permutation_matrix, None, op_qubits)`` for classical ops
     or ``(tn, best_result, arrays, output_qubits, op_qubits)`` for quantum
-    gates (reference sampling.py:78-99).
+    gates (reference sampling.py:78-99).  ``qubits`` is the set of the
+    circuit's qubits; :attr:`qubit_order` is the default order of a
+    sample's bits.
     """
 
     def __init__(self, data, qubits):
@@ -73,6 +75,16 @@ class SamplingIntermediateState:
 
     def __len__(self):
         return len(self.data)
+
+    @property
+    def qubit_order(self) -> tuple:
+        """The qubits in order of first appearance in the circuit (each
+        entry's ``op_qubits``, in circuit order).  The JAX package orders
+        them by iterating the frozenset ``qubits``, which follows the
+        process's string hash seed; this order does not, and a state
+        pickled without it still has its entries to derive it from."""
+        return tuple(dict.fromkeys(q for entry in self.data
+                                   for q in entry[-1]))
 
 
 def sample(circuit,
@@ -184,7 +196,7 @@ def sample(circuit,
                 "'qubit_order' is not consistent with qubits in 'circuit'.")
         qubits = qubit_order
     else:
-        qubits = tuple(partial_tn.qubits)
+        qubits = partial_tn.qubit_order
     n_qubits = len(qubits)
 
     sampled = defaultdict(int)

@@ -66,7 +66,7 @@ class ContractionResults(BaseContractionResults):
 def _exact_component_cost(ctree: ContractionTree, cmodel: SimpleCostModel,
                           slices) -> int:
     total = 0
-    inds = ctree.inds
+    inds = list(ctree.inds)          # each node's labels decoded once
     dims = ctree.dims
     for pos, node in enumerate(ctree.nodes):
         if not node.is_leaf():

@@ -60,12 +60,13 @@ def _exact_component_cost(ctree: ContractionTree,
     if not cmodel.sparse_inds:
         return ctree.total_cost_exact()
     total = 0
-    inds = ctree.inds
+    inds = list(ctree.inds)          # each node's labels decoded once
+    dims = ctree.dims
     for pos, node in enumerate(ctree.nodes):
         if not node.is_leaf():
             total += cmodel.contraction_cost(inds[node.children[0]],
                                              inds[node.children[1]],
-                                             inds[pos], ctree.dims)
+                                             inds[pos], dims)
     return total
 
 

@@ -420,7 +420,13 @@ class ContractionTree:
                 return len(inds_arr)
 
             def __iter__(self):
-                return (self[i] for i in range(len(inds_arr)))
+                # Every row at once: one bit matrix instead of a Bitset
+                # per row (the same label sets).
+                bits = np.unpackbits(
+                    np.ascontiguousarray(inds_arr, dtype=np.uint32).view(
+                        np.uint8), axis=1, bitorder='little')[:, :len(order)]
+                return (frozenset(order[p] for p in np.flatnonzero(row))
+                        for row in bits)
 
         return IndsProxy()
 

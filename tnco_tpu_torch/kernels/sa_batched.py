@@ -33,17 +33,14 @@ from tnco_tpu_torch.kernels.sa_fullsweep import _width_bn
 from tnco_tpu_torch.ops import costs as costs_ops
 
 __all__ = ['SABatch', 'init_batch', 'compute_hyper_b', 'run_sweeps_batched',
-           'run_stream_batched', 'draw_sweep', 'draw_stream',
-           'max_walk_steps', 'NULL']
+           'run_sweeps_per_replica', 'run_stream_batched', 'draw_sweep',
+           'draw_stream', 'max_walk_steps', 'sparse_args', 'NULL']
 
 NULL = -1
 _PROB_KINDS = ('mh', 'greedy', 'base')
 # A sweep's walk loop asks the card whether any replica is still walking
 # once every this many steps (steps with none walking change nothing).
 ACTIVE_CHECK_STEPS = 8
-
-_SPARSE = ('Sparse indices are not ported yet (ROADMAP queue 1, left out '
-           'of slice 1, e).')
 
 
 @dataclass
@@ -83,11 +80,10 @@ def init_batch(ctrees, seeds, log2_dims_padded, *, sparse_lanes=None,
     Same arithmetic as the JAX package's ``init_batch`` (float64 word by
     word, then cast), so every field equals it bitwise.  The reference
     computes the caches once per unique tree and broadcasts them; this
-    computes them per replica, with the same result.  Sparse indices are
-    not ported yet.
+    computes them per replica, with the same result.  ``sparse_lanes``
+    (``uint32 [W]``) and ``log2_n_projs``: the sparse cost model's cap
+    on the sparse part of every cost.
     """
-    if sparse_lanes is not None or log2_n_projs is not None:
-        raise NotImplementedError(_SPARSE)
     n = len(ctrees[0])
     n_leaves = ctrees[0].n_leaves
     b = len(ctrees)
@@ -113,16 +109,27 @@ def init_batch(ctrees, seeds, log2_dims_padded, *, sparse_lanes=None,
     hyper = np.where(internal[:, None, :], inds & inds_c0 & inds_c1,
                      np.uint32(0))
 
-    # log2 cost per node: width of the union of the children, word by
-    # word (one [N, W, 32, B] float64 expansion would be GBs at scale).
+    # log2 cost per node: width of the union of the children (sparse
+    # part capped), word by word (one [N, W, 32, B] float64 expansion
+    # would be GBs at scale).
     union = inds_c0 | inds_c1
     shifts = np.arange(32, dtype=np.uint32)
     log2d_w32 = log2d.reshape(w, 32)
-    lcc = np.zeros((n, b), dtype=np.float64)
-    for word in range(w):
-        bits = ((union[:, word, None, :] >>
-                 shifts[None, :, None]) & 1).astype(np.float64)
-        lcc += np.einsum('nsb,s->nb', bits, log2d_w32[word])
+
+    def w_of(lanes_nwb):
+        out = np.zeros((n, b), dtype=np.float64)
+        for word in range(w):
+            bits = ((lanes_nwb[:, word, None, :] >>
+                     shifts[None, :, None]) & 1).astype(np.float64)
+            out += np.einsum('nsb,s->nb', bits, log2d_w32[word])
+        return out
+
+    if sparse_lanes is None:
+        lcc = w_of(union)
+    else:
+        sp = np.asarray(sparse_lanes, dtype=np.uint32)[None, :, None]
+        lcc = w_of(union & ~sp) + np.minimum(w_of(union & sp),
+                                             float(log2_n_projs))
     lcc = np.where(internal, lcc, -np.inf).astype(dtype)
 
     internal_lcc = lcc[n_leaves:]
@@ -151,13 +158,15 @@ def _width_b(lanes_wb, log2d_w32, *, sparse_wb=None, log2_n_projs=None,
 
     Uniform dims with an integer log2 take the popcount (bitwise equal to
     the pinned tree: integer-valued float sums are exact); every other
-    case takes the (w*32+s)-ordered pairwise-halving tree.
+    case takes the (w*32+s)-ordered pairwise-halving tree.  With
+    ``sparse_wb`` (``int32 [W]`` or ``[W, 1]``), the sparse part is
+    capped at ``log2_n_projs``.
     """
-    if sparse_wb is not None or log2_n_projs is not None:
-        raise NotImplementedError(_SPARSE)
     if uniform_log2 is not None and not float(uniform_log2).is_integer():
         uniform_log2 = None
-    return _width_bn(lanes_wb, log2d_w32, uniform_log2, log2d_w32.dtype)
+    return _width_bn(lanes_wb, log2d_w32, uniform_log2, log2d_w32.dtype,
+                     sparse_w=None if sparse_wb is None else
+                     sparse_wb.reshape(-1), log2_n_projs=log2_n_projs)
 
 
 def _log2_total_b(lcc, n_leaves):
@@ -321,11 +330,12 @@ def _apply(planes, w, p, ok, ln_a, ln_b):
            torch.stack([p['b'], p['a']], 1)[None], ok, lo=w + PAR)
 
 
-def _widths(lane_sets, log2d_w32, uniform_log2):
+def _widths(lane_sets, log2d_w32, uniform_log2, sp):
     """Widths of several ``[W, B]`` lane sets in one pass: ``[k, B]``
-    (elementwise over the stacked sets, so each equals its own call)."""
+    (elementwise over the stacked sets, so each equals its own call).
+    ``sp``: ``{'sparse_wb', 'log2_n_projs'}`` of the cost model."""
     return _width_b(torch.stack(lane_sets, 1), log2d_w32,
-                    uniform_log2=uniform_log2)
+                    uniform_log2=uniform_log2, **sp)
 
 
 def _lt(planes, w, n_leaves):
@@ -379,16 +389,17 @@ def _unpack_state(st, w, n_floats):
                 min_log2_total=st['min_lt']), floats
 
 
-def _sweep(st, w, beta, log2d_w32, cfg, dr, uniform_log2):
+def _sweep(st, w, beta, log2d_w32, cfg, dr, uniform_log2, sp):
     """One lockstep leaf-to-root sweep of every replica, in place on
-    ``st``; returns ``(log2 total, moves)``."""
+    ``st``; returns ``(log2 total, walk steps per replica [B])``."""
     planes = st['planes']
     lt = _lt(planes, w, cfg.n_leaves)
     leaf = dr['leaf']
     pos_b = torch.where(leaf == NULL, NULL, _par_of(planes, w, leaf))
     par_b0 = torch.where(pos_b == NULL, NULL, _par_of(planes, w, pos_b))
     active = (pos_b != NULL) & (par_b0 != NULL)
-    moves = torch.zeros((), dtype=torch.int64, device=planes.device)
+    moves = torch.zeros(active.shape, dtype=torch.int32,
+                        device=planes.device)
     for t in range(dr['rand_bit'].shape[0]):
         if t % ACTIVE_CHECK_STEPS == 0 and not bool(active.any()):
             break
@@ -396,14 +407,14 @@ def _sweep(st, w, beta, log2d_w32, cfg, dr, uniform_log2):
                      cfg.disable_shared_inds)
         ln_b, ln_a = _widths((p['inds_d'] | p['inds_c'],
                               p['new_inds_b'] | p['inds_e']), log2d_w32,
-                             uniform_log2)
+                             uniform_log2, sp)
         l_new = costs_ops.new_total_log2(lt, p['l_a'], p['l_b'], ln_a, ln_b)
         accept = active & _accept(cfg.prob_kind, torch.log2(dr['u'][t]),
                                   beta, l_new, lt)
         _apply(planes, w, p, accept, ln_a, ln_b)
         lt = torch.where(accept, l_new, lt)
         pos_b = torch.where(active, p['a'], pos_b)
-        moves += active.sum()
+        moves += active
         active = active & (pos_b != NULL) & (_par_of(planes, w, pos_b) !=
                                              NULL)
     lt = _lt(planes, w, cfg.n_leaves)
@@ -411,18 +422,36 @@ def _sweep(st, w, beta, log2d_w32, cfg, dr, uniform_log2):
     return lt, moves
 
 
-def run_sweeps_batched(batch: SABatch, betas, log2d_w32, cfg, *,
+def run_sweeps_batched(batch: SABatch, betas, log2d_w32, cfg,
+                       sparse_wb=None, log2_n_projs=None, *,
                        uniform_log2=None, draws=None, generator=None):
     """One lockstep sweep per beta (``_run``, ``sa_batched.py:441-467``),
     on the batch's device; the batch itself is not modified.
 
-    ``draws`` (optional): ``{'leaf': [K, B], 'rand_bit': [K, T, B], 'u':
-    [K, T, B]}`` with ``T = max_walk_steps(cfg.n_leaves)``; without it,
-    each sweep draws :func:`draw_sweep` from ``generator``.  After the
-    chunk the stored ``hyper`` is refreshed with the row gather K1
-    (:func:`compute_hyper_b`).  Returns the new batch and ``{'log2_total':
-    [K, B], 'log2_min_total': [K, B], 'moves': [K]}``.
+    ``sparse_wb`` (``int32 [W]`` or ``[W, 1]``) and ``log2_n_projs``:
+    the sparse cost model's cap (every cost's sparse part at most
+    ``log2_n_projs``).  ``draws`` (optional): ``{'leaf': [K, B],
+    'rand_bit': [K, T, B], 'u': [K, T, B]}`` with ``T =
+    max_walk_steps(cfg.n_leaves)``; without it, each sweep draws
+    :func:`draw_sweep` from ``generator``.  After the chunk the stored
+    ``hyper`` is refreshed with the row gather K1
+    (:func:`compute_hyper_b`).  Returns the new batch and
+    ``{'log2_total': [K, B], 'log2_min_total': [K, B], 'moves': [K]}``.
     """
+    out, hist = run_sweeps_per_replica(batch, betas, log2d_w32, cfg,
+                                       sparse_wb, log2_n_projs,
+                                       uniform_log2=uniform_log2,
+                                       draws=draws, generator=generator)
+    hist['moves'] = hist['moves'].sum(dim=1)
+    return out, hist
+
+
+def run_sweeps_per_replica(batch: SABatch, betas, log2d_w32, cfg,
+                           sparse_wb=None, log2_n_projs=None, *,
+                           uniform_log2=None, draws=None, generator=None):
+    """:func:`run_sweeps_batched` with the walk steps counted per
+    replica: ``'moves'`` is ``int32 [K, B]`` (what the replica-major
+    engines of :mod:`~tnco_tpu_torch.kernels.sa_infinite` report)."""
     check_prob_kind(cfg)
     dev = batch.c0.device
     b = batch.c0.shape[1]
@@ -438,13 +467,14 @@ def run_sweeps_batched(batch: SABatch, betas, log2d_w32, cfg, *,
                             'u': ((k, t, b), 'float')}, dev)
     elif generator is None:
         raise ValueError('Pass draws= or generator=.')
+    sp = sparse_args(sparse_wb, log2_n_projs)
     w, st = _pack_state(batch, ('lcc',))
     hist = {'log2_total': [], 'log2_min_total': [], 'moves': []}
     for i in range(k):
         dr = ({name: x[i] for name, x in draws.items()} if draws is not None
               else draw_sweep(generator, cfg.n_leaves, b, dtype))
         lt, moves = _sweep(st, w, betas[i], log2d_w32, cfg, dr,
-                           uniform_log2)
+                           uniform_log2, sp)
         hist['log2_total'].append(lt)
         hist['log2_min_total'].append(st['min_lt'])
         hist['moves'].append(moves)
@@ -453,7 +483,21 @@ def run_sweeps_batched(batch: SABatch, betas, log2d_w32, cfg, *,
     return out, {name: torch.stack(v) for name, v in hist.items()}
 
 
-def _stream_iter(st, w, betas, cfg, dr, uniform_log2, log2d_w32):
+def sparse_args(sparse_wb, log2_n_projs) -> dict:
+    """The sparse cost model's engine inputs as ``_width_b`` keywords
+    (``sparse_wb`` flattened to ``[W]``, ``log2_n_projs`` a float);
+    both None for a dense model.  Raises unless both or neither are
+    given."""
+    if (sparse_wb is None) != (log2_n_projs is None):
+        raise ValueError('Pass both sparse_wb and log2_n_projs, or '
+                         'neither.')
+    if sparse_wb is None:
+        return {'sparse_wb': None, 'log2_n_projs': None}
+    return {'sparse_wb': sparse_wb.reshape(-1),
+            'log2_n_projs': float(log2_n_projs)}
+
+
+def _stream_iter(st, w, betas, cfg, dr, uniform_log2, log2d_w32, sp):
     """One iteration of the continuous move stream (``sa_batched.py:
     474-619``), in place on ``st``: a replica at the root closes its
     sweep (min snapshot, a new leaf, the next beta) and every other
@@ -477,7 +521,7 @@ def _stream_iter(st, w, betas, cfg, dr, uniform_log2, log2d_w32):
     p = _propose(planes, w, b, dr['rand_bit'], cfg.disable_shared_inds)
     ln_b, ln_a = _widths((p['inds_d'] | p['inds_c'],
                           p['new_inds_b'] | p['inds_e']), log2d_w32,
-                         uniform_log2)
+                         uniform_log2, sp)
     l_new = costs_ops.new_total_log2(lt, p['l_a'], p['l_b'], ln_a, ln_b)
     accept = walking & _accept(cfg.prob_kind, torch.log2(dr['u']), beta,
                                l_new, lt)
@@ -502,7 +546,8 @@ def draw_stream(generator: torch.Generator, n_leaves: int, n_iters: int,
 
 
 def run_stream_batched(batch: SABatch, betas, n_iters: int, log2d_w32,
-                       cfg, pos_b, sweep_cnt, *, uniform_log2=None,
+                       cfg, pos_b, sweep_cnt, sparse_wb=None,
+                       log2_n_projs=None, *, uniform_log2=None,
                        draws=None, generator=None):
     """``n_iters`` iterations of the continuous move stream
     (``_run_stream``, ``sa_batched.py:622-656``): every replica runs its
@@ -512,6 +557,7 @@ def run_stream_batched(batch: SABatch, betas, n_iters: int, log2d_w32,
     take their last min snapshot.  ``draws``: ``{'leaf', 'rand_bit',
     'u'}``, each ``[n_iters, B]`` (the JAX package feeds the leaf and
     the bit from one key); else :func:`draw_stream` from ``generator``.
+    ``sparse_wb``, ``log2_n_projs``: as in :func:`run_sweeps_batched`.
     Returns the new batch and ``{'moves', 'pos_b', 'sweep_cnt'}``.
     """
     check_prob_kind(cfg)
@@ -527,6 +573,7 @@ def run_stream_batched(batch: SABatch, betas, n_iters: int, log2d_w32,
         raise ValueError('Pass draws= or generator=.')
     else:
         draws = draw_stream(generator, cfg.n_leaves, n_iters, b, dtype)
+    sp = sparse_args(sparse_wb, log2_n_projs)
     w, st = _pack_state(batch, ('lcc',))
     st['pos_b'] = torch.as_tensor(pos_b, device=dev).to(torch.int32).clone()
     st['sweep_cnt'] = torch.as_tensor(sweep_cnt, device=dev).to(
@@ -535,7 +582,7 @@ def run_stream_batched(batch: SABatch, betas, n_iters: int, log2d_w32,
     for i in range(n_iters):
         moves += _stream_iter(st, w, betas, cfg,
                               {k: x[i] for k, x in draws.items()},
-                              uniform_log2, log2d_w32).sum()
+                              uniform_log2, log2d_w32, sp).sum()
     lt = _lt(st['planes'], w, cfg.n_leaves)
     pos_b = st['pos_b']
     at_root = (pos_b == NULL) | (_par_of(st['planes'], w, pos_b) == NULL)

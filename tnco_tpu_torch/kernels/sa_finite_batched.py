@@ -35,10 +35,7 @@ from tnco_tpu_torch.ops import costs as costs_ops
 from tnco_tpu_torch.ops.bitops import popcount32
 
 __all__ = ['SABatchFW', 'init_batch_fw', 'run_sweeps_fw_batched',
-           'draw_sweep_fw']
-
-_SPARSE = ('Sparse indices are not ported yet (ROADMAP queue 1, left out '
-           'of slice 1, e).')
+           'run_sweeps_fw_per_replica', 'draw_sweep_fw']
 
 
 @dataclass
@@ -74,13 +71,24 @@ class SABatchFW:
         return tuple(f.name for f in fields(cls))
 
 
-def _pc_width(lanes, uniform_log2, dtype, word_axis):
+def _pc_width(lanes, uniform_log2, dtype, word_axis, sparse_w=None,
+              log2_n_projs=None):
     """Popcount width for UNIFORM index dims: ``log2(dim) * popcount``
     (bitwise-identical to the pinned pairwise tree for power-of-two
-    dims)."""
-    pc = popcount32(lanes).sum(dim=word_axis, dtype=torch.int32)
-    return pc.to(dtype) * torch.tensor(uniform_log2, dtype=dtype,
-                                       device=lanes.device)
+    dims).  With ``sparse_w`` (``int32 [W]``) the sparse part is capped
+    at ``log2_n_projs``."""
+    u = torch.tensor(uniform_log2, dtype=dtype, device=lanes.device)
+
+    def pc(x):
+        return popcount32(x).sum(dim=word_axis, dtype=torch.int32).to(dtype)
+
+    if sparse_w is None:
+        return pc(lanes) * u
+    shape = [1] * lanes.dim()
+    shape[word_axis] = -1
+    sp = sparse_w.reshape(shape)
+    return pc(lanes & ~sp) * u + torch.clamp(pc(lanes & sp) * u,
+                                             max=float(log2_n_projs))
 
 
 def _greedy_slices_fast(vals, vals_planes, width, jitter, max_width,
@@ -207,9 +215,10 @@ def _lcc_fw_b(c0, c1, inds, slices, log2d_w32, sparse_wb=None,
     (:func:`gather_gbn`) and the width is the popcount times the common
     log2 dim; otherwise each node's width is the pinned tree of
     :func:`_width_b`.  ``inds: [N, W, B]`` may be a strided view.
+    ``sparse_wb`` (``int32 [W]`` or ``[W, 1]``): the sparse part of each
+    cost is capped at ``log2_n_projs``.
     """
-    if sparse_wb is not None or log2_n_projs is not None:
-        raise NotImplementedError(_SPARSE)
+    sp = sb.sparse_args(sparse_wb, log2_n_projs)
     internal = c0 != -1
     dtype = log2d_w32.dtype
     if uniform_log2 is not None:
@@ -218,7 +227,8 @@ def _lcc_fw_b(c0, c1, inds, slices, log2d_w32, sparse_wb=None,
         ids1 = torch.where(internal, c1, -1).T.contiguous()
         union = (gather_gbn(inds_wbn, ids0) | gather_gbn(inds_wbn, ids1) |
                  slices[:, :, None])                           # [W, B, N]
-        lcc = _pc_width(union, uniform_log2, dtype, word_axis=0).T
+        lcc = _pc_width(union, uniform_log2, dtype, 0, sp['sparse_wb'],
+                        sp['log2_n_projs']).T
     else:
         w = inds.shape[1]
 
@@ -226,7 +236,8 @@ def _lcc_fw_b(c0, c1, inds, slices, log2d_w32, sparse_wb=None,
             ids = torch.where(internal, ids, 0).long()
             return torch.gather(inds, 0, ids[:, None, :].expand(-1, w, -1))
 
-        lcc = _width_nodes(rows(c0) | rows(c1) | slices[None], log2d_w32)
+        lcc = _width_nodes(rows(c0) | rows(c1) | slices[None], log2d_w32,
+                           sp)
     return torch.where(internal, lcc, -torch.inf).to(dtype)
 
 
@@ -245,8 +256,11 @@ def _greedy_slices_b(c0, inds, width, jitter, max_width, log2d_w32,
     Without ``uniform_log2`` a round processes one node and recomputes
     every node's sliced width with the pinned tree; with it, a round
     processes 8 nodes on popcount widths (output-identical).  Uniform
-    INTEGER log2 dims go to :func:`_greedy_slices_fast`, which gives the
-    same slices.
+    INTEGER log2 dims without sparse indices go to
+    :func:`_greedy_slices_fast`, which gives the same slices.  With
+    ``sparse_wb`` the widths cap their sparse part at ``log2_n_projs``,
+    and so does the width before each candidate, whose dense and sparse
+    prefixes are summed apart (``sa_finite_batched.py:425-434``).
 
     ``inds: [N, W, B]`` (may be a strided view), ``width: [N, B]``
     pre-slicing widths, ``jitter: [n_bits, B]`` (the caller draws it),
@@ -254,9 +268,10 @@ def _greedy_slices_b(c0, inds, width, jitter, max_width, log2d_w32,
     is unused (the reference's signature).  Returns int32 ``[W, B]``.
     """
     del c0
-    if sparse_wb is not None or log2_n_projs is not None:
-        raise NotImplementedError(_SPARSE)
-    if uniform_log2 is not None and float(uniform_log2).is_integer():
+    sp = sb.sparse_args(sparse_wb, log2_n_projs)
+    sparse_w, cap = sp['sparse_wb'], sp['log2_n_projs']
+    if (uniform_log2 is not None and sparse_w is None and
+            float(uniform_log2).is_integer()):
         vals = inds.permute(1, 2, 0).contiguous()             # [W, B, N]
         return _greedy_slices_fast(vals, (0, vals.shape[0]), width, jitter,
                                    max_width, log2d_w32, skip_wb.reshape(-1),
@@ -284,20 +299,34 @@ def _greedy_slices_b(c0, inds, width, jitter, max_width, log2d_w32,
     log2d_sorted = log2d_flat[order]
     skip_sorted = torch.gather(
         expand(skip_wb.reshape(w, 1).expand(w, b)), 0, order)
+    if sparse_w is not None:
+        sparse_sorted = torch.gather(
+            expand(sparse_w.reshape(w, 1).expand(w, b)), 0, order)
 
     def all_sw(slices):
         sliced = inds & ~slices[None]
         if uniform_log2 is not None:
-            return _pc_width(sliced, uniform_log2, dtype, word_axis=1)
-        return _width_nodes(sliced, log2d_w32)
+            return _pc_width(sliced, uniform_log2, dtype, 1, sparse_w, cap)
+        return _width_nodes(sliced, log2d_w32, sp)
 
     def select_at(slices, t_star, sw, active):
         xs = torch.gather(inds, 0, t_star[None, None, :].expand(1, w, b))[0]
-        cand_sorted = (torch.gather(expand(xs & ~slices), 0, order) *
+        sliced = xs & ~slices
+        cand_sorted = (torch.gather(expand(sliced), 0, order) *
                        (1.0 - skip_sorted))
-        removed = cand_sorted * log2d_sorted
-        cum = _cumsum_blocked(removed) - removed
-        w_before = sw[None, :] - cum
+        if sparse_w is None:
+            removed = cand_sorted * log2d_sorted
+            cum = _cumsum_blocked(removed) - removed
+            w_before = sw[None, :] - cum
+        else:
+            dense_rm = cand_sorted * log2d_sorted * (1 - sparse_sorted)
+            sp_rm = cand_sorted * log2d_sorted * sparse_sorted
+            cum_d = _cumsum_blocked(dense_rm) - dense_rm
+            cum_s = _cumsum_blocked(sp_rm) - sp_rm
+            w_d0 = _width_b(sliced & ~sparse_w[:, None], log2d_w32)
+            w_s0 = _width_b(sliced & sparse_w[:, None], log2d_w32)
+            w_before = (w_d0[None, :] - cum_d +
+                        torch.clamp(w_s0[None, :] - cum_s, max=cap))
         selected_sorted = (cand_sorted > 0) & (w_before > thr) & \
             active[None, :]
         selected = torch.zeros((n_bits, b), dtype=torch.bool, device=dev)
@@ -320,8 +349,8 @@ def _greedy_slices_b(c0, inds, width, jitter, max_width, log2d_w32,
             if uniform_log2 is not None:
                 xs = torch.gather(inds, 0,
                                   t_star[None, None, :].expand(1, w, b))[0]
-                sw = _pc_width(xs & ~slices, uniform_log2, dtype,
-                               word_axis=0)
+                sw = _pc_width(xs & ~slices, uniform_log2, dtype, 0,
+                               sparse_w, cap)
                 active = any_over & (sw > thr)
             else:
                 sw = w_cur.gather(0, t_star[None])[0]
@@ -333,20 +362,22 @@ def _greedy_slices_b(c0, inds, width, jitter, max_width, log2d_w32,
     return slices
 
 
-def _width_nodes(lanes_nwb, log2d_w32, chunk=64):
+def _width_nodes(lanes_nwb, log2d_w32, sp, chunk=64):
     """Pinned-tree width of ``[N, W, B]`` lane sets -> ``[N, B]``,
     ``chunk`` nodes at a time so the expanded-bit temporaries stay
-    bounded (elementwise, so the values do not depend on the chunks)."""
+    bounded (elementwise, so the values do not depend on the chunks);
+    ``sp``: :func:`sa_batched.sparse_args`."""
     n, _, b = lanes_nwb.shape
     out = torch.empty((n, b), dtype=log2d_w32.dtype, device=lanes_nwb.device)
     for s in range(0, n, chunk):
         out[s:s + chunk] = _width_b(lanes_nwb[s:s + chunk].permute(1, 0, 2),
-                                    log2d_w32)
+                                    log2d_w32, **sp)
     return out
 
 
 def init_batch_fw(ctrees, seeds, max_width, log2_dims_padded, *,
-                  skip_lanes=None, dtype=np.float32, device='cpu'):
+                  skip_lanes=None, sparse_lanes=None, log2_n_projs=None,
+                  dtype=np.float32, device='cpu'):
     """Builds a replica-minor finite-width batch on the host (numpy) and
     uploads it once to ``device``.
 
@@ -354,8 +385,9 @@ def init_batch_fw(ctrees, seeds, max_width, log2_dims_padded, *,
     ``random.Random(seed)`` jitter, as in the JAX package, so ``c0, c1,
     par, inds, hyper, lcc, width, slices`` and the totals equal its
     ``init_batch_fw`` bitwise.  ``keys`` holds the seed words
-    ``[0, seed]`` (the draws come from a ``torch.Generator``).  Sparse
-    indices are not ported yet.
+    ``[0, seed]`` (the draws come from a ``torch.Generator``).
+    ``sparse_lanes`` (``uint32 [W]``) and ``log2_n_projs``: the sparse
+    cost model's cap, on the slicer's widths and every cost and width.
     """
     n = len(ctrees[0])
     b = len(ctrees)
@@ -383,12 +415,22 @@ def init_batch_fw(ctrees, seeds, max_width, log2_dims_padded, *,
 
     skip_bits = None if skip_lanes is None else \
         expand(np.asarray(skip_lanes, dtype=np.uint32))
+    sparse_bits = None if sparse_lanes is None else \
+        expand(np.asarray(sparse_lanes, dtype=np.uint32))
+
+    def width_of(bits):  # bool [..., n_bits] -> float64
+        if sparse_bits is None:
+            return bits @ log2d
+        return ((bits & ~sparse_bits) @ log2d +
+                np.minimum((bits & sparse_bits) @ log2d,
+                           float(log2_n_projs)))
 
     slices = np.empty((w, b), dtype=np.uint32)
     for i in range(b):
         slices[:, i] = greedy_slices_host(
             inds[:, :, i], log2d, mw, Random(int(seeds[i]) & 0x7FFFFFFF),
-            skip_bits=skip_bits)
+            skip_bits=skip_bits, sparse_bits=sparse_bits,
+            log2_n_projs=log2_n_projs)
 
     internal = c0 >= 0
     c0s = np.where(internal, c0, 0)
@@ -403,8 +445,8 @@ def init_batch_fw(ctrees, seeds, max_width, log2_dims_padded, *,
     for i in range(b):
         union = expand(inds_c0[:, :, i] | inds_c1[:, :, i] |
                        slices[None, :, i])
-        lcc[:, i] = union @ log2d
-        width[:, i] = expand(inds[:, :, i]) @ log2d
+        lcc[:, i] = width_of(union)
+        width[:, i] = width_of(expand(inds[:, :, i]))
     lcc = np.where(internal, lcc, -np.inf).astype(dtype)
     width = width.astype(dtype)
 
@@ -450,11 +492,12 @@ def draw_sweep_fw(generator: torch.Generator, n_leaves: int, b: int,
 
 
 def _sweep_fw(st, w, beta, update_slices, max_width, log2d_w32, skip_wb,
-              cfg, dr, prio_at, uniform_log2):
+              cfg, dr, prio_at, uniform_log2, sp):
     """One lockstep width-capped sweep plus the reslice-if-better, in
     place on ``st`` (planes with the lcc and width planes, slices);
-    returns ``(log2 total, moves)``.  ``prio_at(t)`` gives step ``t``'s
-    rescue priorities ``[n_bits, B]``."""
+    returns ``(log2 total, walk steps per replica [B])``.  ``prio_at(t)``
+    gives step ``t``'s rescue priorities ``[n_bits, B]``; ``sp``:
+    :func:`sa_batched.sparse_args`."""
     planes = st['planes']
     n_leaves = cfg.n_leaves
     thr = max_width + _WIDTH_EPS
@@ -468,7 +511,8 @@ def _sweep_fw(st, w, beta, update_slices, max_width, log2d_w32, skip_wb,
     lt = sb._lt(planes, w, n_leaves)
     pos_b = sb._par_of(planes, w, dr['leaf'])
     active = (pos_b != NULL) & (sb._par_of(planes, w, pos_b) != NULL)
-    moves = torch.zeros((), dtype=torch.int64, device=planes.device)
+    moves = torch.zeros(active.shape, dtype=torch.int32,
+                        device=planes.device)
     for t in range(dr['rand_bit'].shape[0]):
         if t % sb.ACTIVE_CHECK_STEPS == 0 and not bool(active.any()):
             break
@@ -479,7 +523,8 @@ def _sweep_fw(st, w, beta, update_slices, max_width, log2d_w32, skip_wb,
         new_width_b, new_sliced_width_b, ln_b, ln_a = sb._widths(
             (new_inds_b, new_inds_b & ~slices,
              p['inds_d'] | p['inds_c'] | slices,
-             new_inds_b | p['inds_e'] | slices), log2d_w32, uniform_log2)
+             new_inds_b | p['inds_e'] | slices), log2d_w32, uniform_log2,
+            sp)
         p['upd'][w + sb.WIDTH, :, 1] = new_width_b.view(torch.int32)
         fits = new_sliced_width_b <= thr
         l_new = costs_ops.new_total_log2(lt, p['l_a'], p['l_b'], ln_a, ln_b)
@@ -496,14 +541,14 @@ def _sweep_fw(st, w, beta, update_slices, max_width, log2d_w32, skip_wb,
                 max_width, log2d_flat, w)
             can_rescue = ~fits & (sb._widths(
                 (new_inds_b & ~cand_slices,), log2d_w32,
-                uniform_log2)[0] <= thr)
+                uniform_log2, sp)[0] <= thr)
             tried = planes.clone()
             sb._write(tried, torch.stack([p['a'], p['b']], 1), p['upd'],
                       active)
             # All replicas at once: per replica, sa_finite.compute_lcc_fw
             # of the proposed tree, bitwise.
             lcc_try = _lcc_fw_b(*views(tried), cand_slices, log2d_w32,
-                                uniform_log2=uniform_log2)
+                                **sp, uniform_log2=uniform_log2)
             lt_try = _log2_total_b(lcc_try, n_leaves)
             rescued = active & can_rescue & sb._accept(
                 cfg.prob_kind, torch.log2(dr['u2'][t]), beta, lt_try, lt)
@@ -518,7 +563,7 @@ def _sweep_fw(st, w, beta, update_slices, max_width, log2d_w32, skip_wb,
                 planes[w + sb.LCC])
         lt = torch.where(accept, l_new, lt)
         pos_b = torch.where(active, p['a'], pos_b)
-        moves += active.sum()
+        moves += active
         active = active & (pos_b != NULL) & (sb._par_of(planes, w, pos_b) !=
                                              NULL)
 
@@ -526,9 +571,9 @@ def _sweep_fw(st, w, beta, update_slices, max_width, log2d_w32, skip_wb,
         c0, c1, inds = views(planes)
         width = planes[w + sb.WIDTH].view(torch.float32).T
         new_slices = _greedy_slices_b(c0, inds, width, dr['jitter'],
-                                      max_width, log2d_w32, skip_wb,
+                                      max_width, log2d_w32, skip_wb, **sp,
                                       uniform_log2=uniform_log2)
-        new_lcc = _lcc_fw_b(c0, c1, inds, new_slices, log2d_w32,
+        new_lcc = _lcc_fw_b(c0, c1, inds, new_slices, log2d_w32, **sp,
                             uniform_log2=uniform_log2)
         better = (_log2_total_b(new_lcc, n_leaves) <
                   sb._lt(planes, w, n_leaves))
@@ -542,8 +587,9 @@ def _sweep_fw(st, w, beta, update_slices, max_width, log2d_w32, skip_wb,
 
 
 def run_sweeps_fw_batched(batch: SABatchFW, betas, update_slices_mask,
-                          max_width, log2d_w32, skip_wb, cfg, *,
-                          uniform_log2=None, draws=None, generator=None):
+                          max_width, log2d_w32, skip_wb, cfg, sparse_wb=None,
+                          log2_n_projs=None, *, uniform_log2=None, draws=None,
+                          generator=None):
     """One width-capped lockstep sweep per beta (``_run_fw``,
     ``sa_finite_batched.py:748-776``), the reslice-if-better after sweep
     ``k`` where ``update_slices_mask[k]`` and some replica holds slices
@@ -552,6 +598,8 @@ def run_sweeps_fw_batched(batch: SABatchFW, betas, update_slices_mask,
 
     ``uniform_log2`` feeds the slicer and the slice-aware cost as in the
     JAX function (the runner passes it only for integer log2 dims).
+    ``sparse_wb`` (``int32 [W]`` or ``[W, 1]``) and ``log2_n_projs``:
+    the sparse cost model's cap, on every cost and width.
     ``draws`` (optional): ``leaf [K, B]``, ``rand_bit``, ``u [K, T, B]``
     and ``jitter [K, n_bits, B]``, plus ``prio [K, T, n_bits, B]`` and
     ``u2 [K, T, B]`` when ``cfg.max_new_slices > 0``; without it each
@@ -559,6 +607,21 @@ def run_sweeps_fw_batched(batch: SABatchFW, betas, update_slices_mask,
     chunk ``hyper`` is refreshed with K1.  Returns the new batch and
     ``{'log2_total', 'log2_min_total': [K, B], 'moves': [K]}``.
     """
+    out, hist = run_sweeps_fw_per_replica(
+        batch, betas, update_slices_mask, max_width, log2d_w32, skip_wb,
+        cfg, sparse_wb, log2_n_projs, uniform_log2=uniform_log2,
+        draws=draws, generator=generator)
+    hist['moves'] = hist['moves'].sum(dim=1)
+    return out, hist
+
+
+def run_sweeps_fw_per_replica(batch: SABatchFW, betas, update_slices_mask,
+                              max_width, log2d_w32, skip_wb, cfg,
+                              sparse_wb=None, log2_n_projs=None, *,
+                              uniform_log2=None, draws=None, generator=None):
+    """:func:`run_sweeps_fw_batched` with the walk steps counted per
+    replica: ``'moves'`` is ``int32 [K, B]`` (what the replica-major
+    engine of :mod:`~tnco_tpu_torch.kernels.sa_finite` reports)."""
     sb.check_prob_kind(cfg)
     dev = batch.c0.device
     b = batch.c0.shape[1]
@@ -582,6 +645,7 @@ def run_sweeps_fw_batched(batch: SABatchFW, betas, update_slices_mask,
         sb.check_draws(draws, spec, dev)
     elif generator is None:
         raise ValueError('Pass draws= or generator=.')
+    sp = sb.sparse_args(sparse_wb, log2_n_projs)
     max_width = torch.as_tensor(max_width, dtype=dtype, device=dev)
     w, st = sb._pack_state(batch, ('lcc', 'width'))
     st['slices'] = batch.slices.clone()
@@ -602,7 +666,7 @@ def run_sweeps_fw_batched(batch: SABatchFW, betas, update_slices_mask,
                                   device=dev, dtype=dtype)
         lt, moves = _sweep_fw(st, w, betas[i], bool(mask[i]), max_width,
                               log2d_w32, skip_wb, cfg, dr, prio_at,
-                              uniform_log2)
+                              uniform_log2, sp)
         hist['log2_total'].append(lt)
         hist['log2_min_total'].append(st['min_lt'])
         hist['moves'].append(moves)

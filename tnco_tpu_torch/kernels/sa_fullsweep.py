@@ -47,13 +47,21 @@ def _nk(dtype):
     return 2 if torch.empty((), dtype=dtype).element_size() == 8 else 1
 
 
-def _width_bn(lanes_wbn, log2d_w32, uniform_log2, dtype):
+def _width_bn(lanes_wbn, log2d_w32, uniform_log2, dtype, *, sparse_w=None,
+              log2_n_projs=None):
     """Width of ``int32 [W, ...]`` lane sets -> ``[...]``.
 
     Fast path (``uniform_log2`` given): integer popcount times the common
     log2 dim.  Otherwise the (w*32+s)-ordered pairwise-halving tree over
-    the bit-plane expansion.
+    the bit-plane expansion.  With ``sparse_w`` (``int32 [W]``, the
+    sparse indices' bits): the dense part's width plus ``min(sparse
+    part's width, log2_n_projs)``, each part by the rule above.
     """
+    if sparse_w is not None:
+        sp = sparse_w.reshape((-1,) + (1,) * (lanes_wbn.ndim - 1))
+        dense = _width_bn(lanes_wbn & ~sp, log2d_w32, uniform_log2, dtype)
+        sparse = _width_bn(lanes_wbn & sp, log2d_w32, uniform_log2, dtype)
+        return dense + torch.clamp(sparse, max=float(log2_n_projs))
     if uniform_log2 is not None:
         pc = popcount32(lanes_wbn).sum(dim=0, dtype=torch.int32)
         return pc.to(dtype) * torch.tensor(uniform_log2, dtype=dtype,

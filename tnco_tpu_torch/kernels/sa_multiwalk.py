@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from tnco_tpu_torch.kernels.sa_batched import (SABatch, _log2_total_b,
-                                               _width_b, compute_hyper_b)
+                                               _width_b, compute_hyper_b,
+                                               sparse_args)
 from tnco_tpu_torch.kernels.sa_finite import _WIDTH_EPS
 from tnco_tpu_torch.kernels.sa_finite_batched import (SABatchFW,
                                                       _greedy_slices_b,
@@ -60,8 +61,8 @@ def _chains_lt(cfg) -> bool:
     return cfg.prob_kind in ('mh', 'greedy')
 
 
-def check_options(cfg, dtype, on_block='advance', accept_rule='round',
-                  sparse_wb=None, log2_n_projs=None) -> None:
+def check_options(cfg, dtype, on_block='advance',
+                  accept_rule='round') -> None:
     """Raises on the options of ``run_multiwalk`` this port lacks."""
     if on_block not in _ON_BLOCK:
         raise ValueError(f"on_block must be one of {_ON_BLOCK}, "
@@ -77,8 +78,6 @@ def check_options(cfg, dtype, on_block='advance', accept_rule='round',
     if cfg.prob_kind not in _PROB_KINDS:
         raise ValueError(f"prob_kind must be one of {_PROB_KINDS} for the "
                          f"multi-walk engines, got {cfg.prob_kind!r}.")
-    if sparse_wb is not None or log2_n_projs is not None:
-        raise _not_ported('Sparse indices', 'left out of slice 1, e')
     if dtype != torch.float32:
         raise _not_ported('float64 state', 'left out of slice 1, d')
 
@@ -253,15 +252,16 @@ def _apply_kept(st, keep, ev, n):
         ev['new_inds_b'].reshape(w, -1).T
 
 
-def _iter_multiwalk(st, beta, dr, log2d_w32, cfg, uniform_log2, n):
+def _iter_multiwalk(st, beta, dr, log2d_w32, cfg, uniform_log2, n, sp):
     """One iteration on the padded state dict ``st`` (updated in place).
-    ``dr`` holds this iteration's ``[B, P]`` draws."""
+    ``dr`` holds this iteration's ``[B, P]`` draws; ``sp``:
+    :func:`~tnco_tpu_torch.kernels.sa_batched.sparse_args`."""
     lt = _log2_total_b(st['lcc'][:n], cfg.n_leaves)
     ev = _propose(st, st['pos'], dr['leaf'], dr['rand_bit'], cfg, n)
     ev['ln_b'] = _width_b(ev['inds_d'] | ev['inds_c'], log2d_w32,
-                          uniform_log2=uniform_log2)
+                          uniform_log2=uniform_log2, **sp)
     ev['ln_a'] = _width_b(ev['new_inds_b'] | ev['inds_e'], log2d_w32,
-                          uniform_log2=uniform_log2)
+                          uniform_log2=uniform_log2, **sp)
     l_new = costs_ops.new_total_log2(lt[:, None], ev['l_a'], ev['l_b'],
                                      ev['ln_a'], ev['ln_b'])
     accept = _accept(cfg, dr['u'], beta, l_new, lt, ev)
@@ -290,7 +290,7 @@ def _snapshot(st, n, n_leaves):
 
 
 def _iter_multiwalk_fw(st, beta, dr, max_width, log2d_w32, cfg,
-                       uniform_log2, n):
+                       uniform_log2, n, sp):
     """One finite-width iteration on the padded state dict ``st``
     (updated in place), WITHOUT the reslice and the min snapshot, which
     the callers order (``sa_multiwalk.py:502-598``): proposals are
@@ -301,7 +301,7 @@ def _iter_multiwalk_fw(st, beta, dr, max_width, log2d_w32, cfg,
     sl = st['slices'][:, :, None]           # [W, B, 1] over the walks
 
     def width(lanes):
-        return _width_b(lanes, log2d_w32, uniform_log2=uniform_log2)
+        return _width_b(lanes, log2d_w32, uniform_log2=uniform_log2, **sp)
 
     ev['new_width_b'] = width(ev['new_inds_b'])
     fits = width(ev['new_inds_b'] & ~sl) <= max_width + _WIDTH_EPS
@@ -320,16 +320,17 @@ def _iter_multiwalk_fw(st, beta, dr, max_width, log2d_w32, cfg,
 
 
 def reslice_if_better(c0, c1, inds, width, slices, lcc, jitter, max_width,
-                      log2d_w32, skip_wb, n_leaves, uniform_log2=None):
+                      log2d_w32, skip_wb, n_leaves, uniform_log2=None,
+                      sparse_wb=None, log2_n_projs=None):
     """The periodic greedy reslice: new slices from the pre-slicing
     widths, kept by the replicas whose total improves.  Returns
     ``(slices, lcc)``.  Callers skip it when no replica has a slice
     (the reference's ``has_slices``, global over the batch)."""
     new_slices = _greedy_slices_b(c0, inds, width, jitter, max_width,
-                                  log2d_w32, skip_wb,
-                                  uniform_log2=uniform_log2)
-    new_lcc = _lcc_fw_b(c0, c1, inds, new_slices, log2d_w32,
-                        uniform_log2=uniform_log2)
+                                  log2d_w32, skip_wb, sparse_wb,
+                                  log2_n_projs, uniform_log2=uniform_log2)
+    new_lcc = _lcc_fw_b(c0, c1, inds, new_slices, log2d_w32, sparse_wb,
+                        log2_n_projs, uniform_log2=uniform_log2)
     better = _log2_total_b(new_lcc, n_leaves) < _log2_total_b(lcc, n_leaves)
     return (torch.where(better[None, :], new_slices, slices),
             torch.where(better[None, :], new_lcc, lcc))
@@ -408,6 +409,9 @@ def run_multiwalk(batch: SABatch, betas, log2d_w32, cfg, n_walks: int, pos,
         cfg: :class:`~tnco_tpu_torch.kernels.sa_infinite.SweepConfig`.
         n_walks: walks per replica ``P``.
         pos: ``int32 [P, B]`` walk positions (-1 = start a fresh walk).
+        sparse_wb, log2_n_projs: the sparse cost model's cap (``int32
+            [W]`` or ``[W, 1]`` sparse bits; every cost's sparse part at
+            most ``log2_n_projs``), or None.
         draws: optional pre-drawn streams ``leaf``, ``rand_bit``, ``u``,
             each ``[K, P, B]`` (the JAX layout; tests inject the JAX
             draws).
@@ -418,8 +422,8 @@ def run_multiwalk(batch: SABatch, betas, log2d_w32, cfg, n_walks: int, pos,
     ``int32 [P, B]``.  The input batch is not modified.
     """
     dtype = log2d_w32.dtype
-    check_options(cfg, dtype, on_block, accept_rule, sparse_wb,
-                  log2_n_projs)
+    check_options(cfg, dtype, on_block, accept_rule)
+    sp = sparse_args(sparse_wb, log2_n_projs)
     dev = batch.c0.device
     n, b = batch.c0.shape
     if tuple(pos.shape) != (n_walks, b):
@@ -440,7 +444,8 @@ def run_multiwalk(batch: SABatch, betas, log2d_w32, cfg, n_walks: int, pos,
     for t in range(k):
         dr = {name: draws[name][t].T for name in ('leaf', 'rand_bit', 'u')}
         dr['rand_bit'] = dr['rand_bit'] != 0
-        _iter_multiwalk(st, betas[t], dr, log2d_w32, cfg, uniform_log2, n)
+        _iter_multiwalk(st, betas[t], dr, log2d_w32, cfg, uniform_log2, n,
+                        sp)
 
     out = finish_batch(st['c0'][:n], st['c1'][:n], st['par'][:n],
                        st['inds'][:n], st['lcc'][:n], st['min_lt'],
@@ -492,6 +497,9 @@ def run_multiwalk_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
             ``disable_shared_inds`` (``SweepConfigFW``).
         n_walks: walks per replica ``P``.
         pos: ``int32 [P, B]`` walk positions (-1 = start a fresh walk).
+        sparse_wb, log2_n_projs: the sparse cost model's cap, or None
+            (as in :func:`run_multiwalk`; the slicer then takes its
+            reference path).
         uniform_log2: the common log2 dim, or None (popcount widths and
             the fast slicer where it is an integer).
         draws: optional ``leaf``, ``rand_bit``, ``u`` ``[K, P, B]`` and
@@ -504,8 +512,8 @@ def run_multiwalk_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
     is not modified.
     """
     dtype = log2d_w32.dtype
-    check_options(cfg, dtype, on_block, accept_rule, sparse_wb,
-                  log2_n_projs)
+    check_options(cfg, dtype, on_block, accept_rule)
+    sp = sparse_args(sparse_wb, log2_n_projs)
     dev = batch.c0.device
     n, b = batch.c0.shape
     if tuple(pos.shape) != (n_walks, b):
@@ -531,14 +539,14 @@ def run_multiwalk_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
         dr = {name: draws[name][t].T for name in ('leaf', 'rand_bit', 'u')}
         dr['rand_bit'] = dr['rand_bit'] != 0
         _iter_multiwalk_fw(st, betas[t], dr, max_width, log2d_w32, cfg,
-                           uniform_log2, n)
+                           uniform_log2, n, sp)
         if mask[t]:
             if bool((st['slices'] != 0).any()):
                 st['slices'], st['lcc'][:n] = reslice_if_better(
                     st['c0'][:n], st['c1'][:n], st['inds'][:n],
                     st['width'][:n], st['slices'], st['lcc'][:n],
                     draws['jitter'][r], max_width, log2d_w32, skip_wb,
-                    cfg.n_leaves, uniform_log2)
+                    cfg.n_leaves, uniform_log2, **sp)
             r += 1
         _snapshot(st, n, cfg.n_leaves)
 

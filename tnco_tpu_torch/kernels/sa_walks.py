@@ -25,11 +25,12 @@ and slices are bitwise equal on the same state and draws, and totals
 agree within the float bound of ``exp2``/``log2`` (tests inject the JAX
 draws through ``draws=``).  The port covers ``claim='sequential'``,
 ``on_block='advance'``, ``accept_rule='round'``, ``prob_kind='mh'``,
-float32, and both slicers: the plane slicer on uniform power-of-two dims
-(the state then carries the union planes) and the reference-shaped one
-(``slicer='ref'``, and every other dims table: no union planes, the
-reslice unpacks the state); the other options raise
-``NotImplementedError`` naming their ROADMAP item.
+float32, sparse indices, and both slicers: the plane slicer on uniform
+power-of-two dims without sparse indices (the state then carries the
+union planes) and the reference-shaped one (``slicer='ref'``, sparse
+indices and every other dims table: no union planes, the reslice
+unpacks the state); the other options raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 import numpy as np
@@ -37,7 +38,7 @@ import torch
 
 from tnco_tpu_torch.device import resolve_device
 from tnco_tpu_torch.kernels.gather import gather_gbn
-from tnco_tpu_torch.kernels.sa_batched import compute_hyper_b
+from tnco_tpu_torch.kernels.sa_batched import compute_hyper_b, sparse_args
 from tnco_tpu_torch.kernels.sa_finite import _WIDTH_EPS
 from tnco_tpu_torch.kernels.sa_finite_batched import (SABatchFW,
                                                       _greedy_slices_b,
@@ -120,15 +121,17 @@ def _lt_from_S(S, w, nk, nl, dtype, u=0):
 
 def _propose_walks(S, pos, leaf, rand_bit, cfg: SweepConfig, log2d_w32,
                    uniform_log2, dtype, slices_wb=None, with_width=False,
-                   u=0):
+                   u=0, sp=None):
     """Row pulls + proposal math at the ``[B, P]`` walk positions.
 
     Three dependent pull phases through K1 (par at the positions and
     fresh leaves; scalar rows at B; scalar rows at A), then ONE
     index-plane gather at the five ids {B, A, C, c0(B), c1(B)}.  Returns
     the advanced positions and the per-walk ``ev`` dict (ids/costs
-    ``[B, P]``, lane sets ``[W, B, P]``).
+    ``[B, P]``, lane sets ``[W, B, P]``).  ``sp``: the sparse cost
+    model's ``{'sparse_w', 'log2_n_projs'}`` (None: dense).
     """
+    sp = sp or {}
     w = cfg.n_lanes
     nk = _nk(dtype)
     p = pos.shape[1]
@@ -189,7 +192,7 @@ def _propose_walks(S, pos, leaf, rand_bit, cfg: SweepConfig, log2d_w32,
     def width(lanes):
         if slices_wb is not None:
             lanes = lanes | slices_wb[:, :, None]
-        return _width_bn(lanes, log2d_w32, uniform_log2, dtype)
+        return _width_bn(lanes, log2d_w32, uniform_log2, dtype, **sp)
 
     ev['ln_b'] = width(inds_d | inds_c)
     ev['ln_a'] = width(ev['new_inds_b'] | inds_e)
@@ -260,7 +263,7 @@ def _apply_walks(S, ev, kept, cfg: SweepConfig, dtype, with_width=False,
 
 
 def _reslice(S, slices, lt_post, jitter, thr_width, log2d_w32, skip_w,
-             cfg, uniform_log2, dtype, up):
+             cfg, uniform_log2, dtype, up, sp):
     """Reslice-if-better on the packed state (``sa_walks.py:637-685``).
 
     With union planes (``up = W``, the plane slicer) the sorted-space
@@ -285,9 +288,11 @@ def _reslice(S, slices, lt_post, jitter, thr_width, log2d_w32, skip_w,
         c0, c1, _par, inds, _lcc, width = _unpack_w(S, w, dtype, S.shape[2],
                                                     fw=True, u=up)
         new_slices = _greedy_slices_b(c0, inds, width, jitter, thr_width,
-                                      log2d_w32, skip_w,
+                                      log2d_w32, skip_w, sp['sparse_w'],
+                                      sp['log2_n_projs'],
                                       uniform_log2=uniform_log2)
         new_lcc_bn = _lcc_fw_b(c0, c1, inds, new_slices, log2d_w32,
+                               sp['sparse_w'], sp['log2_n_projs'],
                                uniform_log2=uniform_log2).T
     new_lt = costs_ops.log2_total_from_lcc_last(new_lcc_bn, cfg.n_leaves)
     better = new_lt < lt_post
@@ -300,10 +305,10 @@ def _reslice(S, slices, lt_post, jitter, thr_width, log2d_w32, skip_w,
 
 
 def _iter_walks_fw(st, beta, update_slices, max_width, log2d_w32, skip_w,
-                   cfg: SweepConfig, uniform_log2, dr, up):
+                   cfg: SweepConfig, uniform_log2, dr, up, sp):
     """One iteration on the state dict ``st`` (updated in place); ``up``
     is the union-plane count of ``S`` (``W`` for the plane slicer, else
-    0)."""
+    0); ``sp`` as in :func:`_propose_walks`."""
     S = st['S']
     w = cfg.n_lanes
     dtype = log2d_w32.dtype
@@ -314,11 +319,11 @@ def _iter_walks_fw(st, beta, update_slices, max_width, log2d_w32, skip_w,
 
     pos, ev = _propose_walks(S, pos, dr['leaf'], dr['rand_bit'], cfg,
                              log2d_w32, uniform_log2, dtype,
-                             slices_wb=slices, with_width=True, u=up)
+                             slices_wb=slices, with_width=True, u=up, sp=sp)
     ev['new_width_b'] = _width_bn(ev['new_inds_b'], log2d_w32,
-                                  uniform_log2, dtype)
+                                  uniform_log2, dtype, **sp)
     new_sliced_width = _width_bn(ev['new_inds_b'] & ~slices[:, :, None],
-                                 log2d_w32, uniform_log2, dtype)
+                                 log2d_w32, uniform_log2, dtype, **sp)
     fits = new_sliced_width <= max_width + _WIDTH_EPS
     accept = _accept_walks(ev, st['lt'], dr['u'], beta) & fits
     keep = _claim_sequential(accept, ev)
@@ -332,7 +337,7 @@ def _iter_walks_fw(st, beta, update_slices, max_width, log2d_w32, skip_w,
     if update_slices and bool((slices != 0).any()):
         slices, lt_new = _reslice(S, slices, lt_new, dr['jitter'],
                                   max_width, log2d_w32, skip_w, cfg,
-                                  uniform_log2, dtype, up)
+                                  uniform_log2, dtype, up, sp)
     st['slices'] = slices
     st['lt'] = lt_new
 
@@ -344,8 +349,7 @@ def _iter_walks_fw(st, beta, update_slices, max_width, log2d_w32, skip_w,
     return ev, keep
 
 
-def _check_options(cfg, dtype, claim, on_block, accept_rule, sparse_wb,
-                   log2_n_projs):
+def _check_options(cfg, dtype, claim, on_block, accept_rule):
     if claim != 'sequential':
         raise _not_ported(f"claim={claim!r}")
     if on_block != 'advance':
@@ -357,20 +361,19 @@ def _check_options(cfg, dtype, claim, on_block, accept_rule, sparse_wb,
         raise _not_ported("accept_rule='chained'")
     if cfg.prob_kind != 'mh':
         raise _not_ported(f"prob_kind={cfg.prob_kind!r}")
-    if sparse_wb is not None or log2_n_projs is not None:
-        raise _not_ported("Sparse indices")
     if dtype != torch.float32:
         raise _not_ported("float64 state (nk=2)")
 
 
-def _union_planes(slicer, uniform_log2, w) -> int:
-    """The slicer resolution of ``sa_walks.py:749-760``: the plane slicer
-    (``W`` union planes) on uniform power-of-two dims unless ``slicer=
-    'ref'``; ``'plane'`` on other dims raises."""
+def _union_planes(slicer, uniform_log2, w, sparse=False) -> int:
+    """The slicer resolution of ``sa_walks.py:745-760``: the plane slicer
+    (``W`` union planes) on uniform power-of-two dims without sparse
+    indices unless ``slicer='ref'``; ``'plane'`` elsewhere raises."""
     if slicer not in (None, 'plane', 'ref'):
         raise ValueError(f"slicer must be None, 'plane' or 'ref', "
                          f"got {slicer!r}.")
-    fast = uniform_log2 is not None and float(uniform_log2).is_integer()
+    fast = (uniform_log2 is not None and not sparse and
+            float(uniform_log2).is_integer())
     if slicer == 'plane' and not fast:
         raise ValueError("slicer='plane' needs uniform power-of-two dims "
                          "and no sparse indices.")
@@ -393,9 +396,13 @@ def run_walks_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
         log2d_w32: ``float32 [W, 32]`` padded log2 dims.
         skip_wb: ``int32 [W]`` (or ``[W, 1]``) lanes never sliced.
         pos: ``int32 [P, B]`` walk positions (-1 = start a fresh walk).
-        slicer: None (the plane slicer on uniform power-of-two dims, the
-            reference-shaped one elsewhere), ``'plane'`` (required; other
-            dims raise) or ``'ref'`` (forced).
+        sparse_wb, log2_n_projs: the sparse cost model's cap
+            (``int32 [W]`` or ``[W, 1]`` sparse bits; every cost's and
+            width's sparse part at most ``log2_n_projs``), or None.
+        slicer: None (the plane slicer on uniform power-of-two dims
+            without sparse indices, the reference-shaped one elsewhere),
+            ``'plane'`` (required; other dims and sparse indices raise)
+            or ``'ref'`` (forced).
         draws: optional pre-drawn streams, a dict of per-iteration stacks
             ``leaf [T, B, P]``, ``rand_bit [T, B, P]``, ``u [T, B, P]``,
             ``jitter [T, n_bits, B]`` (the tests inject the JAX draws).
@@ -413,9 +420,10 @@ def run_walks_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
     nl = cfg.n_leaves
     dtype = log2d_w32.dtype
     nk = _nk(dtype)
-    _check_options(cfg, dtype, claim, on_block, accept_rule, sparse_wb,
-                   log2_n_projs)
-    up = _union_planes(slicer, uniform_log2, w)
+    _check_options(cfg, dtype, claim, on_block, accept_rule)
+    sp = sparse_args(sparse_wb, log2_n_projs)
+    sp = {'sparse_w': sp['sparse_wb'], 'log2_n_projs': sp['log2_n_projs']}
+    up = _union_planes(slicer, uniform_log2, w, sp['sparse_w'] is not None)
     if draws is None and generator is None:
         raise ValueError("Pass draws= or generator=.")
     betas = torch.as_tensor(
@@ -460,7 +468,7 @@ def run_walks_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
         else:
             dr = {k: v[t] for k, v in draws.items()}
         _iter_walks_fw(st, betas[t], bool(mask[t]), max_width, log2d_w32,
-                       skip_w, cfg, uniform_log2, dr, up)
+                       skip_w, cfg, uniform_log2, dr, up, sp)
 
     S, lt, S_min = st['S'], st['lt'], st['S_min']
     improved = lt < st['min_lt']

@@ -189,8 +189,16 @@ def _one_beta_per_iteration(betas) -> None:
             "betas [K, B] run on 'batched', 'walks' and 'multiwalk'.")
 
 
-def run_walker(batch, betas, log2d_w32, cfg, n_walks: int, pos, *,
-               draws=None, generator=None):
+def dense_only(sparse_wb) -> None:
+    """K5 has no sparse cost model; it refuses sparse indices as the JAX
+    walker does (``pallas_walker.py:504,645``)."""
+    if sparse_wb is not None:
+        raise NotImplementedError('walker engine: dense cost model only')
+
+
+def run_walker(batch, betas, log2d_w32, cfg, n_walks: int, pos,
+               sparse_wb=None, log2_n_projs=None, *, draws=None,
+               generator=None):
     """K iterations of ``n_walks``-walk SA per replica, one per beta.
 
     Same contract as :func:`~tnco_tpu_torch.kernels.sa_multiwalk.
@@ -206,6 +214,8 @@ def run_walker(batch, betas, log2d_w32, cfg, n_walks: int, pos, *,
         cfg: :class:`~tnco_tpu_torch.kernels.sa_infinite.SweepConfig`.
         n_walks: walks per replica, 1 to 128.
         pos: ``int32 [P, B]`` walk positions (-1 = start a fresh walk).
+        sparse_wb, log2_n_projs: must be None (dense cost model only;
+            sparse indices raise ``NotImplementedError``).
         draws: optional ``leaf``, ``rand_bit``, ``u``, each ``[K, P, B]``.
         generator: ``torch.Generator`` on the batch's device, used when
             ``draws`` is None.
@@ -213,6 +223,8 @@ def run_walker(batch, betas, log2d_w32, cfg, n_walks: int, pos, *,
     Returns ``(batch, {'moves', 'applied', 'pos'})``.
     """
     global launches
+    del log2_n_projs
+    dense_only(sparse_wb)
     _one_beta_per_iteration(betas)
     if batch.c0.device.type == 'cpu':
         return run_walker_plain(batch, betas, log2d_w32, cfg, n_walks, pos,
@@ -353,7 +365,8 @@ def walker_fw_segment_plain(seg, draws, betas, log2d_w32, cfg, max_width,
         dr = {'leaf': draws['leaf'][t].T, 'rand_bit': draws['rand_bit'][t].T
               != 0, 'u': draws['u'][t].T}
         keep = smw._iter_multiwalk_fw(st, betas[t], dr, max_width, log2d_w32,
-                                      cfg, uniform_log2, n)
+                                      cfg, uniform_log2, n,
+                                      smw.sparse_args(None, None))
         seg['applied'] += keep.sum(dim=1, dtype=torch.int32)
         if not (defer_last_min and t == k - 1):
             smw._snapshot(st, n, cfg.n_leaves)
@@ -442,8 +455,9 @@ def kernel_inputs_fw(batch, pos):
 
 
 def run_walker_fw(batch, betas, update_slices_mask, max_width, log2d_w32,
-                  skip_wb, cfg, n_walks: int, pos, *, uniform_log2=None,
-                  draws=None, generator=None):
+                  skip_wb, cfg, n_walks: int, pos, sparse_wb=None,
+                  log2_n_projs=None, *, uniform_log2=None, draws=None,
+                  generator=None):
     """Finite-width walker: the contract of :func:`~tnco_tpu_torch.
     kernels.sa_multiwalk.run_multiwalk_fw` (dense cost model,
     ``on_block='advance'``, ``accept_rule='round'``) and of the JAX
@@ -461,6 +475,7 @@ def run_walker_fw(batch, betas, update_slices_mask, max_width, log2d_w32,
         cfg: ``SweepConfigFW``.
         n_walks: walks per replica, 1 to 128.
         pos: ``int32 [P, B]`` walk positions (-1 = start a fresh walk).
+        sparse_wb, log2_n_projs: must be None (dense cost model only).
         uniform_log2: the common log2 dim, or None.  Where it is an
             integer the reslice takes the plane slicer and popcount
             costs, which give the reference path's values bitwise.
@@ -471,6 +486,8 @@ def run_walker_fw(batch, betas, update_slices_mask, max_width, log2d_w32,
 
     Returns ``(batch, {'moves', 'applied', 'pos'})``.
     """
+    del log2_n_projs
+    dense_only(sparse_wb)
     _one_beta_per_iteration(betas)
     _check(batch, cfg, n_walks, pos, log2d_w32, fw=True)
     dev = batch.c0.device

@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 __all__ = ['pad_log2_dims', 'device_dtype', 'pairwise_sum_last',
-           'popcount32', 'expand_bits', 'width', 'LANE_BITS']
+           'popcount32', 'expand_bits', 'width', 'as_lanes', 'LANE_BITS']
 
 LANE_BITS = 32
 
@@ -35,6 +35,18 @@ def pad_log2_dims(log2_dims, n_lanes: int, dtype=torch.float32,
     out = np.zeros(n_lanes * LANE_BITS, dtype=np.float64)
     out[:log2_dims.shape[0]] = log2_dims
     return torch.as_tensor(out, dtype=dtype, device=device)
+
+
+def as_lanes(lanes, device) -> torch.Tensor | None:
+    """Lane words as an ``int32`` tensor on ``device``: a ``uint32``
+    numpy array is viewed as its int32 bit patterns, a tensor is moved;
+    None stays None."""
+    if lanes is None:
+        return None
+    if not isinstance(lanes, torch.Tensor):
+        lanes = np.ascontiguousarray(lanes, dtype=np.uint32).view(np.int32)
+        lanes = torch.from_numpy(lanes.copy())
+    return lanes.to(device=device, dtype=torch.int32)
 
 
 def pairwise_sum_last(x: torch.Tensor) -> torch.Tensor:

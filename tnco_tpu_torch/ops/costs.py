@@ -21,14 +21,19 @@ _SCALED_FLOOR = 2.0**-60
 
 def ccost_log2(union_lanes, log2_dims_padded, *, sparse_lanes=None,
                log2_n_projs=None):
-    """log2 of the simple contraction cost of ``in1 | in2`` lanes: the
-    width of the union (``tnco_tpu/ops/costs.py:26-39``; sparse indices
-    are not ported yet)."""
-    if sparse_lanes is not None or log2_n_projs is not None:
-        raise NotImplementedError('Sparse indices are not ported yet '
-                                  '(ROADMAP queue 1, left out of slice 1, '
-                                  'e).')
-    return width(union_lanes, log2_dims_padded)
+    """log2 of the simple contraction cost of ``in1 | in2`` lanes
+    (``tnco_tpu/ops/costs.py:26-39``).
+
+    - Dense: the width of the union (infinite_memory/cost_model/
+      simple.hpp:65-83).
+    - Sparse: the dense part's width plus ``min(sparse part's width,
+      log2_n_projs)`` (simple_sparse_inds.hpp:37-49).
+    """
+    if sparse_lanes is None:
+        return width(union_lanes, log2_dims_padded)
+    dense = width(union_lanes & ~sparse_lanes, log2_dims_padded)
+    sparse = width(union_lanes & sparse_lanes, log2_dims_padded)
+    return dense + torch.clamp(sparse, max=float(log2_n_projs))
 
 
 def pairwise_sum(x: torch.Tensor) -> torch.Tensor:

@@ -11,8 +11,13 @@ part of the product is capped at ``n_projs``.  Host evaluation is exact
 """
 
 import functools as fts
+import math
 import operator as op
 from typing import Any
+
+import numpy as np
+
+from tnco_tpu_torch.bitset import Bitset, n_lanes
 
 __all__ = ['SimpleCostModel']
 
@@ -74,6 +79,21 @@ class SimpleCostModel:
         dense = prod(union - self.sparse_inds)
         sparse = prod(union & self.sparse_inds)
         return dense * min(sparse, self.n_projs)
+
+    def device_params(self, inds_order) -> dict:
+        """Engine inputs: ``sparse_lanes`` (``uint32 [W]``, the sparse
+        indices' bits in ``inds_order``) and ``log2_n_projs``
+        (``float32``), or two Nones for a dense model."""
+        if not self.sparse_inds:
+            return {'sparse_lanes': None, 'log2_n_projs': None}
+        n_inds = len(inds_order)
+        positions = [i for i, x in enumerate(inds_order)
+                     if x in self.sparse_inds]
+        lanes = Bitset(positions, n=n_inds).lanes(n_lanes(n_inds))
+        return {
+            'sparse_lanes': np.asarray(lanes, dtype=np.uint32),
+            'log2_n_projs': np.float32(math.log2(self.n_projs)),
+        }
 
     def __eq__(self, other: Any) -> bool:
         return (type(self) is type(other) and

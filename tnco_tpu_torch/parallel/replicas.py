@@ -1,9 +1,11 @@
 """Replica runners (the port of ``tnco_tpu/parallel/replicas.py``):
-:class:`ReplicaRunner` (infinite memory, engines 'batched', 'walker' and
-'multiwalk') and :class:`ReplicaRunnerFW` (finite width, engines
-'batched', 'walks', 'walker' and 'multiwalk'), and the population
-operators that run between chunks: island exchange (:func:`exchange_best`,
-:func:`exchange_best_fw`) and the slice-kick (:func:`kick_lanes_fw`).
+:class:`ReplicaRunner` (infinite memory, engines 'batched', 'vmapped',
+'walker' and 'multiwalk') and :class:`ReplicaRunnerFW` (finite width,
+engines 'batched', 'vmapped', 'walks', 'walker' and 'multiwalk'), and
+the population operators that run between chunks: island exchange
+(:func:`exchange_best`, :func:`exchange_best_fw`) and the slice-kick
+(:func:`kick_lanes_fw`).  Both runners take a sparse cost model (every
+engine but 'walker', which refuses it as the JAX walker does).
 
 Replicas of one connected component share array shapes, so a batch is
 one stacked state on one device; ``run`` anneals it in chunks with a
@@ -15,13 +17,16 @@ slice set every ``update_slices`` steps, reference finite_width/sa.py:
 import dataclasses
 from random import Random
 import time
+from warnings import warn
 
 import numpy as np
 import torch
 
 from tnco_tpu_torch.device import resolve_device
 from tnco_tpu_torch.kernels import sa_batched as sb
+from tnco_tpu_torch.kernels import sa_finite as saf
 from tnco_tpu_torch.kernels import sa_finite_batched as sfb
+from tnco_tpu_torch.kernels import sa_infinite as sa
 from tnco_tpu_torch.kernels import sa_multiwalk as smw
 from tnco_tpu_torch.kernels import sa_walks as swk
 from tnco_tpu_torch.kernels import walker as kwalker
@@ -37,15 +42,15 @@ __all__ = ['ReplicaRunner', 'ReplicaRunnerFW', 'exchange_best',
 
 _ENGINES = ('batched', 'vmapped', 'native', 'multiwalk', 'walker', 'sweep',
             'walks')
-_PORTED = ('batched', 'walks', 'walker', 'multiwalk')
-_PORTED_IM = ('batched', 'walker', 'multiwalk')
-# Every ported engine keeps the replica axis last, so exchange and the
-# kick run on all of them (the JAX runners' ``_LANE_MAJOR``).
-_LANE_MAJOR = _PORTED
+_PORTED = ('batched', 'vmapped', 'walks', 'walker', 'multiwalk')
+_PORTED_IM = ('batched', 'vmapped', 'walker', 'multiwalk')
+# Engines whose state keeps the replica axis last; exchange and the kick
+# run on them only ('vmapped' keeps replica-major states), as in the JAX
+# runners.
+_LANE_MAJOR = ('batched', 'walks', 'walker', 'multiwalk')
 # ROADMAP queue 1 items of the engines that are not ported yet ('walks'
 # only for infinite memory).
-_ITEMS = {'vmapped': 'item 12', 'native': 'item 10', 'walks': 'item 10',
-          'sweep': 'item 13'}
+_ITEMS = {'native': 'item 10', 'walks': 'item 10', 'sweep': 'item 13'}
 
 
 def _accel_available(device: torch.device) -> bool:
@@ -65,8 +70,9 @@ def resolve_engine(n_nodes: int, n_lanes: int, *, accel: bool,
                    fw: bool = True) -> str:
     """The JAX runners' 'auto' rule (``replicas.py:689-708`` finite
     width, ``:282-301`` infinite memory with ``fw=False``): small states
-    go to 'batched', large ones on a device to 'walks' (FW) or 'walker'
-    (IM)."""
+    go to 'batched', large dense ones on a device to 'walks' (FW) or
+    'walker' (IM), the rest (sparse indices, new slices, other accept
+    rules) to 'vmapped'."""
     if n_nodes * n_lanes <= 32768 and max_new_slices == 0:
         return 'batched'
     if (accel and not sparse and max_new_slices == 0 and
@@ -96,6 +102,22 @@ def _check_exchange_axes(exchange_axes) -> None:
             "ported yet (ROADMAP queue 1, item 15).")
 
 
+def _sparse_params(cmodel, template, device):
+    """``(sparse_lanes int32 [W], sparse_wb [W, 1], log2_n_projs)`` of a
+    sparse cost model over the template's index order, on ``device``;
+    three Nones for a dense one (``replicas.py:272-281``)."""
+    if cmodel is None or not getattr(cmodel, 'sparse_inds', None):
+        return None, None, None
+    dev = cmodel.device_params(template.inds_order)
+    lanes = bitops.as_lanes(dev['sparse_lanes'], device)
+    return lanes, lanes[:, None], dev['log2_n_projs']
+
+
+def _warn_exchange(engine: str) -> None:
+    warn(f"exchange_every is only supported by the {_LANE_MAJOR} engines "
+         f"(engine={engine!r}); ignored.")
+
+
 def _check_betas(betas, n_replicas: int) -> np.ndarray:
     """``betas`` as float32 host rows: ``[n]``, or ``[n, B]``, one beta
     per lane (a tempering ladder; the walker refuses those)."""
@@ -114,13 +136,19 @@ class ReplicaRunner:
         ctrees: One initial ``ContractionTree`` per replica (same shape).
         seeds: One integer seed per replica (the batch's
             ``torch.Generator`` is seeded from all of them).
-        cmodel: Infinite-memory cost model (sparse indices raise).
+        cmodel: Infinite-memory cost model; a sparse one caps every
+            cost's sparse part at ``log2(n_projs)`` ('walker' refuses it,
+            as the JAX walker does).
         disable_shared_inds, prob_kind: Kernel flags; ``prob_kind`` None
             means 'mh'.
-        engine: 'auto', 'batched', 'walker' or 'multiwalk'.  'auto'
-            resolves by the JAX runner's rule (``replicas.py:282-301``:
-            'batched' for N*W <= 32768); an engine that is not ported yet
-            raises, naming its ROADMAP item.
+        engine: 'auto', 'batched', 'vmapped', 'walker' or 'multiwalk'.
+            'auto' resolves by the JAX runner's rule (``replicas.py:
+            282-301``: 'batched' for N*W <= 32768, else 'walker' on the
+            card for a dense model, else 'vmapped'); an engine that is
+            not ported yet raises, naming its ROADMAP item.  'vmapped'
+            keeps replica-major :class:`~tnco_tpu_torch.kernels.
+            sa_infinite.SAStateIM` states and runs the lockstep sweep on
+            them (equal to 'batched' on the same draws).
         n_walks: Walks per replica (default 8; not used by 'batched').
         on_block, accept_rule: 'multiwalk' options (see
             :func:`~tnco_tpu_torch.kernels.sa_multiwalk.run_multiwalk`).
@@ -155,18 +183,17 @@ class ReplicaRunner:
             raise NotImplementedError(
                 "Multi-device runs are not ported yet (ROADMAP queue 1, "
                 "item 15).")
-        if cmodel is not None and getattr(cmodel, 'sparse_inds', None):
-            raise NotImplementedError(
-                "Sparse indices are not ported yet (ROADMAP queue 1, left "
-                "out of slice 1, e).")
 
         self.template = ctrees[0]
         n_lanes = self.template.inds_array.shape[1]
+        self.sparse_lanes, self.sparse_wb, self.log2_n_projs = \
+            _sparse_params(cmodel, self.template, self.device)
         if engine == 'auto':
             engine = resolve_engine(
                 len(self.template), n_lanes,
                 accel=_accel_available(self.device),
-                native=_native_available(), sparse=False, max_new_slices=0,
+                native=_native_available(),
+                sparse=self.sparse_lanes is not None, max_new_slices=0,
                 disable_shared_inds=disable_shared_inds,
                 prob_kind=prob_kind, fw=False)
         if engine not in _ENGINES:
@@ -175,7 +202,10 @@ class ReplicaRunner:
             raise NotImplementedError(
                 f"engine={engine!r} is not ported to tnco_tpu_torch yet "
                 f"(ROADMAP queue 1, {_ITEMS[engine]}); pass "
-                "engine='batched', engine='walker' or engine='multiwalk'.")
+                "engine='batched', engine='vmapped', engine='walker' or "
+                "engine='multiwalk'.")
+        if engine == 'walker':
+            kwalker.dense_only(self.sparse_wb)
         if prob_kind is None:
             prob_kind = 'mh'
         on_block = 'advance' if on_block is None else on_block
@@ -185,8 +215,8 @@ class ReplicaRunner:
             raise ValueError(
                 f"engine='walker' does not run on N={len(self.template)}, "
                 f"W={n_lanes} (kernels.walker.walker_supported).")
-        if engine in ('walker', 'batched') and (on_block, accept_rule) != (
-                'advance', 'round'):
+        if engine in ('walker', 'batched', 'vmapped') and (
+                on_block, accept_rule) != ('advance', 'round'):
             raise ValueError(
                 "on_block and accept_rule other than 'advance' and 'round' "
                 "are only supported by the 'multiwalk' and 'walks' "
@@ -205,8 +235,13 @@ class ReplicaRunner:
         self.log2d_w32 = self.log2d.reshape(n_lanes, 32)
         self.uniform_log2 = uniform_log2_dim(self.template.log2_dims_array)
 
-        self.states = sb.init_batch(ctrees, seeds, self.log2d.cpu().numpy(),
-                                    dtype=np.float32, device=self.device)
+        self.states = sb.init_batch(
+            ctrees, seeds, self.log2d.cpu().numpy(),
+            sparse_lanes=_host_lanes(self.sparse_lanes),
+            log2_n_projs=self.log2_n_projs, dtype=np.float32,
+            device=self.device)
+        if engine == 'vmapped':
+            self.states = sa.from_batch(self.states)
         self._mw_pos = torch.full((self.n_walks, len(ctrees)), -1,
                                   dtype=torch.int32, device=self.device)
         self.generator = torch.Generator(device=self.device)
@@ -233,14 +268,18 @@ class ReplicaRunner:
         ``betas`` is ``[n]`` or per lane ``[n, B]`` (a tempering ladder;
         not on 'walker', whose kernel reads one beta per iteration).
         After each chunk the host checks the wall-clock budget and calls
-        ``callback``.  'batched' counts no applied moves (``applied``
-        stays None, as in the JAX runner).
+        ``callback``.  'batched' and 'vmapped' count no applied moves
+        (``applied`` stays None, as in the JAX runner).
 
         ``exchange_every``: every that many chunks (not after the last),
         :func:`exchange_best` restarts the worst ``exchange_fraction`` of
-        each of ``exchange_islands`` islands from its best lane.
-        ``exchange_axes`` names mesh axes, so it raises (one device)."""
+        each of ``exchange_islands`` islands from its best lane (the
+        lane-major engines; 'vmapped' warns and ignores it, as the JAX
+        runner does).  ``exchange_axes`` names mesh axes, so it raises
+        (one device)."""
         _check_exchange_axes(exchange_axes)
+        if exchange_every and self.engine not in _LANE_MAJOR:
+            _warn_exchange(self.engine)
         betas = _check_betas(betas, self.n_replicas)
         start = time.perf_counter()
         n = len(betas)
@@ -256,9 +295,15 @@ class ReplicaRunner:
                     [chunk,
                      np.repeat(chunk[-1:], chunk_size - len(chunk), axis=0)])
             chunk = torch.from_numpy(chunk).to(self.device)
+            sp = (self.sparse_wb, self.log2_n_projs)
             if self.engine == 'batched':
                 self.states, metrics = sb.run_sweeps_batched(
-                    self.states, chunk, self.log2d_w32, self.cfg,
+                    self.states, chunk, self.log2d_w32, self.cfg, *sp,
+                    uniform_log2=self.uniform_log2, generator=self.generator)
+            elif self.engine == 'vmapped':
+                self.states, metrics = sa.run_sweeps_batch(
+                    self.states, chunk, self.log2d, self.cfg,
+                    self.sparse_lanes, self.log2_n_projs,
                     uniform_log2=self.uniform_log2, generator=self.generator)
             elif self.engine == 'walker':
                 self.states, metrics = kwalker.run_walker(
@@ -267,13 +312,14 @@ class ReplicaRunner:
             else:
                 self.states, metrics = smw.run_multiwalk(
                     self.states, chunk, self.log2d_w32, self.cfg,
-                    self.n_walks, self._mw_pos,
+                    self.n_walks, self._mw_pos, *sp,
                     uniform_log2=self.uniform_log2, on_block=self.on_block,
                     accept_rule=self.accept_rule, generator=self.generator)
             self._count(metrics, chunk_size)
             pos += chunk_size
             n_chunks += 1
-            if exchange_every and pos < n and n_chunks % exchange_every == 0:
+            if (exchange_every and self.engine in _LANE_MAJOR and pos < n
+                    and n_chunks % exchange_every == 0):
                 self.states = exchange_best(self.states, exchange_fraction,
                                             exchange_islands)
             if callback is not None:
@@ -307,16 +353,28 @@ class ReplicaRunner:
     def min_ctree(self, replica: int):
         """Best tree found by ``replica`` as a host ``ContractionTree``."""
         s = self.states
+        if self.engine == 'vmapped':
+            return sa.state_to_ctree(self.template, s.min_nodes[replica],
+                                     s.min_inds[replica])
         return _tree_of(self.template, s.min_c0, s.min_c1, s.min_par,
                         s.min_inds, replica)
 
     def ctree(self, replica: int):
         """Current (not best) tree of ``replica``."""
         s = self.states
+        if self.engine == 'vmapped':
+            return sa.state_to_ctree(self.template, s.nodes[replica],
+                                     s.inds[replica])
         return _tree_of(self.template, s.c0, s.c1, s.par, s.inds, replica)
 
     def log2_min_totals(self) -> np.ndarray:
         return self.states.min_log2_total.cpu().numpy()
+
+
+def _host_lanes(lanes):
+    """An int32 lane tensor as host ``uint32`` words (None stays None)."""
+    return None if lanes is None else \
+        lanes.cpu().numpy().view(np.uint32)
 
 
 def _host(x, replica):
@@ -339,14 +397,22 @@ class ReplicaRunnerFW:
         ctrees: One initial ``ContractionTree`` per replica (same shape).
         seeds: One integer seed per replica (initial slices and the
             batch's ``torch.Generator``).
-        cmodel: Finite-width cost model (``max_width``).
-        engine: 'auto', 'batched', 'walks', 'walker' or 'multiwalk'.
-            'auto' resolves by the JAX runner's rule (``replicas.py:
-            689-708``: 'batched' for N*W <= 32768 without new slices),
-            which never picks 'walker'; an engine that is not ported yet
-            raises, naming its ROADMAP item.
+        cmodel: Finite-width cost model (``max_width``); a sparse one
+            caps every cost's and width's sparse part at
+            ``log2(n_projs)`` ('walker' refuses it, as the JAX walker
+            does; 'walks' then takes the reference slicer).
+        engine: 'auto', 'batched', 'vmapped', 'walks', 'walker' or
+            'multiwalk'.  'auto' resolves by the JAX runner's rule
+            (``replicas.py:689-708``: 'batched' for N*W <= 32768 without
+            new slices, else 'walks' on the card for a dense model
+            without new slices, else 'vmapped'), which never picks
+            'walker'; an engine that is not ported yet raises, naming
+            its ROADMAP item.  'vmapped' keeps replica-major
+            :class:`~tnco_tpu_torch.kernels.sa_finite.SAStateFW` states
+            and runs the lockstep sweep on them.
         max_number_new_slices: Slices a rejected move may add to fit the
-            cap (the rescue; 'batched' only, as in the JAX runner).
+            cap (the rescue; 'batched' and 'vmapped' only, as in the JAX
+            runner).
         n_walks: Walks per replica (default 128 for 'walks', 8 for
             'walker' and 'multiwalk').
         on_block, accept_rule: 'walks' and 'multiwalk' options ('walker'
@@ -383,14 +449,12 @@ class ReplicaRunnerFW:
             raise NotImplementedError(
                 "Multi-device runs are not ported yet (ROADMAP queue 1, "
                 "item 15).")
-        if getattr(cmodel, 'sparse_inds', None):
-            raise NotImplementedError(
-                "Sparse indices are not ported yet (ROADMAP queue 1, left "
-                "out of slice 1, e).")
 
         self.fw_slicer = fw_slicer
         self.template = ctrees[0]
         n_lanes = self.template.inds_array.shape[1]
+        self.sparse_lanes, self.sparse_wb, self.log2_n_projs = \
+            _sparse_params(cmodel, self.template, self.device)
         self.log2d = bitops.pad_log2_dims(self.template.log2_dims_array,
                                           n_lanes, dtype, self.device)
         self.max_width = torch.tensor(cmodel.max_width, dtype=dtype,
@@ -405,7 +469,8 @@ class ReplicaRunnerFW:
             engine = resolve_engine(
                 len(self.template), n_lanes,
                 accel=_accel_available(self.device),
-                native=_native_available(), sparse=False,
+                native=_native_available(),
+                sparse=self.sparse_lanes is not None,
                 max_new_slices=int(max_number_new_slices),
                 disable_shared_inds=disable_shared_inds,
                 prob_kind=prob_kind)
@@ -415,8 +480,11 @@ class ReplicaRunnerFW:
             raise NotImplementedError(
                 f"engine={engine!r} is not ported to tnco_tpu_torch yet "
                 f"(ROADMAP queue 1, {_ITEMS[engine]}); pass engine='walks', "
-                "engine='walker', engine='multiwalk' or engine='batched'.")
-        if max_number_new_slices and engine != 'batched':
+                "engine='walker', engine='multiwalk', engine='batched' or "
+                "engine='vmapped'.")
+        if engine == 'walker':
+            kwalker.dense_only(self.sparse_wb)
+        if max_number_new_slices and engine not in ('batched', 'vmapped'):
             raise ValueError(f"engine={engine!r} does not support "
                              "max_number_new_slices.")
         if prob_kind is None:
@@ -428,7 +496,7 @@ class ReplicaRunnerFW:
             raise ValueError(
                 f"engine='walker' does not run on N={len(self.template)}, "
                 f"W={n_lanes} (kernels.walker.walker_supported_fw).")
-        if engine in ('walker', 'batched') and (
+        if engine in ('walker', 'batched', 'vmapped') and (
                 self.on_block, self.accept_rule) != ('advance', 'round'):
             raise ValueError(
                 "on_block and accept_rule other than 'advance' and 'round' "
@@ -446,7 +514,8 @@ class ReplicaRunnerFW:
         self.n_walks = _resolve_walks(engine, n_walks, fw=True)
         self.log2d_w32 = self.log2d.reshape(n_lanes, 32)
         self.uniform_log2 = uniform_log2_dim(self.template.log2_dims_array)
-        if engine == 'batched' and self.uniform_log2 is not None and \
+        if engine in ('batched', 'vmapped') and \
+                self.uniform_log2 is not None and \
                 not float(self.uniform_log2).is_integer():
             # The lockstep engine equals the JAX one bitwise only with
             # popcount widths on integer log2 dims (replicas.py:912-916).
@@ -454,7 +523,11 @@ class ReplicaRunnerFW:
 
         self.states = sfb.init_batch_fw(
             ctrees, seeds, float(self.max_width), self.log2d.cpu().numpy(),
-            skip_lanes=skip, dtype=np.float32, device=self.device)
+            skip_lanes=skip, sparse_lanes=_host_lanes(self.sparse_lanes),
+            log2_n_projs=self.log2_n_projs, dtype=np.float32,
+            device=self.device)
+        if engine == 'vmapped':
+            self.states = saf.from_batch_fw(self.states)
         self._mw_pos = torch.full((self.n_walks, len(ctrees)), -1,
                                   dtype=torch.int32, device=self.device)
         self.generator = torch.Generator(device=self.device)
@@ -481,10 +554,12 @@ class ReplicaRunnerFW:
         the last chunk padded with its last beta and no reslice, as in the
         JAX runner), drawing from the batch's generator.  The reslice mask
         is global (``step % update_slices == 0``), cut per chunk.
-        'batched' counts no applied moves.  Exchange as in
+        'batched' and 'vmapped' count no applied moves.  Exchange as in
         :meth:`ReplicaRunner.run`, with :func:`exchange_best_fw` (the
         slice set travels with the tree)."""
         _check_exchange_axes(exchange_axes)
+        if exchange_every and self.engine not in _LANE_MAJOR:
+            _warn_exchange(self.engine)
         betas = _check_betas(betas, self.n_replicas)
         n = len(betas)
         mask = ((np.arange(n) % max(1, update_slices)) == 0
@@ -503,16 +578,24 @@ class ReplicaRunnerFW:
                 chunk = np.concatenate(
                     [chunk, np.repeat(chunk[-1:], pad, axis=0)])
                 mchunk = np.concatenate([mchunk, np.zeros(pad, dtype=bool)])
+            sp = (self.sparse_wb, self.log2_n_projs)
             if self.engine == 'batched':
                 self.states, metrics = sfb.run_sweeps_fw_batched(
                     self.states, chunk, mchunk, self.max_width,
-                    self.log2d_w32, self.skip_lanes, self.cfg,
+                    self.log2d_w32, self.skip_lanes, self.cfg, *sp,
                     uniform_log2=self.uniform_log2, generator=self.generator)
+            elif self.engine == 'vmapped':
+                self.states, metrics = saf.run_sweeps_fw_batch(
+                    self.states, chunk, mchunk, self.max_width, self.log2d,
+                    self.skip_lanes, self.cfg, self.sparse_lanes,
+                    self.log2_n_projs, uniform_log2=self.uniform_log2,
+                    generator=self.generator)
             elif self.engine == 'walks':
                 self.states, metrics = swk.run_walks_fw(
                     self.states, chunk, mchunk, self.max_width,
                     self.log2d_w32, self.skip_lanes, self.cfg, self._mw_pos,
-                    uniform_log2=self.uniform_log2, on_block=self.on_block,
+                    *sp, uniform_log2=self.uniform_log2,
+                    on_block=self.on_block,
                     accept_rule=self.accept_rule, slicer=self.fw_slicer,
                     generator=self.generator, device=self.device)
             elif self.engine == 'walker':
@@ -525,13 +608,14 @@ class ReplicaRunnerFW:
                 self.states, metrics = smw.run_multiwalk_fw(
                     self.states, chunk, mchunk, self.max_width,
                     self.log2d_w32, self.skip_lanes, self.cfg, self.n_walks,
-                    self._mw_pos, uniform_log2=self.uniform_log2,
+                    self._mw_pos, *sp, uniform_log2=self.uniform_log2,
                     on_block=self.on_block, accept_rule=self.accept_rule,
                     generator=self.generator)
             self._count(metrics, chunk_size)
             pos += chunk_size
             n_chunks += 1
-            if exchange_every and pos < n and n_chunks % exchange_every == 0:
+            if (exchange_every and self.engine in _LANE_MAJOR and pos < n
+                    and n_chunks % exchange_every == 0):
                 self.states = exchange_best_fw(
                     self.states, exchange_fraction, exchange_islands)
             if callback is not None:
@@ -548,23 +632,20 @@ class ReplicaRunnerFW:
         }
 
     _count = ReplicaRunner._count
+    min_ctree = ReplicaRunner.min_ctree
+    ctree = ReplicaRunner.ctree
 
-    def min_ctree(self, replica: int):
-        s = self.states
-        return _tree_of(self.template, s.min_c0, s.min_c1, s.min_par,
-                        s.min_inds, replica)
-
-    def ctree(self, replica: int):
-        """Current (not best) tree of ``replica``."""
-        s = self.states
-        return _tree_of(self.template, s.c0, s.c1, s.par, s.inds, replica)
+    def _lanes(self, x, replica):
+        if self.engine == 'vmapped':
+            return x[replica].cpu().numpy().view(np.uint32)
+        return _host(x, replica).view(np.uint32)
 
     def slices_lanes(self, replica: int) -> np.ndarray:
         """Current slice lanes of ``replica`` (``uint32 [W]``)."""
-        return _host(self.states.slices, replica).view(np.uint32)
+        return self._lanes(self.states.slices, replica)
 
     def min_slices_lanes(self, replica: int) -> np.ndarray:
-        return _host(self.states.min_slices, replica).view(np.uint32)
+        return self._lanes(self.states.min_slices, replica)
 
     def log2_min_totals(self) -> np.ndarray:
         return self.states.min_log2_total.cpu().numpy()
@@ -655,8 +736,9 @@ def _kick_cols_host(runner, src: int, lanes, seed: int):
     """Host half of the slice-kick (``replicas.py:1484-1544``): one fresh
     greedy slice set of ``src``'s tree per victim (``random.Random((seed
     * 1000003 + lane) & 0x7FFFFFFF)`` jitter) and its float64 slice-aware
-    ``lcc`` and total.  Returns ``(slices uint32 [W, K], lcc float64 [N,
-    K], lt float64 [K])``."""
+    ``lcc`` and total, the sparse part capped under a sparse cost model.
+    Returns ``(slices uint32 [W, K], lcc float64 [N, K], lt float64
+    [K])``."""
     s = runner.states
     inds_src = s.inds[..., src].cpu().numpy().view(np.uint32)   # [N, W]
     c0_src = s.c0[:, src].cpu().numpy()
@@ -672,13 +754,25 @@ def _kick_cols_host(runner, src: int, lanes, seed: int):
 
     skip_np = runner.skip_lanes.cpu().numpy().view(np.uint32)
     skip_bits = expand(skip_np) if skip_np.any() else None
+    log2_n_projs = runner.log2_n_projs
+    sparse_bits = (None if runner.sparse_lanes is None else
+                   expand(_host_lanes(runner.sparse_lanes)))
+
+    def width_of(bits):
+        if sparse_bits is None:
+            return bits @ log2d
+        return ((bits & ~sparse_bits) @ log2d +
+                np.minimum((bits & sparse_bits) @ log2d,
+                           float(log2_n_projs)))
+
     k = len(lanes)
     new_slices = np.empty((w, k), dtype=np.uint32)
     for j, lane in enumerate(lanes):
         new_slices[:, j] = greedy_slices_host(
             inds_src, log2d, mw,
             Random((seed * 1000003 + int(lane)) & 0x7FFFFFFF),
-            skip_bits=skip_bits)
+            skip_bits=skip_bits, sparse_bits=sparse_bits,
+            log2_n_projs=log2_n_projs)
 
     internal = c0_src >= 0
     inds_c0 = np.take_along_axis(
@@ -690,7 +784,7 @@ def _kick_cols_host(runner, src: int, lanes, seed: int):
     new_lt = np.empty(k, dtype=np.float64)
     for j in range(k):
         union = expand(inds_c0 | inds_c1 | new_slices[None, :, j])
-        lcc_j = np.where(internal, union @ log2d, -np.inf)
+        lcc_j = np.where(internal, width_of(union), -np.inf)
         new_lcc[:, j] = lcc_j
         tail = lcc_j[n_leaves:]
         if tail.size:
@@ -718,10 +812,11 @@ def _kick_cols_device(runner, src: int, k: int, jitter):
     c1_k = s.c1[:, src:src + 1].expand(n, k)
     width_k = s.width[:, src:src + 1].expand(n, k)
     ul = uniform_log2_dim(runner.template.log2_dims_array)
+    sp = (runner.sparse_wb, runner.log2_n_projs)
     slices = sfb._greedy_slices_b(c0_k, inds_k, width_k, jitter,
                                   runner.max_width, runner.log2d_w32,
-                                  runner.skip_lanes, uniform_log2=ul)
-    lcc = sfb._lcc_fw_b(c0_k, c1_k, inds_k, slices, runner.log2d_w32,
+                                  runner.skip_lanes, *sp, uniform_log2=ul)
+    lcc = sfb._lcc_fw_b(c0_k, c1_k, inds_k, slices, runner.log2d_w32, *sp,
                         uniform_log2=ul)
     lt = costs_ops.log2_total_from_lcc(lcc, runner.template.n_leaves)
     return slices, lcc, lt
