@@ -161,11 +161,39 @@ Phases, each fatal on failure:
    walks-FW iteration on the card and on the CPU from one state and the
    same draws (SPARSE_CHECK_B replicas): integer and bit state bitwise,
    totals within 1e-5; (e) K1 and K3 bitwise against their plain
-   versions at each shape the phase launched them.
+   versions at each shape the phase launched them;
+23. the walk variants and float64 state on the full network (N=3241,
+   W=64): (a) ``Optimizer(seed=0, engine='walks', n_walks=32)``, 64
+   runs x 32 steps at the IM walks runner's default P=32 (the app's own
+   default is 8 for every walk engine; ``fuse=0``), every result and
+   replica audited as in phase 5; (b) from copies of that runner's state, each
+   variant of the walks engine (the default, ``on_block`` 'restart' and
+   'dedup', ``accept_rule='chained'``, ``prob_kind`` 'greedy', 'base'
+   and 'mh_local', ``claim='pairwise'`` through ``run_walks``), and from
+   copies of the FW product runner's state (P=128, reslice every 2) the
+   default, 'dedup', 'chained' and ``claim='pairwise'`` (through
+   ``run_walks_fw``): a warm-up, VARIANT_ITERS timed iterations, ms an
+   iteration, proposals/s and applied/s, every replica audited; (c)
+   under the float64 mode (``bitops.enable_float64``):
+   ``Optimizer(max_width=30, seed=0)`` on the full network ('auto':
+   'walks', float64; F64_FULL_RUNS runs x 16 steps, reslice every 2) and
+   ``Optimizer(seed=0)``, ``Optimizer(max_width=30, seed=0)`` at the
+   default fuse ('batched', float64; 64 runs x BATCHED_APP_STEPS
+   sweeps): the state's dtype float64, every result audited, every
+   replica's device log2 total within F64_AUDIT of its exact bigint
+   cost, the largest gap printed beside the float32 runs'; (d) at
+   VARIANT_CHECK_B replicas, on the card and on the CPU from one state
+   and the same draws: one IM walks iteration per variant of (b), one FW
+   walks iteration with 'chained' and 'dedup', one float64 'batched'
+   sweep IM and FW (a reslice) and one float64 walks-FW iteration:
+   integer and bit state bitwise, totals within 1e-5 (float32) or
+   F64_CARD (float64); (e) K1 and K3 bitwise against their plain
+   versions at each shape the phase launched them, the float64 plane
+   counts included.
 
-Phases 11-22 run between phases 9 and 10, whose kernel line carries
+Phases 11-23 run between phases 9 and 10, whose kernel line carries
 every phase's launch counts (K1's and K3's rows add phases 15-17's, 19's,
-21's and 22's); phase 13's profiled sweeps run after 10.
+21's, 22's and 23's); phase 13's profiled sweeps run after 10.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
@@ -216,13 +244,17 @@ BATCHED_KERNELS = ('gather_gbn', 'scatter_rows_inplace')
 # walks app, phase 3).
 CIRCUIT_PATHS = ('circuit_fsim', 'circuit_qasm', 'circuit_qaoa', 'sampler')
 SPARSE_PATHS = ('sparse_im', 'sparse_fw', 'sparse_qaoa', 'sparse_walks')
+# Phase 23: the IM walks app, the walk variants, the float64 apps.
+PHASE23_PATHS = ('im_walks_app', 'walk_variants', 'f64_fw_walks',
+                 'f64_batched_im', 'f64_batched_fw')
 MAIN_PATHS = {'gather_gbn': ('fw_app', 'batched_fw_app', 'batched_im_app',
                              'fw_product', 'fw_throughput', 'fw_tempering',
-                             *CIRCUIT_PATHS, *SPARSE_PATHS),
+                             *CIRCUIT_PATHS, *SPARSE_PATHS, *PHASE23_PATHS),
               'scatter_rows_inplace': ('fw_app', 'batched_fw_app',
                                        'batched_im_app', 'fw_product',
                                        'fw_throughput', 'fw_tempering',
-                                       *CIRCUIT_PATHS, *SPARSE_PATHS),
+                                       *CIRCUIT_PATHS, *SPARSE_PATHS,
+                                       *PHASE23_PATHS),
               'walker_im': ('im_app',), 'walker_fw': ('fw_walker_app',),
               'inv_ids': ('bench',), 'scatter_rows_gbn': ('bench',),
               'probe_loop': ('bench',), 'probe_take': ('bench',)}
@@ -411,26 +443,56 @@ def phase_app(torch):
     return counts
 
 
-def _exact_sliced(tree, lanes):
-    """``(largest width after slicing, exact log2 of the sliced total)``
-    of ``tree`` under the slice lanes ``lanes`` (bigint products)."""
+def _exact_total(tree, lanes=None):
+    """``(largest width after slicing, exact bigint sliced total)`` of
+    ``tree`` under the slice lanes ``lanes`` (None: no slices), the
+    total as ``ContractionTree.total_cost_exact`` defines it times the
+    sliced dims' product.  On integer log2 dims every contraction costs
+    ``2**width``: widths come from per-byte popcounts of the index words
+    (one mask per log2 value) and the total from a count per width;
+    other dims multiply node by node."""
     import numpy as np
 
     log2d = tree.log2_dims_array
-    sl_bits = np.unpackbits(lanes.view(np.uint8),
-                            bitorder='little')[:len(log2d)].astype(bool)
-    bits = np.unpackbits(tree.inds_array.view(np.uint8), axis=1,
-                         bitorder='little')[:, :len(log2d)].astype(bool)
-    dims_l = tree.dims_array
-    sl_mul = math.prod(int(d) for d, s in zip(dims_l, sl_bits) if s)
+    words = tree.inds_array                                  # uint32 [N, W]
+    w = words.shape[1]
+    sl = (np.zeros(w, dtype=np.uint32) if lanes is None else
+          np.asarray(lanes, dtype=np.uint32))
     nodes = tree.nodes_array
-    total = 0
-    for pos in range(len(nodes)):
-        if nodes[pos, 0] < 0:
-            continue
-        u = bits[nodes[pos, 0]] | bits[nodes[pos, 1]]
-        total += math.prod(int(d) for d in dims_l[u & ~sl_bits])
-    return ((bits & ~sl_bits) @ log2d).max(), math.log2(total * sl_mul)
+    inner = nodes[nodes[:, 0] >= 0]
+    union = (words[inner[:, 0]] | words[inner[:, 1]]) & ~sl
+    if not np.array_equal(log2d, np.round(log2d)):
+        dims_l = tree.dims_array
+
+        def bits(x):
+            return np.unpackbits(x.view(np.uint8), axis=-1,
+                                 bitorder='little')[..., :len(log2d)]
+
+        total = sum(math.prod(int(d) for d in dims_l[u.astype(bool)])
+                    for u in bits(union))
+        sl_mul = math.prod(int(d) for d in dims_l[bits(sl).astype(bool)])
+        return (bits(words & ~sl) @ log2d).max(), total * sl_mul
+    pop8 = np.asarray([bin(i).count('1') for i in range(256)], np.int64)
+    log2i = np.zeros(32 * w, dtype=np.int64)
+    log2i[:len(log2d)] = np.round(log2d)
+
+    def width(x):                                  # [..., W] -> int [...]
+        out = np.zeros(x.shape[:-1], dtype=np.int64)
+        for v in np.unique(log2i[log2i > 0]):
+            mask = np.packbits(log2i == v, bitorder='little').view(np.uint32)
+            out += v * pop8[(x & mask).view(np.uint8)].sum(axis=-1)
+        return out
+
+    counts = np.bincount(width(union))
+    total = sum(int(c) << k for k, c in enumerate(counts) if c)
+    return float(width(words & ~sl).max()), total << int(width(sl))
+
+
+def _exact_sliced(tree, lanes):
+    """``(largest width after slicing, exact log2 of the sliced total)``
+    of ``tree`` under the slice lanes ``lanes`` (bigint products)."""
+    width, total = _exact_total(tree, lanes)
+    return width, math.log2(total)
 
 
 def _audit_fw_runner(runner, max_width, what):
@@ -666,7 +728,7 @@ def _audit_im_runner(runner, what):
         ok, msg = best.is_valid(return_message=True)
         if not ok:
             fail(f'{what}: replica {r}: invalid min tree: {msg}')
-        exact.append(best.total_cost_exact())
+        exact.append(_exact_total(best)[1])
         worst = max(worst, abs(math.log2(exact[-1]) - float(mins[r])))
     if worst > 1e-3:
         fail(f'{what}: device min totals differ from the exact recompute '
@@ -730,7 +792,7 @@ def _audit_im_results(res, loaded, runner, what):
         ok, msg = ctree.is_valid(return_message=True)
         if not ok:
             fail(f'{what}: invalid path: {msg}')
-        total = ctree.total_cost_exact()
+        total = _exact_total(ctree)[1]
         if sum(int(c) for c in r.disconnected_costs) != total or \
                 r.cost != Decimal(0) + Decimal(total):
             fail(f'{what}: cost {r.cost} != exact recompute {total}')
@@ -2209,10 +2271,10 @@ def _fields_cpu(states):
     return {k: getattr(states, k).cpu() for k in states.field_names()}
 
 
-def _same_on_card(torch, runs, what):
+def _same_on_card(torch, runs, what, atol=1e-5):
     """``runs``: ``{'cpu': (state, metrics), 'cuda': ...}``: integer and
-    bit state bitwise equal, totals within 1e-5; returns the worst total
-    difference."""
+    bit state bitwise equal, totals within ``atol``; returns the worst
+    total difference."""
     (cpu, m_cpu), (card, m_card) = runs['cpu'], runs['cuda']
     a, b = _fields_cpu(cpu), _fields_cpu(card)
     worst = 0.0
@@ -2220,15 +2282,15 @@ def _same_on_card(torch, runs, what):
         if k in ('log2_total', 'min_log2_total'):
             worst = max(worst, float((b[k] - v).abs().max()))
         elif not torch.equal(b[k], v):
-            fail(f'sparse card vs CPU {what}: {k} differs in '
+            fail(f'card vs CPU {what}: {k} differs in '
                  f'{int((b[k] != v).sum())} entries')
     for k in ('moves', 'applied', 'pos'):
         if k in m_cpu and not torch.equal(
                 torch.as_tensor(m_card[k]).cpu(),
                 torch.as_tensor(m_cpu[k]).cpu()):
-            fail(f'sparse card vs CPU {what}: {k} differs')
-    if worst > 1e-5:
-        fail(f'sparse card vs CPU {what}: totals differ by {worst}')
+            fail(f'card vs CPU {what}: {k} differs')
+    if worst > atol:
+        fail(f'card vs CPU {what}: totals differ by {worst}')
     return worst
 
 
@@ -2281,7 +2343,8 @@ def _sparse_card_vs_cpu(torch, im_runner, fw_runner, walks):
             uniform_log2=r.uniform_log2, slicer=r.fw_slicer,
             draws=draws(dr_wk), device=dev)
         torch.cuda.synchronize()
-    worst = max(_same_on_card(torch, v, k) for k, v in runs.items())
+    worst = max(_same_on_card(torch, v, f'sparse {k}')
+                for k, v in runs.items())
     moved = int((runs['IM sweep']['cpu'][0].nodes !=
                  _states_on(torch, im_runner.states, 'cpu', b).nodes).sum())
     if not moved:
@@ -2397,6 +2460,403 @@ def phase_sparse(torch):
         f'{counts["sparse_walks"]}')
     _sparse_card_vs_cpu(torch, runners['sparse_im'], fw_app, walks)
     _check_recorded(torch, seen_all, 'sparse (phase 22)')
+    return counts
+
+
+# Phase 23: the walk variants and float64 state on the full network.
+PRODUCT_US = 2         # the product point's reslice cadence (phase 15)
+VARIANT_WARM, VARIANT_ITERS = 1, 4
+VARIANT_CHECK_B = 16
+# The float64 FW app on the full network runs 32 runs, cut from 64 to
+# keep the phase under 90 s (92.0 s with 64 on an H100 80GB HBM3 card's
+# machine, most of it host set-up).
+F64_FULL_RUNS = 32
+F64_AUDIT = 1e-6       # float64 device totals against the exact bigint
+F64_CARD = 1e-12       # float64 totals, card against CPU
+# Each variant of the walks engines: the runners' options, and the claim
+# (which only run_walks(_fw) takes).
+IM_VARIANTS = (('default', {}), ('restart', {'on_block': 'restart'}),
+               ('dedup', {'on_block': 'dedup'}),
+               ('chained', {'accept_rule': 'chained'}),
+               ('greedy', {'prob_kind': 'greedy'}),
+               ('base', {'prob_kind': 'base'}),
+               ('mh_local', {'prob_kind': 'mh_local'}),
+               ('pairwise', {'claim': 'pairwise'}))
+FW_VARIANTS = (('default', {}), ('dedup', {'on_block': 'dedup'}),
+               ('chained', {'accept_rule': 'chained'}),
+               ('pairwise', {'claim': 'pairwise'}))
+
+
+def _variant(torch, runner, kw):
+    """A copy of ``runner`` on copies of its state and walk positions,
+    with its own generator and the variant's options (``claim`` is kept
+    for :func:`_run_variant`, which calls ``run_walks(_fw)`` itself)."""
+    import copy
+    import dataclasses
+
+    v = copy.copy(runner)
+    s = runner.states
+    v.states = dataclasses.replace(s, **{k: getattr(s, k).clone()
+                                         for k in s.field_names()})
+    v._mw_pos = runner._mw_pos.clone()
+    v.generator = torch.Generator(device=runner.device).manual_seed(23)
+    v.on_block = kw.get('on_block', runner.on_block)
+    v.accept_rule = kw.get('accept_rule', runner.accept_rule)
+    v.cfg = dataclasses.replace(runner.cfg, prob_kind=kw.get(
+        'prob_kind', runner.cfg.prob_kind))
+    v.claim = kw.get('claim', 'sequential')
+    v.moves_done, v.applied_done = 0, 0
+    return v
+
+
+def _run_variant(v, betas, fw, update_slices=PRODUCT_US):
+    """``len(betas)`` iterations of the variant runner ``v``: its own
+    ``run`` under the sequential claim, else ``run_walks(_fw)`` with
+    ``claim`` on its state (the reslice mask as the runner's)."""
+    import numpy as np
+
+    from tnco_tpu_torch.kernels import sa_walks as swk
+
+    if v.claim == 'sequential':
+        if fw:
+            v.run(betas, update_slices=update_slices, chunk_size=len(betas))
+        else:
+            v.run(betas, chunk_size=len(betas))
+        return
+    sp = (v.sparse_wb, v.log2_n_projs)
+    opts = dict(claim=v.claim, on_block=v.on_block,
+                accept_rule=v.accept_rule, uniform_log2=v.uniform_log2,
+                generator=v.generator, device=v.device)
+    if fw:
+        mask = np.arange(len(betas)) % update_slices == 0
+        v.states, m = swk.run_walks_fw(
+            v.states, betas, mask, v.max_width, v.log2d_w32, v.skip_lanes,
+            v.cfg, v._mw_pos, *sp, slicer=v.fw_slicer, **opts)
+    else:
+        v.states, m = swk.run_walks(v.states, betas, v.log2d_w32, v.cfg,
+                                    v._mw_pos, *sp, **opts)
+    v._mw_pos = m['pos']
+    v.moves_done += int(m['moves'])
+    v.applied_done += int(m['applied'])
+
+
+def _time_variants(torch, card, runner, variants, fw, what):
+    """Each variant from a copy of ``runner``'s state: a warm-up, then
+    VARIANT_ITERS timed iterations (ms an iteration, proposals/s,
+    applied/s), every replica audited.  Returns ``{name: ms}``."""
+    import numpy as np
+
+    betas = np.linspace(20.0, 60.0, VARIANT_WARM + VARIANT_ITERS)
+    out = {}
+    for name, kw in variants:
+        v = _variant(torch, runner, kw)
+        _run_variant(v, betas[:VARIANT_WARM], fw)
+        moves0, applied0 = v.moves_done, v.applied_done
+        ms = _synced_ms(torch, lambda: _run_variant(
+            v, betas[VARIANT_WARM:], fw))
+        secs = ms / 1e3
+        if fw:
+            worst = _audit_fw_runner(v, 30, f'{what} {name}')
+        else:
+            worst = _audit_im_runner(v, f'{what} {name}')[1]
+        out[name] = ms / VARIANT_ITERS
+        log(f'{what} {name}: {out[name]:.2f} ms per iteration over '
+            f'{VARIANT_ITERS}, {(v.moves_done - moves0) / secs:.0f} '
+            f'proposals/s, {(v.applied_done - applied0) / secs:.0f} '
+            f'applied/s ({card}); every replica audited (|device - exact| '
+            f'<= {worst:.2e})')
+    base = out['default']
+    log(f'{what}: ms per iteration relative to the default: ' + ', '.join(
+        f'{k} {ms / base:.2f}' for k, ms in out.items() if k != 'default'))
+    return out
+
+
+def _as_dtype(torch, runner, dtype):
+    """A copy of ``runner`` (:func:`_variant`) whose float state, log2
+    dims and cap are cast to ``dtype``: the same trees and slices, for
+    timing one float type against the other."""
+    import dataclasses
+
+    v = _variant(torch, runner, {})
+    s = v.states
+    v.states = dataclasses.replace(s, **{
+        k: getattr(s, k).to(dtype) for k in s.field_names()
+        if getattr(s, k).is_floating_point()})
+    v.log2d = runner.log2d.to(dtype)
+    v.log2d_w32 = runner.log2d_w32.to(dtype)
+    if hasattr(runner, 'max_width'):
+        v.max_width = runner.max_width.to(dtype)
+    v.dtype = dtype
+    return v
+
+
+def _time_dtypes(torch, card, runner, fw, iters, what):
+    """float32 against float64 on copies of ``runner``'s state, in turns
+    (float32, float64, float64, float32): a warm-up, then ``iters``
+    timed iterations (sweeps for 'batched') each turn.  Returns ``{dtype
+    name: mean ms an iteration}``."""
+    import numpy as np
+
+    betas = np.linspace(20.0, 60.0, 1 + iters)
+    times = {'float32': [], 'float64': []}
+    for name in ('float32', 'float64', 'float64', 'float32'):
+        v = _as_dtype(torch, runner, getattr(torch, name))
+        _run_variant(v, betas[:1], fw)
+        times[name].append(_synced_ms(torch, lambda: _run_variant(
+            v, betas[1:], fw)) / iters)
+    out = {k: float(np.mean(t)) for k, t in times.items()}
+    log(f'{what}, float32 against float64 in turns: ' + ', '.join(
+        f'{k} {"/".join(f"{x:.2f}" for x in t)} ms' for k, t in
+        times.items()) + f' an iteration; float64 / float32 '
+        f'{out["float64"] / out["float32"]:.2f} ({card})')
+    return out
+
+
+def _audit_f64_fw(runner, what):
+    """Every replica of a float64 FW runner: valid best tree within the
+    cap, its exact sliced total within F64_AUDIT in log2 of the device
+    min total; returns the largest gap."""
+    worst = _audit_fw_runner(runner, 30, what)
+    if worst > F64_AUDIT:
+        fail(f'{what}: float64 device totals differ from the exact cost by '
+             f'{worst}')
+    return worst
+
+
+def _f64_optimize(torch, tn, what, fw, **kw):
+    """``Optimizer(seed=0, ...)`` (``max_width=30`` if ``fw``) on ``tn``
+    under the float64 mode with the ``optimize`` keywords ``kw``, its
+    runner recorded: ``(results, runner, launch counts, seen K1/K3
+    shapes)``; fails unless the state is float64 and K1 and K3
+    launched."""
+    from tnco_tpu_torch.app import Optimizer
+    from tnco_tpu_torch.app.finite_width import sa as fw_sa
+    from tnco_tpu_torch.app.infinite_memory import sa as im_sa
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tnco_tpu_torch.ops import bitops
+    from tnco_tpu_torch.testing.kernel_cases import recorded_cases
+
+    recorded, restore = (_record_runners(fw_sa, 'ReplicaRunnerFW') if fw
+                         else _record_runners(im_sa, 'ReplicaRunner'))
+    try:
+        with bitops.enable_float64(), recorded_cases() as seen:
+            opt = (Optimizer(max_width=30, seed=0) if fw else
+                   Optimizer(seed=0))
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            _, res = opt.optimize(tn, betas=(0, 60), **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+    finally:
+        restore()
+    (runner,) = recorded
+    dtype = runner.states.lcc.dtype
+    log(f'{what}: {len(res)} runs in {wall:.2f} s (set-up '
+        f'{runner.setup_s:.2f} s, anneal {runner.run_s:.2f} s); engine '
+        f'{runner.engine!r}, state {dtype}; launches {counts}')
+    if dtype != torch.float64:
+        fail(f'{what}: the state is {dtype}, not float64')
+    if not all(counts[k] > 0 for k in BATCHED_KERNELS):
+        fail(f'{what}: a kernel of the path was never launched')
+    return res, runner, counts, seen
+
+
+def _phase23_card_vs_cpu(torch, im, fw, f64_walks, f64_im, f64_fw):
+    """Phase 23d: the first VARIANT_CHECK_B replicas of each runner on
+    the card and on the CPU from one state with the same draws: one IM
+    walks iteration per variant, one FW walks iteration with 'chained'
+    and 'dedup', one float64 'batched' sweep IM and FW (a reslice) and
+    one float64 walks-FW iteration."""
+    import dataclasses
+
+    from tnco_tpu_torch.kernels import sa_batched as sb
+    from tnco_tpu_torch.kernels import sa_finite_batched as sfb
+    from tnco_tpu_torch.kernels import sa_multiwalk as smw
+    from tnco_tpu_torch.kernels import sa_walks as swk
+
+    b = VARIANT_CHECK_B
+    n_leaves = im.cfg.n_leaves
+    n_bits = im.log2d.numel()
+    f64 = torch.float64
+    gen = torch.Generator().manual_seed(23)
+    draws = {
+        'im': smw.draw_walks(gen, n_leaves, b, im.n_walks),
+        'fw': smw.draw_walks(gen, n_leaves, b, fw.n_walks, n_bits),
+        'f64 walks': smw.draw_walks(gen, n_leaves, b, f64_walks.n_walks,
+                                    n_bits, f64),
+        'f64 IM sweep': sb.draw_sweep(gen, f64_im.cfg.n_leaves, b, f64),
+        'f64 FW sweep': sfb.draw_sweep_fw(gen, f64_fw.cfg.n_leaves, b,
+                                          f64_fw.log2d.numel(), True, False,
+                                          f64)}
+    runs = {}
+    t0 = time.perf_counter()
+    for dev in ('cpu', 'cuda'):
+        def on(x):
+            return None if x is None else x.to(dev)
+
+        def dr(name):
+            return {k: v[None].to(dev) for k, v in draws[name].items()}
+
+        for name, kw in IM_VARIANTS[1:]:
+            cfg = dataclasses.replace(im.cfg, prob_kind=kw.get(
+                'prob_kind', 'mh'))
+            runs.setdefault(f'IM walks {name}', {})[dev] = swk.run_walks(
+                _states_on(torch, im.states, dev, b), [20.0],
+                on(im.log2d_w32), cfg, im._mw_pos[:, :b].to(dev),
+                uniform_log2=im.uniform_log2, draws=dr('im'), device=dev,
+                claim=kw.get('claim', 'sequential'),
+                on_block=kw.get('on_block', 'advance'),
+                accept_rule=kw.get('accept_rule', 'round'))
+        for key, r, name in (('FW walks chained dedup', fw, 'fw'),
+                             ('float64 walks-FW', f64_walks, 'f64 walks')):
+            opts = (dict(on_block='dedup', accept_rule='chained')
+                    if r is fw else {})
+            runs.setdefault(key, {})[dev] = swk.run_walks_fw(
+                _states_on(torch, r.states, dev, b), [20.0], [True],
+                on(r.max_width), on(r.log2d_w32), on(r.skip_lanes), r.cfg,
+                r._mw_pos[:, :b].to(dev), uniform_log2=r.uniform_log2,
+                slicer=r.fw_slicer, draws=dr(name), device=dev, **opts)
+        r = f64_im
+        runs.setdefault('float64 batched IM sweep', {})[dev] = \
+            sb.run_sweeps_batched(
+                _states_on(torch, r.states, dev, b), [20.0],
+                on(r.log2d_w32), r.cfg, uniform_log2=r.uniform_log2,
+                draws=dr('f64 IM sweep'))
+        r = f64_fw
+        runs.setdefault('float64 batched FW sweep', {})[dev] = \
+            sfb.run_sweeps_fw_batched(
+                _states_on(torch, r.states, dev, b), [20.0], [True],
+                on(r.max_width), on(r.log2d_w32), on(r.skip_lanes), r.cfg,
+                uniform_log2=r.uniform_log2, draws=dr('f64 FW sweep'))
+        torch.cuda.synchronize()
+    worst = {}
+    for key, v in runs.items():
+        atol = F64_CARD if key.startswith('float64') else 1e-5
+        worst[key] = _same_on_card(torch, v, key, atol)
+    log(f'phase 23 card vs CPU: B={b}: ' + '; '.join(
+        f'{k} (totals within {w:.2e})' for k, w in worst.items()) +
+        ': integer and bit state bitwise equal '
+        f'({time.perf_counter() - t0:.2f} s)')
+
+
+def phase_walk_variants_float64(torch, card, product=None):
+    """Phase 23: the IM walks engine through ``Optimizer``, every walk
+    variant on the IM and the FW product runners, float64 state through
+    ``Optimizer`` under the float64 mode (walks on the full network,
+    'batched' at the default fuse), the card against the CPU, and K1
+    and K3 at every shape launched.  Without ``product`` (the phase run
+    alone) the FW product runner is built here, as phase 15 builds it,
+    and warmed by 4 chunks."""
+    import numpy as np
+
+    from tnco_tpu_torch.app import Optimizer, load_tn
+    from tnco_tpu_torch.app.finite_width.sa import _build_run_paths
+    from tnco_tpu_torch.app.infinite_memory import sa as im_sa
+    from tnco_tpu_torch.ctree import ContractionTree
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tnco_tpu_torch.testing.kernel_cases import recorded_cases
+
+    ts, out, dims, tn = _sycamore()
+    if product is None:
+        paths = _build_run_paths(tn, list(range(B)), -1)
+        product = _fw_runner(torch, [ContractionTree(
+            p[0], ts, dims, output_inds=out) for p in paths],
+            'product point', n_walks=P)
+        product.run(np.linspace(0.0, 20.0, 4 * PRODUCT_K),
+                    update_slices=PRODUCT_US, chunk_size=PRODUCT_K)
+    loaded = load_tn(tn, fuse=0, seed=0)
+    counts, seen_all, t_phase = {}, set(), time.perf_counter()
+
+    # (a) The IM walks engine through the app: 64 runs x 32 steps at the
+    # runner's IM default P=32 (the app passes its own n_walks, 8 by
+    # default, to every walk engine, as the JAX app does).
+    recorded, restore = _record_runners(im_sa, 'ReplicaRunner')
+    try:
+        with recorded_cases() as seen:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            _, res = Optimizer(seed=0, engine='walks', n_walks=32).optimize(
+                tn, betas=(0, 60), n_steps=32, n_runs=B, fuse=0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts['im_walks_app'] = launch_counts()
+        seen_all |= seen
+    finally:
+        restore()
+    (im,) = recorded
+    log(f'IM walks app: {B} runs x 32 steps in {wall:.2f} s (set-up '
+        f'{im.setup_s:.2f} s, anneal {im.run_s:.2f} s: '
+        f'{1e3 * im.run_s / 32:.2f} ms an iteration); engine '
+        f'{im.engine!r}, P={im.n_walks}; launches {counts["im_walks_app"]}')
+    if im.engine != 'walks' or im.n_walks != 32:
+        fail(f'IM walks app: engine {im.engine!r}, P={im.n_walks}')
+    if not all(counts['im_walks_app'][k] > 0 for k in FW_KERNELS):
+        fail('IM walks app: a kernel of the path was never launched')
+    _audit_im_results(res, loaded, im, 'IM walks app')
+    f32_gaps = {'IM walks app': _audit_im_runner(im, 'IM walks app')[1]}
+
+    # (b) Every variant from copies of the IM runner's and the FW product
+    # runner's states.
+    with recorded_cases() as seen:
+        reset_launch_counts()
+        _time_variants(torch, card, im, IM_VARIANTS, False, 'IM walks')
+        _time_variants(torch, card, product, FW_VARIANTS, True,
+                       f'FW walks (P={product.n_walks}, reslice every '
+                       f'{PRODUCT_US})')
+        torch.cuda.synchronize()
+        counts['walk_variants'] = launch_counts()
+    seen_all |= seen
+    f32_gaps['FW product runner'] = _audit_fw_runner(product, 30,
+                                                     'FW product runner')
+
+    # (c) Float64 under the float64 mode.
+    res, f64_walks, counts['f64_fw_walks'], seen = _f64_optimize(
+        torch, tn, 'float64 FW full network', True, n_steps=16,
+        n_runs=F64_FULL_RUNS, update_slices=PRODUCT_US, fuse=0)
+    seen_all |= seen
+    if f64_walks.engine != 'walks':
+        fail(f"float64 FW full network: 'auto' picked {f64_walks.engine!r}")
+    for r in res:
+        _audit_result(r, loaded, 30)
+    gaps = {'FW walks, full network':
+            _audit_f64_fw(f64_walks, 'float64 FW full network')}
+    tn_f, loaded_f = _sycamore_fused(fw=False)
+    res, f64_im, counts['f64_batched_im'], seen = _f64_optimize(
+        torch, tn_f, 'float64 IM default fuse', False,
+        n_steps=BATCHED_APP_STEPS, n_runs=B)
+    seen_all |= seen
+    _audit_im_results(res, loaded_f, f64_im, 'float64 IM default fuse')
+    gaps['batched IM, default fuse'] = _audit_im_runner(
+        f64_im, 'float64 IM default fuse')[1]
+    res, f64_fw, counts['f64_batched_fw'], seen = _f64_optimize(
+        torch, tn_f, 'float64 FW default fuse', True,
+        n_steps=BATCHED_APP_STEPS, n_runs=B, update_slices=UPDATE_SLICES)
+    seen_all |= seen
+    for r in res:
+        _audit_result(r, loaded_f, 30)
+    gaps['batched FW, default fuse'] = _audit_f64_fw(
+        f64_fw, 'float64 FW default fuse')
+    for what, r in (('IM default fuse', f64_im), ('FW default fuse', f64_fw)):
+        if r.engine != 'batched':
+            fail(f"float64 {what}: 'auto' picked {r.engine!r}")
+    if max(gaps.values()) > F64_AUDIT:
+        fail(f'float64 audits: {gaps}')
+    _time_dtypes(torch, card, f64_im, False, 4,
+                 "'batched' IM sweep (default fuse, B=64)")
+    _time_dtypes(torch, card, product, True, VARIANT_ITERS,
+                 f'walks-FW iteration (P={product.n_walks}, reslice every '
+                 f'{PRODUCT_US})')
+    log('float64 largest |device - exact| in log2: ' + ', '.join(
+        f'{k} {v:.3e}' for k, v in gaps.items()) + '; float32 runs of this '
+        'phase: ' + ', '.join(f'{k} {v:.3e}' for k, v in f32_gaps.items()))
+    planes = sorted({c.g for c, dt in seen_all})
+    log(f'phase 23 K1/K3 plane counts seen: {planes}')
+
+    # (d) The card against the CPU; (e) K1 and K3 at every shape.
+    _phase23_card_vs_cpu(torch, im, product, f64_walks, f64_im, f64_fw)
+    _check_recorded(torch, seen_all, 'walk variants and float64 (phase 23)')
+    log(f'phase 23: {time.perf_counter() - t_phase:.1f} s')
     return counts
 
 
@@ -3011,8 +3471,11 @@ def main() -> int:
         counts['sampler'] = phase_sampler(torch)
         t3 = time.perf_counter()
         counts.update(phase_sparse(torch))
-        log(f'phases 19 / 20 / 21 / 22: {t1 - t0:.1f} / {t2 - t1:.1f} / '
-            f'{t3 - t2:.1f} / {time.perf_counter() - t3:.1f} s')
+        t4 = time.perf_counter()
+        counts.update(phase_walk_variants_float64(torch, card, product))
+        log(f'phases 19 / 20 / 21 / 22 / 23: {t1 - t0:.1f} / '
+            f'{t2 - t1:.1f} / {t3 - t2:.1f} / {t4 - t3:.1f} / '
+            f'{time.perf_counter() - t4:.1f} s')
         rows = phase_times(torch, counts, im_runner, fw_runner)
         phase_batched_launches(torch, card, (fw_prof, im_prof))
     finally:

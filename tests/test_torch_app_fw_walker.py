@@ -105,9 +105,9 @@ def test_runner_options_and_unported_paths():
     with pytest.raises(ValueError, match="engine='walker'"):
         ReplicaRunnerFW(ctrees, [1], engine='walker', on_block='restart',
                         **kw)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ReplicaRunnerFW(ctrees, [1], engine='multiwalk', on_block='dedup',
-                        **kw)
+    # The walk schedules are ported: 'dedup' builds.
+    assert ReplicaRunnerFW(ctrees, [1], engine='multiwalk', on_block='dedup',
+                           **kw).on_block == 'dedup'
     with pytest.raises(ValueError, match='max_number_new_slices'):
         ReplicaRunnerFW(ctrees, [1], engine='walker',
                         max_number_new_slices=2, **kw)

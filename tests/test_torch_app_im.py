@@ -95,9 +95,12 @@ def test_runner_timeout_and_unported_paths():
         ReplicaRunner(ctrees, [1], engine='walker', device='cpu',
                       cmodel=SimpleCostModel(sparse_inds=['h0_0'],
                                              n_projs=2))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        ReplicaRunner(ctrees, [1], engine='multiwalk', on_block='dedup',
-                      device='cpu')
+    # The walk schedules are ported: 'dedup' builds and runs.
+    dedup = ReplicaRunner(ctrees, [1], engine='multiwalk', on_block='dedup',
+                          device='cpu')
+    assert dedup.on_block == 'dedup'
+    dedup.run([1.0] * 4, chunk_size=2)
+    assert dedup.min_ctree(0).is_valid(check_shared_inds=True)
     with pytest.raises(ValueError, match="engine='walker'"):
         ReplicaRunner(ctrees, [1], engine='walker', on_block='restart',
                       device='cpu')

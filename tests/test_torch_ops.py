@@ -67,6 +67,12 @@ def test_pad_log2_dims_and_device_dtype():
     np.testing.assert_array_equal(got, want)
     assert tbit.device_dtype('float64') == torch.float32
     assert tbit.device_dtype('float32') == torch.float32
+    # Under the float64 mode (the counterpart of JAX's x64 flag) the wide
+    # tags give float64, as the JAX rule does under x64.
+    with tbit.enable_float64():
+        assert tbit.device_dtype('float64') == torch.float64
+        assert tbit.device_dtype('float32') == torch.float32
+    assert tbit.device_dtype('float64') == torch.float32
 
 
 @pytest.mark.parametrize('last', [False, True])

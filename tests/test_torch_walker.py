@@ -275,9 +275,11 @@ def test_unsupported_and_unported_raise():
     pos = torch.full((4, B), -1, dtype=torch.int32)
     gen = torch.Generator()
     args = (batch, [1.0], log2d_w32, tcfg, 4, pos)
+    # The walk schedules and chained acceptance are ported: they run.
     for kw in ({'on_block': 'restart'}, {'accept_rule': 'chained'}):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            tsmw.run_multiwalk(*args, generator=gen, **kw)
+        _, m = tsmw.run_multiwalk(*args, generator=torch.Generator()
+                                  .manual_seed(5), **kw)
+        assert m['moves'] == 4 * B
     # Sparse indices: the multi-walk engine takes them (an empty sparse
     # set gives the dense run), the walker refuses them as JAX's does.
     sparse = {'sparse_wb': torch.zeros((tcfg.n_lanes, 1), dtype=torch.int32),
@@ -289,9 +291,15 @@ def test_unsupported_and_unported_raise():
         assert torch.equal(getattr(runs[0], name), getattr(runs[1], name))
     with pytest.raises(NotImplementedError, match='dense cost model only'):
         tw.run_walker(*args, generator=gen, **sparse)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tsmw.run_multiwalk(*args[:2], log2d_w32.double(), *args[3:],
-                           generator=gen)
+    # Float64 state runs on the multi-walk engine; the walker, whose
+    # kernel holds one 32-bit lcc lane, refuses it naming float32.
+    b64 = tsb.init_batch(ttrees, [0, 1, 2], log2d, dtype=np.float64)
+    out, _ = tsmw.run_multiwalk(b64, [1.0], log2d_w32.double(), *args[3:],
+                                generator=torch.Generator().manual_seed(5))
+    assert out.lcc.dtype == out.min_log2_total.dtype == torch.float64
+    with pytest.raises(ValueError, match='float32'):
+        tw.run_walker(b64, [1.0], log2d_w32.double(), *args[3:],
+                      generator=gen)
     with pytest.raises(ValueError, match='n_walks'):
         tw.run_walker(*args[:4], 129, torch.full((129, B), -1,
                                                  dtype=torch.int32),

@@ -415,9 +415,11 @@ def test_unsupported_and_unported_raise():
     args = (tb, [1.0], [True], MAX_WIDTH, _t(log2d_w32),
             torch.zeros(w, dtype=torch.int32), tcfg, 4,
             torch.full((4, B), -1, dtype=torch.int32))
+    # The walk schedules and chained acceptance are ported: they run.
     for kw in ({'on_block': 'restart'}, {'accept_rule': 'chained'}):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            tsmw.run_multiwalk_fw(*args, generator=gen, **kw)
+        _, m = tsmw.run_multiwalk_fw(*args, generator=torch.Generator()
+                                     .manual_seed(5), **kw)
+        assert m['moves'] == 4 * B
     # Sparse indices: the multi-walk engine takes them (an empty sparse
     # set gives the dense run), the walker refuses them as JAX's does.
     sparse = {'sparse_wb': torch.zeros((w, 1), dtype=torch.int32),
@@ -429,9 +431,17 @@ def test_unsupported_and_unported_raise():
         assert torch.equal(getattr(runs[0], name), getattr(runs[1], name))
     with pytest.raises(NotImplementedError, match='dense cost model only'):
         tw.run_walker_fw(*args, generator=gen, **sparse)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tsmw.run_multiwalk_fw(*args[:4], args[4].double(), *args[5:],
-                              generator=gen)
+    # Float64 state runs on the multi-walk engine; the walker refuses it
+    # naming float32.
+    t64 = dataclasses.replace(tb, **{k: getattr(tb, k).double() for k in (
+        'lcc', 'width', 'log2_total', 'min_log2_total')})
+    out, _ = tsmw.run_multiwalk_fw(t64, *args[1:4], args[4].double(),
+                                   *args[5:], generator=torch.Generator()
+                                   .manual_seed(5))
+    assert out.lcc.dtype == out.width.dtype == torch.float64
+    with pytest.raises(ValueError, match='float32'):
+        tw.run_walker_fw(t64, *args[1:4], args[4].double(), *args[5:],
+                         generator=gen)
     with pytest.raises(ValueError, match='n_walks'):
         tw.run_walker_fw(*args[:7], 129, torch.full((129, B), -1,
                                                     dtype=torch.int32),

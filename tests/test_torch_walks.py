@@ -411,22 +411,25 @@ def test_unported_options_raise(random_seed):
             TConfigFW(n_leaves=cfg.n_leaves, n_lanes=w),
             torch.full((P, B), -1, dtype=torch.int32))
     gen = torch.Generator()
+    # The walk variants are ported: they run (their parity with the JAX
+    # engine is tests/test_torch_walk_variants.py's).
     for kw in ({'claim': 'pairwise'}, {'on_block': 'restart'},
                {'accept_rule': 'chained'}):
         kw.setdefault('uniform_log2', ul)
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            tsw.run_walks_fw(*args, generator=gen, device='cpu', **kw)
+        _, m = tsw.run_walks_fw(*args, generator=gen, device='cpu', **kw)
+        assert m['moves'] == P * B
     # The plane slicer needs uniform power-of-two dims (sa_walks.py:753).
     for kw in ({'slicer': 'plane', 'uniform_log2': None},
                {'slicer': 'plane', 'uniform_log2': float(np.log2(3))},
                {'slicer': 'bogus', 'uniform_log2': ul}):
         with pytest.raises(ValueError, match='slicer'):
             tsw.run_walks_fw(*args, generator=gen, device='cpu', **kw)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tsw.run_walks_fw(*args[:6], TConfigFW(n_leaves=cfg.n_leaves,
-                                              n_lanes=w, prob_kind='greedy'),
-                         args[7], uniform_log2=ul, generator=gen,
-                         device='cpu')
+    _, m = tsw.run_walks_fw(*args[:6], TConfigFW(n_leaves=cfg.n_leaves,
+                                                 n_lanes=w,
+                                                 prob_kind='greedy'),
+                            args[7], uniform_log2=ul, generator=gen,
+                            device='cpu')
+    assert m['moves'] == P * B
     with pytest.raises(RuntimeError, match="device='cpu'"):
         if torch.cuda.is_available():
             raise RuntimeError("device='cpu' (CUDA present)")

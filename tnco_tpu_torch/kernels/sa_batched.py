@@ -29,7 +29,8 @@ import torch
 
 from tnco_tpu_torch.kernels.gather import gather_gbn
 from tnco_tpu_torch.kernels.scatter import scatter_rows_inplace
-from tnco_tpu_torch.kernels.sa_fullsweep import _width_bn
+from tnco_tpu_torch.kernels.sa_fullsweep import (_join_f, _nk, _split_f,
+                                                  _width_bn)
 from tnco_tpu_torch.ops import costs as costs_ops
 
 __all__ = ['SABatch', 'init_batch', 'compute_hyper_b', 'run_sweeps_batched',
@@ -246,17 +247,20 @@ def _accept(prob_kind, log2_u, beta, l_new, l_old):
 
 # The sweeps' working state is int32 ``[F, B, N]`` planes: the W index
 # words, then c0, c1, par, the lcc bits and (finite width) the
-# pre-slicing width bits.  A row of every plane is one read of the row
-# gather K1, which gives 0 for ids outside [0, N) as the reference's
-# masked sums do; the accepted rows are written by the row scatter K3.
-C0, C1, PAR, LCC, WIDTH = range(5)
+# pre-slicing width bits, each float row in ``nk`` planes (one for
+# float32, two for float64: ``sa_fullsweep._split_f``).  A row of every
+# plane is one read of the row gather K1, which gives 0 for ids outside
+# [0, N) as the reference's masked sums do; the accepted rows are
+# written by the row scatter K3.
+C0, C1, PAR, LCC = range(4)
 
 
 def _pack_planes(inds, ids, floats):
     """``inds [N, W, B]``, id rows ``[N, B]`` (c0, c1, par) and float
-    rows ``[N, B]`` -> int32 ``[W + len(ids) + len(floats), B, N]``."""
+    rows ``[N, B]`` -> int32 ``[W + len(ids) + nk * len(floats), B,
+    N]``."""
     rows = ([inds.permute(1, 2, 0)] + [x.T[None] for x in ids] +
-            [x.view(torch.int32).T[None] for x in floats])
+            [_split_f(x.T) for x in floats])
     return torch.cat(rows).contiguous()
 
 
@@ -281,14 +285,17 @@ def _write(planes, ids, upd, ok, lo=0):
                          upd.contiguous(), planes=(lo, lo + upd.shape[0]))
 
 
-def _propose(planes, w, b, rand_bit, disable_shared_inds):
+def _propose(planes, w, b, rand_bit, disable_shared_inds,
+             dtype=torch.float32):
     """The uncle swap at node ``b [B]`` of every replica (reads only):
     ``a`` = parent, ``c`` = sibling, ``e`` = the child of ``b`` that
     trades places with ``c``; ``d`` stays.  Three K1 reads: row ``b``,
     row ``a``, and the index rows of ``c`` and ``b``'s children.  Returns
     the ids, ``new_inds_b`` (hyper rows on the fly: ``hyper[i] = inds[i]
     & inds[c0] & inds[c1]``) and the new rows of ``a`` and ``b`` but for
-    their costs: ``upd [F, B, 2]``."""
+    their costs: ``upd [F, B, 2]``.  ``dtype``: the state's float type
+    (its ``nk`` lcc planes)."""
+    nk = _nk(dtype)
     rb = _read(planes, b)
     a = rb[w + PAR]
     ra = _read(planes, a)
@@ -315,8 +322,8 @@ def _propose(planes, w, b, rand_bit, disable_shared_inds):
     upd[:w, :, 1] = new_inds_b
     return dict(b=b, a=a, c=c, e=e, inds_c=inds_c, inds_d=inds_d,
                 inds_e=inds_e, new_inds_b=new_inds_b, upd=upd,
-                l_a=ra[w + LCC].view(torch.float32),
-                l_b=rb[w + LCC].view(torch.float32))
+                l_a=_join_f(ra[w + LCC:w + LCC + nk], dtype),
+                l_b=_join_f(rb[w + LCC:w + LCC + nk], dtype))
 
 
 def _apply(planes, w, p, ok, ln_a, ln_b):
@@ -324,7 +331,8 @@ def _apply(planes, w, p, ok, ln_a, ln_b):
     their costs ``ln_a``, ``ln_b`` (and whatever else ``p['upd']``
     holds), then ``par[c] = b``, ``par[e] = a``."""
     upd = p['upd']
-    upd[w + LCC] = torch.stack([ln_a, ln_b], 1).view(torch.int32)
+    nk = _nk(ln_a.dtype)
+    upd[w + LCC:w + LCC + nk] = _split_f(torch.stack([ln_a, ln_b], 1))
     _write(planes, torch.stack([p['a'], p['b']], 1), upd, ok)
     _write(planes, torch.stack([p['c'], p['e']], 1),
            torch.stack([p['b'], p['a']], 1)[None], ok, lo=w + PAR)
@@ -338,10 +346,10 @@ def _widths(lane_sets, log2d_w32, uniform_log2, sp):
                     uniform_log2=uniform_log2, **sp)
 
 
-def _lt(planes, w, n_leaves):
-    """Order-pinned total of the lcc plane (node axis last)."""
+def _lt(planes, w, n_leaves, dtype=torch.float32):
+    """Order-pinned total of the lcc planes (node axis last)."""
     return costs_ops.log2_total_from_lcc_last(
-        planes[w + LCC].view(torch.float32), n_leaves)
+        _join_f(planes[w + LCC:w + LCC + _nk(dtype)], dtype), n_leaves)
 
 
 def _par_of(planes, w, pos):
@@ -366,9 +374,11 @@ def _snapshot_min(st, lt, w, where=None):
 
 def _pack_state(batch, floats):
     """A batch's sweep state: planes of the current tree with ``floats``
-    (field names), the min tree planes, the min total."""
+    (field names), the min tree planes, the min total and the float
+    type."""
     w = batch.inds.shape[1]
-    return w, {'planes': _pack_planes(batch.inds, (batch.c0, batch.c1,
+    return w, {'dtype': batch.lcc.dtype,
+               'planes': _pack_planes(batch.inds, (batch.c0, batch.c1,
                                                   batch.par),
                                      [getattr(batch, f) for f in floats]),
                'min_planes': _pack_planes(batch.min_inds,
@@ -381,8 +391,10 @@ def _unpack_state(st, w, n_floats):
     """The SABatch fields of a sweep state (``hyper`` refreshed by K1)."""
     inds, c0, c1, par = _unpack(st['planes'], w)
     m_inds, m_c0, m_c1, m_par = _unpack(st['min_planes'], w)
-    floats = [st['planes'][w + LCC + k].T.contiguous().view(torch.float32)
-              for k in range(n_floats)]
+    dtype = st['dtype']
+    nk = _nk(dtype)
+    floats = [_join_f(st['planes'][w + LCC + k * nk:w + LCC + (k + 1) * nk],
+                      dtype).T.contiguous() for k in range(n_floats)]
     return dict(c0=c0, c1=c1, par=par, inds=inds,
                 hyper=compute_hyper_b(c0, c1, inds), min_c0=m_c0,
                 min_c1=m_c1, min_par=m_par, min_inds=m_inds,
@@ -392,8 +404,8 @@ def _unpack_state(st, w, n_floats):
 def _sweep(st, w, beta, log2d_w32, cfg, dr, uniform_log2, sp):
     """One lockstep leaf-to-root sweep of every replica, in place on
     ``st``; returns ``(log2 total, walk steps per replica [B])``."""
-    planes = st['planes']
-    lt = _lt(planes, w, cfg.n_leaves)
+    planes, dtype = st['planes'], st['dtype']
+    lt = _lt(planes, w, cfg.n_leaves, dtype)
     leaf = dr['leaf']
     pos_b = torch.where(leaf == NULL, NULL, _par_of(planes, w, leaf))
     par_b0 = torch.where(pos_b == NULL, NULL, _par_of(planes, w, pos_b))
@@ -404,7 +416,7 @@ def _sweep(st, w, beta, log2d_w32, cfg, dr, uniform_log2, sp):
         if t % ACTIVE_CHECK_STEPS == 0 and not bool(active.any()):
             break
         p = _propose(planes, w, pos_b, dr['rand_bit'][t],
-                     cfg.disable_shared_inds)
+                     cfg.disable_shared_inds, dtype)
         ln_b, ln_a = _widths((p['inds_d'] | p['inds_c'],
                               p['new_inds_b'] | p['inds_e']), log2d_w32,
                              uniform_log2, sp)
@@ -417,7 +429,7 @@ def _sweep(st, w, beta, log2d_w32, cfg, dr, uniform_log2, sp):
         moves += active
         active = active & (pos_b != NULL) & (_par_of(planes, w, pos_b) !=
                                              NULL)
-    lt = _lt(planes, w, cfg.n_leaves)
+    lt = _lt(planes, w, cfg.n_leaves, dtype)
     _snapshot_min(st, lt, w)
     return lt, moves
 
@@ -502,10 +514,10 @@ def _stream_iter(st, w, betas, cfg, dr, uniform_log2, log2d_w32, sp):
     474-619``), in place on ``st``: a replica at the root closes its
     sweep (min snapshot, a new leaf, the next beta) and every other
     running replica takes one walk step.  Returns the replicas walked."""
-    planes = st['planes']
+    planes, dtype = st['planes'], st['dtype']
     n_sweeps = betas.shape[0]
     running = st['sweep_cnt'] < n_sweeps
-    lt = _lt(planes, w, cfg.n_leaves)
+    lt = _lt(planes, w, cfg.n_leaves, dtype)
     pos_b = st['pos_b']
     at_boundary = running & ((pos_b == NULL) |
                              (_par_of(planes, w, pos_b) == NULL))
@@ -518,7 +530,8 @@ def _stream_iter(st, w, betas, cfg, dr, uniform_log2, log2d_w32, sp):
     beta = betas[(st['sweep_cnt'] - 1).clamp(0, n_sweeps - 1).long()]
 
     b = torch.where(walking, pos_b, 0)
-    p = _propose(planes, w, b, dr['rand_bit'], cfg.disable_shared_inds)
+    p = _propose(planes, w, b, dr['rand_bit'], cfg.disable_shared_inds,
+                 dtype)
     ln_b, ln_a = _widths((p['inds_d'] | p['inds_c'],
                           p['new_inds_b'] | p['inds_e']), log2d_w32,
                          uniform_log2, sp)
@@ -583,7 +596,7 @@ def run_stream_batched(batch: SABatch, betas, n_iters: int, log2d_w32,
         moves += _stream_iter(st, w, betas, cfg,
                               {k: x[i] for k, x in draws.items()},
                               uniform_log2, log2d_w32, sp).sum()
-    lt = _lt(st['planes'], w, cfg.n_leaves)
+    lt = _lt(st['planes'], w, cfg.n_leaves, st['dtype'])
     pos_b = st['pos_b']
     at_root = (pos_b == NULL) | (_par_of(st['planes'], w, pos_b) == NULL)
     _snapshot_min(st, lt, w, at_root)

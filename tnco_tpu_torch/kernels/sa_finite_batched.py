@@ -31,6 +31,7 @@ from tnco_tpu_torch.kernels.sa_batched import NULL, _log2_total_b, _width_b
 from tnco_tpu_torch.kernels.sa_finite import (_WIDTH_EPS, _cumsum_blocked,
                                               _pack_bits, _pick_rescue_slices,
                                               greedy_slices_host)
+from tnco_tpu_torch.kernels.sa_fullsweep import _join_f, _nk, _split_f
 from tnco_tpu_torch.ops import costs as costs_ops
 from tnco_tpu_torch.ops.bitops import popcount32
 
@@ -498,7 +499,10 @@ def _sweep_fw(st, w, beta, update_slices, max_width, log2d_w32, skip_wb,
     returns ``(log2 total, walk steps per replica [B])``.  ``prio_at(t)``
     gives step ``t``'s rescue priorities ``[n_bits, B]``; ``sp``:
     :func:`sa_batched.sparse_args`."""
-    planes = st['planes']
+    planes, dtype = st['planes'], st['dtype']
+    nk = _nk(dtype)
+    lcc_planes = slice(w + sb.LCC, w + sb.LCC + nk)
+    wpl = w + sb.LCC + nk                    # the width planes follow lcc's
     n_leaves = cfg.n_leaves
     thr = max_width + _WIDTH_EPS
     log2d_flat = log2d_w32.reshape(-1)
@@ -508,7 +512,7 @@ def _sweep_fw(st, w, beta, update_slices, max_width, log2d_w32, skip_wb,
         return (pl[w + sb.C0].T, pl[w + sb.C1].T,
                 pl[:w].permute(2, 0, 1))
 
-    lt = sb._lt(planes, w, n_leaves)
+    lt = sb._lt(planes, w, n_leaves, dtype)
     pos_b = sb._par_of(planes, w, dr['leaf'])
     active = (pos_b != NULL) & (sb._par_of(planes, w, pos_b) != NULL)
     moves = torch.zeros(active.shape, dtype=torch.int32,
@@ -518,14 +522,14 @@ def _sweep_fw(st, w, beta, update_slices, max_width, log2d_w32, skip_wb,
             break
         slices = st['slices']
         p = sb._propose(planes, w, pos_b, dr['rand_bit'][t],
-                        cfg.disable_shared_inds)
+                        cfg.disable_shared_inds, dtype)
         new_inds_b = p['new_inds_b']
         new_width_b, new_sliced_width_b, ln_b, ln_a = sb._widths(
             (new_inds_b, new_inds_b & ~slices,
              p['inds_d'] | p['inds_c'] | slices,
              new_inds_b | p['inds_e'] | slices), log2d_w32, uniform_log2,
             sp)
-        p['upd'][w + sb.WIDTH, :, 1] = new_width_b.view(torch.int32)
+        p['upd'][wpl:wpl + nk, :, 1] = _split_f(new_width_b)
         fits = new_sliced_width_b <= thr
         l_new = costs_ops.new_total_log2(lt, p['l_a'], p['l_b'], ln_a, ln_b)
         accept = active & fits & sb._accept(
@@ -558,9 +562,8 @@ def _sweep_fw(st, w, beta, update_slices, max_width, log2d_w32, skip_wb,
         sb._apply(planes, w, p, accept, ln_a, ln_b)
         if rescued is not None:
             # A rescued replica takes the whole recosted lcc.
-            planes[w + sb.LCC] = torch.where(
-                rescued[:, None], lcc_try.T.contiguous().view(torch.int32),
-                planes[w + sb.LCC])
+            planes[lcc_planes] = torch.where(
+                rescued[:, None], _split_f(lcc_try.T), planes[lcc_planes])
         lt = torch.where(accept, l_new, lt)
         pos_b = torch.where(active, p['a'], pos_b)
         moves += active
@@ -569,19 +572,18 @@ def _sweep_fw(st, w, beta, update_slices, max_width, log2d_w32, skip_wb,
 
     if update_slices and bool((st['slices'] != 0).any()):
         c0, c1, inds = views(planes)
-        width = planes[w + sb.WIDTH].view(torch.float32).T
+        width = _join_f(planes[wpl:wpl + nk], dtype).T
         new_slices = _greedy_slices_b(c0, inds, width, dr['jitter'],
                                       max_width, log2d_w32, skip_wb, **sp,
                                       uniform_log2=uniform_log2)
         new_lcc = _lcc_fw_b(c0, c1, inds, new_slices, log2d_w32, **sp,
                             uniform_log2=uniform_log2)
         better = (_log2_total_b(new_lcc, n_leaves) <
-                  sb._lt(planes, w, n_leaves))
+                  sb._lt(planes, w, n_leaves, dtype))
         st['slices'] = torch.where(better, new_slices, st['slices'])
-        planes[w + sb.LCC] = torch.where(
-            better[:, None], new_lcc.T.contiguous().view(torch.int32),
-            planes[w + sb.LCC])
-    lt = sb._lt(planes, w, n_leaves)
+        planes[lcc_planes] = torch.where(
+            better[:, None], _split_f(new_lcc.T), planes[lcc_planes])
+    lt = sb._lt(planes, w, n_leaves, dtype)
     sb._snapshot_min(st, lt, w)
     return lt, moves
 

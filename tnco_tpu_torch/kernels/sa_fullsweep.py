@@ -2,10 +2,11 @@
 ``tnco_tpu/kernels/sa_fullsweep.py:88-205``).
 
 The engine state is ``int32 [F, B, N_pad]`` planes of bit patterns:
-index words, child/parent ids, and float32 costs bitcast with
-``.view(torch.int32)``.  Ids and words already are int32, so the JAX
-package's ``_u32``/``_i32`` bitcasts have no counterpart here.  The
-full-sweep engine itself is not ported yet.
+index words, child/parent ids, and float costs bitcast into ``nk``
+planes (one for float32, two for float64, low word first, as the JAX
+package's ``bitcast_convert_type`` gives them).  Ids and words already
+are int32, so the JAX package's ``_u32``/``_i32`` bitcasts have no
+counterpart here.  The full-sweep engine itself is not ported yet.
 """
 
 import numpy as np
@@ -28,19 +29,19 @@ def uniform_log2_dim(log2_dims) -> float | None:
 
 
 def _split_f(x):
-    """float32 tensor -> ``[1, ...]`` int32 bit-pattern planes."""
-    if x.dtype != torch.float32:
-        raise NotImplementedError("float64 state (nk=2) is not ported "
-                                  "yet (ROADMAP queue 1).")
-    return x.view(torch.int32)[None]
+    """float tensor -> ``[nk, ...]`` int32 bit-pattern planes: float32
+    one plane, float64 two (the low word first)."""
+    if x.dtype == torch.float32:
+        return x.view(torch.int32)[None]
+    words = x.contiguous().reshape(tuple(x.shape) + (1,)).view(torch.int32)
+    return words.movedim(-1, 0)
 
 
 def _join_f(planes, dtype):
-    """Inverse of :func:`_split_f` (planes ``[1, ...]``)."""
-    if planes.shape[0] != 1 or dtype != torch.float32:
-        raise NotImplementedError("float64 state (nk=2) is not ported "
-                                  "yet (ROADMAP queue 1).")
-    return planes[0].view(torch.float32)
+    """Inverse of :func:`_split_f` (planes ``[nk, ...]``), bitwise."""
+    if planes.shape[0] == 1:
+        return planes[0].view(dtype)
+    return planes.movedim(0, -1).contiguous().view(dtype)[..., 0]
 
 
 def _nk(dtype):

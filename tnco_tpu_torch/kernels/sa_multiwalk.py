@@ -8,6 +8,13 @@ at their node (include/tnco/optimize/infinite_memory/optimizer.hpp:
 117-192), are Metropolis-accepted against the same pre-round total, a
 pairwise-disjoint set is kept (lower walk index wins, only kept walks
 block), the kept moves are applied, and every walk climbs to its parent.
+The JAX engines' options are ported: ``on_block`` 'restart' and 'dedup'
+(walks whose accepted move was discarded, or that stand on a lower
+walk's node, restart), ``accept_rule='chained'`` (each walk is tested
+against the running total of the kept walks before it), ``prob_kind``
+'mh', 'greedy' or 'base', ``walk_chunk`` (the walks evaluate in groups;
+the same results), float32 or float64 state.  The walks engine shares
+the schedules and the claim scans.
 
 The JAX engine reads and writes rows through ``[P, N, B]`` one-hot masks
 (the TPU's cheap direction); this port reads rows with index gathers and
@@ -50,48 +57,54 @@ _ON_BLOCK = ('advance', 'restart', 'dedup')
 _PROB_KINDS = ('mh', 'greedy', 'base')
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, {item}).")
-
-
 def _chains_lt(cfg) -> bool:
     """Whether the acceptance rule depends on the total — i.e. whether
-    ``accept_rule='chained'`` differs from 'round' at all."""
+    ``accept_rule='chained'`` differs from 'round' at all (for the
+    others the chained scan would change nothing, so the engines take
+    the round path, as the JAX engines do)."""
     return cfg.prob_kind in ('mh', 'greedy')
 
 
-def check_options(cfg, dtype, on_block='advance',
-                  accept_rule='round') -> None:
-    """Raises on the options of ``run_multiwalk`` this port lacks."""
+def check_options(cfg, on_block='advance', accept_rule='round') -> None:
+    """The ``ValueError``s of the multi-walk engines' options."""
     if on_block not in _ON_BLOCK:
         raise ValueError(f"on_block must be one of {_ON_BLOCK}, "
                          f"got {on_block!r}.")
-    if on_block != 'advance':
-        raise _not_ported(f"on_block={on_block!r}",
-                          'left out of slice 1, b')
     if accept_rule not in ('round', 'chained'):
         raise ValueError("accept_rule must be 'round' or 'chained', "
                          f"got {accept_rule!r}.")
-    if accept_rule == 'chained' and _chains_lt(cfg):
-        raise _not_ported("accept_rule='chained'", 'left out of slice 1, b')
     if cfg.prob_kind not in _PROB_KINDS:
         raise ValueError(f"prob_kind must be one of {_PROB_KINDS} for the "
                          f"multi-walk engines, got {cfg.prob_kind!r}.")
-    if dtype != torch.float32:
-        raise _not_ported('float64 state', 'left out of slice 1, d')
+
+
+def walk_groups(n_walks: int, walk_chunk: int) -> list:
+    """The walk slices that evaluate in turn (``_eval_chunked``,
+    ``sa_multiwalk.py:129-150``): one group unless ``walk_chunk`` is in
+    ``(0, P)``, which must divide ``P``.  Proposals are elementwise over
+    the walks, so every grouping gives the same values."""
+    if walk_chunk < 0:
+        raise ValueError(f"walk_chunk ({walk_chunk}) must be >= 0.")
+    if not walk_chunk or walk_chunk >= n_walks:
+        return [slice(0, n_walks)]
+    if n_walks % walk_chunk:
+        raise ValueError(
+            f"walk_chunk ({walk_chunk}) must divide n_walks ({n_walks}).")
+    return [slice(g, g + walk_chunk)
+            for g in range(0, n_walks, walk_chunk)]
 
 
 def draw_walks(generator: torch.Generator, n_leaves: int, b: int, p: int,
-               n_bits: int, dtype=torch.float32):
-    """One iteration's draws of the FW walks engine, on the generator's
+               n_bits: int = 0, dtype=torch.float32):
+    """One iteration's draws of the walks engines, on the generator's
     device.
 
     The counterpart of ``sa_multiwalk._draws(keys, n, p, dtype, 5)`` plus
     the reslice jitter: ``leaf [B, P]`` in ``[0, n_leaves)``, ``rand_bit
-    [B, P]`` (bool), ``u [B, P]`` in ``[0, 1)`` and ``jitter [n_bits, B]``
-    in ``[0, 1)``.  torch's generator gives other numbers than JAX's
-    threefry from the same seed; tests inject the JAX draws instead.
+    [B, P]`` (bool), ``u [B, P]`` in ``[0, 1)`` and, finite width
+    (``n_bits > 0``), ``jitter [n_bits, B]`` in ``[0, 1)``.  torch's
+    generator gives other numbers than JAX's threefry from the same
+    seed; tests inject the JAX draws instead.
     """
     dev = generator.device
     leaf = torch.randint(0, n_leaves, (b, p), generator=generator,
@@ -99,9 +112,11 @@ def draw_walks(generator: torch.Generator, n_leaves: int, b: int, p: int,
     rand_bit = torch.randint(0, 2, (b, p), generator=generator, device=dev,
                              dtype=torch.int32) != 0
     u = torch.rand((b, p), generator=generator, device=dev, dtype=dtype)
-    jitter = torch.rand((n_bits, b), generator=generator, device=dev,
-                        dtype=dtype)
-    return {'leaf': leaf, 'rand_bit': rand_bit, 'u': u, 'jitter': jitter}
+    dr = {'leaf': leaf, 'rand_bit': rand_bit, 'u': u}
+    if n_bits:
+        dr['jitter'] = torch.rand((n_bits, b), generator=generator,
+                                  device=dev, dtype=dtype)
+    return dr
 
 
 def draw_chunk(generator: torch.Generator, n_leaves: int, k: int, p: int,
@@ -204,20 +219,88 @@ def _claim_disjoint(accept, ev):
     nodes {A, B, C, D, E} meets a node of a KEPT walk of lower index
     (``sa_multiwalk.py:282-302``).  ``accept`` and the ids are ``[B, P]``.
 
-    The symmetric conflict matrix ``M[b, p, q]`` is built once; the scan
-    then runs walk by walk, the same boolean decisions as the JAX scan.
+    The symmetric conflict matrix is built once; the scan then runs walk
+    by walk, the same boolean decisions as the JAX scan.
     """
-    nodes5 = [ev[k] for k in ('a', 'b', 'c', 'd', 'e')]
-    b, p = accept.shape
-    confl = torch.zeros((b, p, p), dtype=torch.bool, device=accept.device)
-    for x in nodes5:
-        for y in nodes5:
-            confl |= x[:, :, None] == y[:, None, :]
+    confl = _conflicts(ev)
     keep = torch.zeros_like(accept)
-    for i in range(p):
+    for i in range(accept.shape[1]):
         blocked = (keep & confl[:, i, :]).any(dim=1)
         keep[:, i] = accept[:, i] & ~blocked
     return keep
+
+
+def _conflicts(ev):
+    """The symmetric conflict matrix ``M[b, p, q]``: walks ``p`` and
+    ``q`` share a node of {A, B, C, D, E}."""
+    nodes5 = [ev[k] for k in ('a', 'b', 'c', 'd', 'e')]
+    b, p = nodes5[0].shape
+    confl = torch.zeros((b, p, p), dtype=torch.bool,
+                        device=nodes5[0].device)
+    for x in nodes5:
+        for y in nodes5:
+            confl |= x[:, :, None] == y[:, None, :]
+    return confl
+
+
+def _chained_accept_step(cfg, lt_run, beta, u_i, l_a, l_b, ln_a, ln_b):
+    """One walk's decision against the RUNNING total (``sa_multiwalk.py:
+    207-219``): the op tree both engines' chained scans share.  ``beta``
+    is 0-dim or ``[B]``."""
+    l_new = costs_ops.new_total_log2(lt_run, l_a, l_b, ln_a, ln_b)
+    if cfg.prob_kind == 'mh':
+        acc = torch.log2(u_i) <= -beta * (l_new - lt_run)
+    else:                           # 'greedy' (the others never chain)
+        acc = l_new <= lt_run
+    return acc, l_new
+
+
+def _claim_chained(cfg, u, beta, lt, valid, ev):
+    """Chained acceptance and claims in one priority scan
+    (``sa_multiwalk.py:234-280``): walk ``i`` is tested against the
+    running total of the lower-index walks that were KEPT, so a round of
+    disjoint kept moves is a sequential Metropolis chain.  A Python loop
+    over the ``P`` walks, each step a few dozen small launches (ROADMAP
+    item 17).  ``u``, ``valid`` and the ``ev`` costs are ``[B, P]``;
+    returns ``(accept, keep)`` ``[B, P]``, ``accept`` holding each walk's
+    decision at its own chain point."""
+    confl = _conflicts(ev)
+    keep = torch.zeros_like(valid)
+    accept = torch.zeros_like(valid)
+    lt_run = lt
+    for i in range(valid.shape[1]):
+        blocked = (keep & confl[:, i, :]).any(dim=1)
+        acc, l_new = _chained_accept_step(
+            cfg, lt_run, beta, u[:, i], ev['l_a'][:, i], ev['l_b'][:, i],
+            ev['ln_a'][:, i], ev['ln_b'][:, i])
+        acc = acc & valid[:, i]
+        kp = acc & ~blocked
+        lt_run = torch.where(kp, l_new, lt_run)
+        keep[:, i] = kp
+        accept[:, i] = acc
+    return accept, keep
+
+
+def _advance_walks(pos_a, accept, keep, on_block):
+    """Next walk positions after the claims, ``[B, P]`` (walk axis last;
+    ``sa_multiwalk.py:170-204``), shared by both walk engines.
+
+    ``'advance'``: every walk climbs to A.  ``'restart'``: a walk whose
+    ACCEPTED proposal the claim discarded restarts at a fresh leaf (-1)
+    instead, which breaks convoys of colliding walks; rejected walks
+    still climb.  ``'dedup'``: 'restart', and a walk standing on the
+    node of a live lower-index walk restarts too."""
+    if on_block == 'advance':
+        return pos_a
+    pos = torch.where(accept & ~keep, NULL, pos_a)
+    if on_block == 'dedup':
+        p = pos.shape[1]
+        idx = torch.arange(p, device=pos.device)
+        lower = idx[None, :] < idx[:, None]                # [q, p]: p < q
+        same = pos[:, :, None] == pos[:, None, :]          # [B, q, p]
+        dup = (same & lower[None]).any(dim=2) & (pos != NULL)
+        pos = torch.where(dup, NULL, pos)
+    return pos
 
 
 def _apply_kept(st, keep, ev, n):
@@ -252,23 +335,54 @@ def _apply_kept(st, keep, ev, n):
         ev['new_inds_b'].reshape(w, -1).T
 
 
-def _iter_multiwalk(st, beta, dr, log2d_w32, cfg, uniform_log2, n, sp):
-    """One iteration on the padded state dict ``st`` (updated in place).
-    ``dr`` holds this iteration's ``[B, P]`` draws; ``sp``:
-    :func:`~tnco_tpu_torch.kernels.sa_batched.sparse_args`."""
-    lt = _log2_total_b(st['lcc'][:n], cfg.n_leaves)
-    ev = _propose(st, st['pos'], dr['leaf'], dr['rand_bit'], cfg, n)
-    ev['ln_b'] = _width_b(ev['inds_d'] | ev['inds_c'], log2d_w32,
-                          uniform_log2=uniform_log2, **sp)
-    ev['ln_a'] = _width_b(ev['new_inds_b'] | ev['inds_e'], log2d_w32,
-                          uniform_log2=uniform_log2, **sp)
+def _evaluate(st, dr, groups, body):
+    """``body(pos, leaf, rand_bit)`` over the walk groups (``[B, Pg]``
+    slices of the draws), joined on the walk axis (last)."""
+    evs = [body(st['pos'][:, g], dr['leaf'][:, g], dr['rand_bit'][:, g])
+           for g in groups]
+    if len(evs) == 1:
+        return evs[0]
+    return {k: torch.cat([e[k] for e in evs], dim=-1) for k in evs[0]}
+
+
+def _claims(cfg, dr, beta, lt, ev, accept_rule, fits=None):
+    """Acceptance and claims of one iteration: the chained scan where
+    ``accept_rule='chained'`` changes anything, else the round rule and
+    the sequential claim.  Returns ``(accept, keep)``."""
+    valid = (ev['b'] != NULL) & (ev['a'] != NULL)
+    if fits is not None:
+        valid = valid & fits
+    if accept_rule == 'chained' and _chains_lt(cfg):
+        return _claim_chained(cfg, dr['u'], beta, lt, valid, ev)
     l_new = costs_ops.new_total_log2(lt[:, None], ev['l_a'], ev['l_b'],
                                      ev['ln_a'], ev['ln_b'])
     accept = _accept(cfg, dr['u'], beta, l_new, lt, ev)
-    keep = _claim_disjoint(accept, ev)
+    if fits is not None:
+        accept = accept & fits
+    return accept, _claim_disjoint(accept, ev)
+
+
+def _iter_multiwalk(st, beta, dr, log2d_w32, cfg, uniform_log2, n, sp,
+                    on_block='advance', accept_rule='round', groups=None):
+    """One iteration on the padded state dict ``st`` (updated in place).
+    ``dr`` holds this iteration's ``[B, P]`` draws; ``sp``:
+    :func:`~tnco_tpu_torch.kernels.sa_batched.sparse_args`; ``groups``:
+    :func:`walk_groups` (None: one group)."""
+    lt = _log2_total_b(st['lcc'][:n], cfg.n_leaves)
+
+    def body(pos, leaf, rand_bit):
+        ev = _propose(st, pos, leaf, rand_bit, cfg, n)
+        ev['ln_b'] = _width_b(ev['inds_d'] | ev['inds_c'], log2d_w32,
+                              uniform_log2=uniform_log2, **sp)
+        ev['ln_a'] = _width_b(ev['new_inds_b'] | ev['inds_e'], log2d_w32,
+                              uniform_log2=uniform_log2, **sp)
+        return ev
+
+    ev = _evaluate(st, dr, groups or [slice(None)], body)
+    accept, keep = _claims(cfg, dr, beta, lt, ev, accept_rule)
     _apply_kept(st, keep, ev, n)
 
-    st['pos'] = ev['a']                     # on_block='advance'
+    st['pos'] = _advance_walks(ev['a'], accept, keep, on_block)
     st['moves'] += keep.numel()
     st['applied'] = st['applied'] + keep.sum(dtype=torch.int64)
     _snapshot(st, n, cfg.n_leaves)
@@ -290,30 +404,32 @@ def _snapshot(st, n, n_leaves):
 
 
 def _iter_multiwalk_fw(st, beta, dr, max_width, log2d_w32, cfg,
-                       uniform_log2, n, sp):
+                       uniform_log2, n, sp, on_block='advance',
+                       accept_rule='round', groups=None):
     """One finite-width iteration on the padded state dict ``st``
     (updated in place), WITHOUT the reslice and the min snapshot, which
     the callers order (``sa_multiwalk.py:502-598``): proposals are
     costed against the slice lanes, and one whose sliced width exceeds
     the cap is not accepted.  Returns the kept mask ``[B, P]``."""
     lt = _log2_total_b(st['lcc'][:n], cfg.n_leaves)
-    ev = _propose(st, st['pos'], dr['leaf'], dr['rand_bit'], cfg, n)
     sl = st['slices'][:, :, None]           # [W, B, 1] over the walks
 
     def width(lanes):
         return _width_b(lanes, log2d_w32, uniform_log2=uniform_log2, **sp)
 
-    ev['new_width_b'] = width(ev['new_inds_b'])
-    fits = width(ev['new_inds_b'] & ~sl) <= max_width + _WIDTH_EPS
-    ev['ln_b'] = width((ev['inds_d'] | ev['inds_c']) | sl)
-    ev['ln_a'] = width((ev['new_inds_b'] | ev['inds_e']) | sl)
-    l_new = costs_ops.new_total_log2(lt[:, None], ev['l_a'], ev['l_b'],
-                                     ev['ln_a'], ev['ln_b'])
-    accept = _accept(cfg, dr['u'], beta, l_new, lt, ev) & fits
-    keep = _claim_disjoint(accept, ev)
+    def body(pos, leaf, rand_bit):
+        ev = _propose(st, pos, leaf, rand_bit, cfg, n)
+        ev['new_width_b'] = width(ev['new_inds_b'])
+        ev['fits'] = width(ev['new_inds_b'] & ~sl) <= max_width + _WIDTH_EPS
+        ev['ln_b'] = width((ev['inds_d'] | ev['inds_c']) | sl)
+        ev['ln_a'] = width((ev['new_inds_b'] | ev['inds_e']) | sl)
+        return ev
+
+    ev = _evaluate(st, dr, groups or [slice(None)], body)
+    accept, keep = _claims(cfg, dr, beta, lt, ev, accept_rule, ev['fits'])
     _apply_kept(st, keep, ev, n)
 
-    st['pos'] = ev['a']                     # on_block='advance'
+    st['pos'] = _advance_walks(ev['a'], accept, keep, on_block)
     st['moves'] += keep.numel()
     st['applied'] = st['applied'] + keep.sum(dtype=torch.int64)
     return keep
@@ -381,13 +497,13 @@ def padded_state(c0, c1, par, inds, lcc, width=None) -> dict:
     return st
 
 
-def as_betas(betas, device, b=None) -> torch.Tensor:
-    """``[K]`` or per-replica ``[K, B]`` float32 betas on ``device`` (a
-    host sequence is copied; ``b`` checks ``B``)."""
+def as_betas(betas, device, b=None, dtype=torch.float32) -> torch.Tensor:
+    """``[K]`` or per-replica ``[K, B]`` betas of the state's float type
+    on ``device`` (a host sequence is copied; ``b`` checks ``B``)."""
     betas = torch.as_tensor(
         betas if isinstance(betas, torch.Tensor) else
-        np.asarray(betas, dtype=np.float32),
-        dtype=torch.float32, device=device)
+        np.asarray(betas, dtype=np.float64),
+        dtype=dtype, device=device)
     if betas.dim() not in (1, 2) or (
             betas.dim() == 2 and b is not None and betas.shape[1] != b):
         raise ValueError(f"betas must be [K] or [K, {b}], got "
@@ -397,21 +513,28 @@ def as_betas(betas, device, b=None) -> torch.Tensor:
 
 def run_multiwalk(batch: SABatch, betas, log2d_w32, cfg, n_walks: int, pos,
                   sparse_wb=None, log2_n_projs=None, uniform_log2=None,
-                  on_block='advance', accept_rule='round', *, draws=None,
-                  generator=None):
+                  on_block='advance', accept_rule='round', *, walk_chunk=0,
+                  draws=None, generator=None):
     """Runs one multi-walk iteration per beta (``P`` proposals per
     replica per iteration) on the batch's device.
 
     Args:
         batch: :class:`SABatch`.
         betas: ``[K]`` inverse temperatures, or ``[K, B]`` per replica.
-        log2d_w32: ``float32 [W, 32]`` padded log2 dims.
+        log2d_w32: ``[W, 32]`` padded log2 dims, in the state's float
+            type (float32, or float64 under the float64 mode).
         cfg: :class:`~tnco_tpu_torch.kernels.sa_infinite.SweepConfig`.
         n_walks: walks per replica ``P``.
         pos: ``int32 [P, B]`` walk positions (-1 = start a fresh walk).
         sparse_wb, log2_n_projs: the sparse cost model's cap (``int32
             [W]`` or ``[W, 1]`` sparse bits; every cost's sparse part at
             most ``log2_n_projs``), or None.
+        on_block: 'advance', 'restart' or 'dedup' (:func:`_advance_walks`).
+        accept_rule: 'round' (every walk against the pre-round total) or
+            'chained' (:func:`_claim_chained`).
+        walk_chunk: evaluate the walks in groups of this size (0: one
+            group; in ``(0, P)`` it must divide ``P``); the results are
+            the same for every value.
         draws: optional pre-drawn streams ``leaf``, ``rand_bit``, ``u``,
             each ``[K, P, B]`` (the JAX layout; tests inject the JAX
             draws).
@@ -422,14 +545,15 @@ def run_multiwalk(batch: SABatch, betas, log2d_w32, cfg, n_walks: int, pos,
     ``int32 [P, B]``.  The input batch is not modified.
     """
     dtype = log2d_w32.dtype
-    check_options(cfg, dtype, on_block, accept_rule)
+    check_options(cfg, on_block, accept_rule)
+    groups = walk_groups(n_walks, walk_chunk)
     sp = sparse_args(sparse_wb, log2_n_projs)
     dev = batch.c0.device
     n, b = batch.c0.shape
     if tuple(pos.shape) != (n_walks, b):
         raise ValueError(f"pos must be [{n_walks}, {b}], got "
                          f"{tuple(pos.shape)}.")
-    betas = as_betas(betas, dev, b)
+    betas = as_betas(betas, dev, b, dtype)
     k = betas.shape[0]
     if draws is None:
         if generator is None:
@@ -445,7 +569,7 @@ def run_multiwalk(batch: SABatch, betas, log2d_w32, cfg, n_walks: int, pos,
         dr = {name: draws[name][t].T for name in ('leaf', 'rand_bit', 'u')}
         dr['rand_bit'] = dr['rand_bit'] != 0
         _iter_multiwalk(st, betas[t], dr, log2d_w32, cfg, uniform_log2, n,
-                        sp)
+                        sp, on_block, accept_rule, groups)
 
     out = finish_batch(st['c0'][:n], st['c1'][:n], st['par'][:n],
                        st['inds'][:n], st['lcc'][:n], st['min_lt'],
@@ -479,8 +603,8 @@ def fw_draws(draws, generator, mask, cfg, n_walks, b, dtype, device):
 def run_multiwalk_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
                      log2d_w32, skip_wb, cfg, n_walks: int, pos,
                      sparse_wb=None, log2_n_projs=None, uniform_log2=None,
-                     on_block='advance', accept_rule='round', *, draws=None,
-                     generator=None):
+                     on_block='advance', accept_rule='round', *,
+                     walk_chunk=0, draws=None, generator=None):
     """Finite-width multi-walk: one iteration per beta on the batch's
     device (``sa_multiwalk.py:502-649``).
 
@@ -491,7 +615,7 @@ def run_multiwalk_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
             with the greedy reslice-if-better where it is true (and some
             replica has a slice).
         max_width: the width cap.
-        log2d_w32: ``float32 [W, 32]`` padded log2 dims.
+        log2d_w32: ``[W, 32]`` padded log2 dims (the state's float type).
         skip_wb: ``int32 [W]`` (or ``[W, 1]``) lanes never sliced.
         cfg: a config with ``n_leaves``, ``n_lanes``, ``prob_kind`` and
             ``disable_shared_inds`` (``SweepConfigFW``).
@@ -502,6 +626,7 @@ def run_multiwalk_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
             reference path).
         uniform_log2: the common log2 dim, or None (popcount widths and
             the fast slicer where it is an integer).
+        on_block, accept_rule, walk_chunk: as in :func:`run_multiwalk`.
         draws: optional ``leaf``, ``rand_bit``, ``u`` ``[K, P, B]`` and
             ``jitter [R, n_bits, B]``, one jitter per true mask entry in
             order (tests inject the JAX draws).
@@ -512,14 +637,15 @@ def run_multiwalk_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
     is not modified.
     """
     dtype = log2d_w32.dtype
-    check_options(cfg, dtype, on_block, accept_rule)
+    check_options(cfg, on_block, accept_rule)
+    groups = walk_groups(n_walks, walk_chunk)
     sp = sparse_args(sparse_wb, log2_n_projs)
     dev = batch.c0.device
     n, b = batch.c0.shape
     if tuple(pos.shape) != (n_walks, b):
         raise ValueError(f"pos must be [{n_walks}, {b}], got "
                          f"{tuple(pos.shape)}.")
-    betas = as_betas(betas, dev, b)
+    betas = as_betas(betas, dev, b, dtype)
     mask = np.asarray(update_slices_mask, dtype=bool)
     if mask.shape != (betas.shape[0],):
         raise ValueError("update_slices_mask must match betas, got "
@@ -539,7 +665,8 @@ def run_multiwalk_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
         dr = {name: draws[name][t].T for name in ('leaf', 'rand_bit', 'u')}
         dr['rand_bit'] = dr['rand_bit'] != 0
         _iter_multiwalk_fw(st, betas[t], dr, max_width, log2d_w32, cfg,
-                           uniform_log2, n, sp)
+                           uniform_log2, n, sp, on_block, accept_rule,
+                           groups)
         if mask[t]:
             if bool((st['slices'] != 0).any()):
                 st['slices'], st['lcc'][:n] = reslice_if_better(

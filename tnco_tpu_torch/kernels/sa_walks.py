@@ -1,44 +1,53 @@
-"""Chained multi-walk SA engine, finite width (the port of
-``tnco_tpu/kernels/sa_walks.py:run_walks_fw`` and its helpers).
+"""Chained multi-walk SA engines, infinite memory and finite width (the
+port of ``tnco_tpu/kernels/sa_walks.py``: ``run_walks`` :488-580,
+``run_walks_fw`` :583-800 and their helpers).
 
 Each iteration, ``P`` walks per replica propose an uncle swap at their
 current node (the reference move, include/tnco/optimize/infinite_memory/
 optimizer.hpp:117-192, with the width cap of finite_width/greedy/
-optimizer.hpp:188-225), Metropolis-accept against the pre-round total,
-keep a pairwise-disjoint set (lower walk index wins), apply the kept
-moves, advance every walk to its parent, and every ``update_slices``
-iterations re-derive the slice set greedily and keep it if the total
-improves.
+optimizer.hpp:188-225 in finite width), are accepted against the
+pre-round total, a pairwise-disjoint set is kept (lower walk index
+wins), the kept moves are applied and the walks advance; finite width
+re-derives the slice set greedily every ``update_slices`` iterations and
+keeps it where the total improves.
 
 State is ``int32 [F, B, N_pad]`` planes of bit patterns with nodes last:
-``[0:W)`` index words, ``[W:2W)`` union planes ``U[i] = inds[c0[i]] |
-inds[c1[i]]`` (the plane slicer's input, maintained by the apply), c0,
-c1, lcc, the pre-slicing width, par.  Every irregular row access goes
-through the hand-written kernels: row reads through K1
+``[0:W)`` index words, (FW plane slicer) ``[W:2W)`` union planes ``U[i]
+= inds[c0[i]] | inds[c1[i]]`` maintained by the apply, c0, c1, lcc, (FW)
+the pre-slicing width, par; each float row takes ``nk`` planes (one for
+float32, two for float64, ``sa_fullsweep._split_f``).  Every irregular
+row access goes through the hand-written kernels: row reads through K1
 (:func:`~tnco_tpu_torch.kernels.gather.gather_gbn`), the two apply
 scatters through K3 (:func:`~tnco_tpu_torch.kernels.scatter.
 scatter_rows_inplace`, one launch that resolves duplicate ids itself),
 which writes the state IN PLACE where the JAX engine donated its buffer.
 
-Semantics follow the JAX engine operation by operation, so integer state
-and slices are bitwise equal on the same state and draws, and totals
-agree within the float bound of ``exp2``/``log2`` (tests inject the JAX
-draws through ``draws=``).  The port covers ``claim='sequential'``,
-``on_block='advance'``, ``accept_rule='round'``, ``prob_kind='mh'``,
-float32, sparse indices, and both slicers: the plane slicer on uniform
-power-of-two dims without sparse indices (the state then carries the
-union planes) and the reference-shaped one (``slicer='ref'``, sparse
-indices and every other dims table: no union planes, the reslice
-unpacks the state); the other options raise ``NotImplementedError``
-naming their ROADMAP item.
+The options are the JAX engines': ``claim`` 'sequential' (the
+multi-walk engine's scan: lower index wins against lower-index KEPT
+walks) or 'pairwise' (one pass: against every lower-index ACCEPTED
+walk), ``on_block`` 'advance', 'restart' or 'dedup' and
+``accept_rule`` 'round' or 'chained' (both shared with
+:mod:`~tnco_tpu_torch.kernels.sa_multiwalk`, so the two engines are
+bitwise equal under the sequential claim), ``prob_kind`` 'mh',
+'mh_local', 'greedy' or 'base', float32 or float64 state, sparse
+indices, and (finite width) both slicers: the plane slicer on uniform
+power-of-two dims without sparse indices and the reference-shaped one
+(``slicer='ref'``, sparse indices and every other dims table: no union
+planes, the reslice unpacks the state).  Semantics follow the JAX
+engines operation by operation, so integer state and slices are bitwise
+equal on the same state and draws, and totals agree within the float
+bound of ``exp2``/``log2`` (tests inject the JAX draws through
+``draws=``).
 """
 
 import numpy as np
 import torch
 
 from tnco_tpu_torch.device import resolve_device
+from tnco_tpu_torch.kernels import sa_multiwalk as smw
 from tnco_tpu_torch.kernels.gather import gather_gbn
-from tnco_tpu_torch.kernels.sa_batched import compute_hyper_b, sparse_args
+from tnco_tpu_torch.kernels.sa_batched import (SABatch, compute_hyper_b,
+                                               sparse_args)
 from tnco_tpu_torch.kernels.sa_finite import _WIDTH_EPS
 from tnco_tpu_torch.kernels.sa_finite_batched import (SABatchFW,
                                                       _greedy_slices_b,
@@ -48,21 +57,18 @@ from tnco_tpu_torch.kernels.sa_fullsweep import (_join_f, _nk, _split_f,
                                                  _width_bn)
 from tnco_tpu_torch.kernels.sa_infinite import SweepConfig
 from tnco_tpu_torch.kernels.sa_multiwalk import _chains_lt, draw_walks
-# The walks engine's conflict filter is the multi-walk engine's.
+# The walks engines' sequential claim is the multi-walk engine's.
 from tnco_tpu_torch.kernels.sa_multiwalk import \
     _claim_disjoint as _claim_sequential
 from tnco_tpu_torch.kernels.scatter import scatter_rows_inplace
 from tnco_tpu_torch.ops import costs as costs_ops
 
-__all__ = ['run_walks_fw']
+__all__ = ['run_walks', 'run_walks_fw']
 
 NULL = -1
-
-_ROADMAP = 'ROADMAP.md queue 1, item 6'
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet ({_ROADMAP}).")
+_CLAIMS = ('sequential', 'pairwise')
+_PROB_KINDS = ('mh', 'mh_local', 'greedy', 'base')
+_SCALED_FLOOR = 2.0**-60
 
 
 def _n_pad(n: int) -> int:
@@ -200,15 +206,67 @@ def _propose_walks(S, pos, leaf, rand_bit, cfg: SweepConfig, log2d_w32,
     return pos, ev
 
 
-def _accept_walks(ev, lt, u, beta):
-    """Metropolis on the totals ratio (``prob_kind='mh'``); ``beta`` is a
-    0-dim tensor or ``[B]`` (one temperature per replica)."""
+def _accept_walks(ev, lt, u, beta, prob_kind='mh'):
+    """The acceptance of every walk against the pre-round total
+    (``sa_walks.py:244-272``); ``beta`` is a 0-dim tensor or ``[B]``
+    (one temperature per replica).  'mh': Metropolis on the totals
+    ratio; 'mh_local': Metropolis on the ratio of the two touched
+    contractions' costs (every cost scale of the tree anneals at once);
+    'greedy': no worse total; 'base': every proposal.  Root-adjacent
+    walks (no uncle) only advance."""
     if beta.ndim:
         beta = beta[:, None]
-    l_new = costs_ops.new_total_log2(lt[:, None], ev['l_a'], ev['l_b'],
-                                     ev['ln_a'], ev['ln_b'])
-    accept = torch.log2(u) <= -beta * (l_new - lt[:, None])
+    if prob_kind in ('mh', 'greedy'):
+        l_new = costs_ops.new_total_log2(lt[:, None], ev['l_a'], ev['l_b'],
+                                         ev['ln_a'], ev['ln_b'])
+        if prob_kind == 'mh':
+            accept = torch.log2(u) <= -beta * (l_new - lt[:, None])
+        else:
+            accept = l_new <= lt[:, None]
+    elif prob_kind == 'mh_local':
+        m = torch.maximum(torch.maximum(ev['l_a'], ev['l_b']),
+                          torch.maximum(ev['ln_a'], ev['ln_b']))
+        old = torch.exp2(ev['l_a'] - m) + torch.exp2(ev['l_b'] - m)
+        new = torch.exp2(ev['ln_a'] - m) + torch.exp2(ev['ln_b'] - m)
+        delta = (torch.log2(torch.clamp(new, min=_SCALED_FLOOR)) -
+                 torch.log2(torch.clamp(old, min=_SCALED_FLOOR)))
+        accept = torch.log2(u) <= -beta * delta
+    else:
+        accept = torch.ones_like(ev['l_a'], dtype=torch.bool)
     return accept & (ev['b'] != NULL) & (ev['a'] != NULL)
+
+
+def _claim_pairwise(accept, ev):
+    """Lower walk index wins against every lower-index ACCEPTED walk
+    (``sa_walks.py:275-289``): one pass over the ``[B, P, P]`` conflict
+    matrix, no walk loop.  More conservative than the sequential scan,
+    and the kept walks are still pairwise disjoint."""
+    confl = smw._conflicts(ev)                                # [B, P, Q]
+    p = accept.shape[1]
+    idx = torch.arange(p, device=accept.device)
+    lower = idx[None, :] < idx[:, None]                       # q < p
+    blocked = (confl & accept[:, None, :] & lower[None]).any(dim=2)
+    return accept & ~blocked
+
+
+def _claims(cfg, ev, lt, u, beta, claim, accept_rule, fits=None):
+    """Acceptance and claims of one iteration (``sa_walks.py:507-514,
+    620-627``): the chained scan (:func:`sa_multiwalk._claim_chained`,
+    the sequential scan of both engines) where ``accept_rule='chained'``
+    changes anything, else :func:`_accept_walks` and ``claim``.
+    ``fits``: the FW width cap per walk, or None.  Returns ``(accept,
+    keep)`` ``[B, P]``."""
+    if accept_rule == 'chained' and _chains_lt(cfg):
+        valid = (ev['b'] != NULL) & (ev['a'] != NULL)
+        if fits is not None:
+            valid = valid & fits
+        return smw._claim_chained(cfg, u, beta, lt, valid, ev)
+    accept = _accept_walks(ev, lt, u, beta, cfg.prob_kind)
+    if fits is not None:
+        accept = accept & fits
+    keep = (_claim_sequential if claim == 'sequential' else
+            _claim_pairwise)(accept, ev)
+    return accept, keep
 
 
 def _apply_walks(S, ev, kept, cfg: SweepConfig, dtype, with_width=False,
@@ -297,27 +355,60 @@ def _reslice(S, slices, lt_post, jitter, thr_width, log2d_w32, skip_w,
     new_lt = costs_ops.log2_total_from_lcc_last(new_lcc_bn, cfg.n_leaves)
     better = new_lt < lt_post
     slices = torch.where(better[None, :], new_slices, slices)
-    lcc_plane = S[w + up + 2]
-    lcc_cur = lcc_plane.view(dtype)
-    lcc_plane.copy_(torch.where(better[:, None], new_lcc_bn,
-                                lcc_cur).view(torch.int32))
+    lcc_planes = S[w + up + 2:w + up + 2 + nk]
+    lcc_cur = _join_f(lcc_planes, dtype)
+    lcc_planes.copy_(_split_f(torch.where(better[:, None], new_lcc_bn,
+                                          lcc_cur)))
     return slices, torch.where(better, new_lt, lt_post)
 
 
+def _snapshot(st, lt_new, slices=None):
+    """Min tracking: replicas whose total is strictly below their min
+    take the packed state (and, finite width, the slices) as their
+    min."""
+    improved = lt_new < st['min_lt']
+    st['min_lt'] = torch.where(improved, lt_new, st['min_lt'])
+    st['S_min'] = torch.where(improved[None, :, None], st['S'], st['S_min'])
+    if slices is not None:
+        st['min_slices'] = torch.where(improved[None, :], slices,
+                                       st['min_slices'])
+
+
+def _iter_walks(st, beta, log2d_w32, cfg: SweepConfig, uniform_log2, dr,
+                sp, opts):
+    """One infinite-memory iteration on the state dict ``st`` (updated
+    in place; ``sa_walks.py:488-528``); ``opts``: ``claim``,
+    ``on_block`` and ``accept_rule``; ``sp`` as in
+    :func:`_propose_walks`."""
+    S = st['S']
+    w = cfg.n_lanes
+    dtype = log2d_w32.dtype
+    pos, ev = _propose_walks(S, st['pos'], dr['leaf'], dr['rand_bit'], cfg,
+                             log2d_w32, uniform_log2, dtype, sp=sp)
+    accept, keep = _claims(cfg, ev, st['lt'], dr['u'], beta, opts['claim'],
+                           opts['accept_rule'])
+    _apply_walks(S, ev, keep, cfg, dtype)
+
+    st['pos'] = smw._advance_walks(ev['a'], accept, keep, opts['on_block'])
+    st['moves'] += pos.numel()
+    st['applied'] = st['applied'] + keep.sum(dtype=torch.int64)
+    st['lt'] = _lt_from_S(S, w, _nk(dtype), cfg.n_leaves, dtype)
+    _snapshot(st, st['lt'])
+
+
 def _iter_walks_fw(st, beta, update_slices, max_width, log2d_w32, skip_w,
-                   cfg: SweepConfig, uniform_log2, dr, up, sp):
+                   cfg: SweepConfig, uniform_log2, dr, up, sp, opts):
     """One iteration on the state dict ``st`` (updated in place); ``up``
     is the union-plane count of ``S`` (``W`` for the plane slicer, else
-    0); ``sp`` as in :func:`_propose_walks`."""
+    0); ``sp`` as in :func:`_propose_walks`; ``opts`` as in
+    :func:`_iter_walks`."""
     S = st['S']
     w = cfg.n_lanes
     dtype = log2d_w32.dtype
     nk = _nk(dtype)
-    pos = st['pos']
-    p = pos.shape[1]
     slices = st['slices']
 
-    pos, ev = _propose_walks(S, pos, dr['leaf'], dr['rand_bit'], cfg,
+    pos, ev = _propose_walks(S, st['pos'], dr['leaf'], dr['rand_bit'], cfg,
                              log2d_w32, uniform_log2, dtype,
                              slices_wb=slices, with_width=True, u=up, sp=sp)
     ev['new_width_b'] = _width_bn(ev['new_inds_b'], log2d_w32,
@@ -325,12 +416,12 @@ def _iter_walks_fw(st, beta, update_slices, max_width, log2d_w32, skip_w,
     new_sliced_width = _width_bn(ev['new_inds_b'] & ~slices[:, :, None],
                                  log2d_w32, uniform_log2, dtype, **sp)
     fits = new_sliced_width <= max_width + _WIDTH_EPS
-    accept = _accept_walks(ev, st['lt'], dr['u'], beta) & fits
-    keep = _claim_sequential(accept, ev)
+    accept, keep = _claims(cfg, ev, st['lt'], dr['u'], beta, opts['claim'],
+                           opts['accept_rule'], fits)
     _apply_walks(S, ev, keep, cfg, dtype, with_width=True, u=up)
 
-    st['pos'] = ev['a']                     # on_block='advance'
-    st['moves'] += p * pos.shape[0]
+    st['pos'] = smw._advance_walks(ev['a'], accept, keep, opts['on_block'])
+    st['moves'] += pos.numel()
     st['applied'] = st['applied'] + keep.sum(dtype=torch.int64)
 
     lt_new = _lt_from_S(S, w, nk, cfg.n_leaves, dtype, u=up)
@@ -340,29 +431,107 @@ def _iter_walks_fw(st, beta, update_slices, max_width, log2d_w32, skip_w,
                                   uniform_log2, dtype, up, sp)
     st['slices'] = slices
     st['lt'] = lt_new
-
-    improved = lt_new < st['min_lt']
-    st['min_lt'] = torch.where(improved, lt_new, st['min_lt'])
-    st['S_min'] = torch.where(improved[None, :, None], S, st['S_min'])
-    st['min_slices'] = torch.where(improved[None, :], slices,
-                                   st['min_slices'])
-    return ev, keep
+    _snapshot(st, lt_new, slices)
 
 
-def _check_options(cfg, dtype, claim, on_block, accept_rule):
-    if claim != 'sequential':
-        raise _not_ported(f"claim={claim!r}")
-    if on_block != 'advance':
-        raise _not_ported(f"on_block={on_block!r}")
+def _check_options(cfg, claim, on_block, accept_rule):
+    """The ``ValueError``s of the walks engines' options."""
+    if claim not in _CLAIMS:
+        raise ValueError(f"claim must be one of {_CLAIMS}, got {claim!r}.")
+    if on_block not in smw._ON_BLOCK:
+        raise ValueError(f"on_block must be one of {smw._ON_BLOCK}, "
+                         f"got {on_block!r}.")
     if accept_rule not in ('round', 'chained'):
         raise ValueError("accept_rule must be 'round' or 'chained', "
                          f"got {accept_rule!r}.")
-    if accept_rule == 'chained' and _chains_lt(cfg):
-        raise _not_ported("accept_rule='chained'")
-    if cfg.prob_kind != 'mh':
-        raise _not_ported(f"prob_kind={cfg.prob_kind!r}")
-    if dtype != torch.float32:
-        raise _not_ported("float64 state (nk=2)")
+    if cfg.prob_kind not in _PROB_KINDS:
+        raise ValueError(f"prob_kind must be one of {_PROB_KINDS} for the "
+                         f"walks engines, got {cfg.prob_kind!r}.")
+
+
+def _walk_draws(draws, generator, t, nl, b, p, n_bits, dtype):
+    """Iteration ``t``'s ``[B, P]`` draws: row ``t`` of ``draws``, or
+    :func:`draw_walks` from ``generator``."""
+    if draws is None:
+        return draw_walks(generator, nl, b, p, n_bits, dtype)
+    return {k: v[t] for k, v in draws.items()}
+
+
+def _device_batch(batch, device, generator, draws):
+    """The batch's device, after the device rule (:func:`resolve_device`)
+    and the draws' source are checked."""
+    dev = resolve_device(device)
+    if batch.c0.device.type != dev.type:
+        raise ValueError(f"batch is on {batch.c0.device}, device={dev}.")
+    if draws is None and generator is None:
+        raise ValueError("Pass draws= or generator=.")
+    return batch.c0.device
+
+
+def run_walks(batch: SABatch, betas, log2d_w32, cfg: SweepConfig, pos,
+              sparse_wb=None, log2_n_projs=None, *, claim='sequential',
+              on_block='advance', accept_rule='round', uniform_log2=None,
+              draws=None, generator=None, device=None):
+    """Infinite-memory chained multi-walk rounds, one per beta
+    (``sa_walks.py:534-577``).
+
+    Args:
+        batch: :class:`~tnco_tpu_torch.kernels.sa_batched.SABatch` on
+            ``device``.
+        betas: ``[T]`` inverse temperatures, or ``[T, B]`` one per
+            replica.
+        log2d_w32: ``[W, 32]`` padded log2 dims in the state's float type
+            (float32, or float64 under the float64 mode).
+        cfg: :class:`SweepConfig` (``prob_kind`` 'mh', 'mh_local',
+            'greedy' or 'base').
+        pos: ``int32 [P, B]`` walk positions (-1 = start a fresh walk).
+        sparse_wb, log2_n_projs: the sparse cost model's cap, or None.
+        claim: 'sequential' or 'pairwise'.
+        on_block: 'advance', 'restart' or 'dedup'.
+        accept_rule: 'round' or 'chained'.
+        uniform_log2: the common log2 dim (popcount widths), or None.
+        draws: optional per-iteration stacks ``leaf``, ``rand_bit``,
+            ``u`` ``[T, B, P]`` (the tests inject the JAX draws).
+        generator: ``torch.Generator`` on the device, used when ``draws``
+            is None.
+        device: ``None`` means ``'cuda'`` (see :func:`resolve_device`).
+
+    Returns ``(batch, {'moves', 'applied', 'pos'})``.  The batch's
+    tensors are new; the packed working state is updated in place.
+    """
+    dev = _device_batch(batch, device, generator, draws)
+    w = cfg.n_lanes
+    nl = cfg.n_leaves
+    dtype = log2d_w32.dtype
+    nk = _nk(dtype)
+    _check_options(cfg, claim, on_block, accept_rule)
+    sp = sparse_args(sparse_wb, log2_n_projs)
+    sp = {'sparse_w': sp['sparse_wb'], 'log2_n_projs': sp['log2_n_projs']}
+    n, b = batch.c0.shape
+    betas = smw.as_betas(betas, dev, b, dtype)
+    opts = dict(claim=claim, on_block=on_block, accept_rule=accept_rule)
+
+    S = _pack_w(batch.c0, batch.c1, batch.par, batch.inds, batch.lcc)
+    S_min = _pack_w(batch.min_c0, batch.min_c1, batch.min_par,
+                    batch.min_inds, batch.lcc)
+    st = dict(S=S, lt=_lt_from_S(S, w, nk, nl, dtype), S_min=S_min,
+              min_lt=batch.min_log2_total.clone(), pos=pos.T.contiguous(),
+              moves=0, applied=torch.zeros((), dtype=torch.int64,
+                                           device=dev))
+    p = st['pos'].shape[1]
+    for t in range(len(betas)):
+        dr = _walk_draws(draws, generator, t, nl, b, p, 0, dtype)
+        _iter_walks(st, betas[t], log2d_w32, cfg, uniform_log2, dr, sp, opts)
+
+    S, lt = st['S'], st['lt']
+    _snapshot(st, lt)
+    c0, c1, par, inds, lcc = _unpack_w(S, w, dtype, n)
+    mc0, mc1, mpar, minds, _ml = _unpack_w(st['S_min'], w, dtype, n)
+    hyper = compute_hyper_b(c0, c1, inds)
+    out = SABatch(c0, c1, par, inds, hyper, lcc, lt, st['min_lt'], mc0, mc1,
+                  mpar, minds, batch.keys.clone())
+    return out, {'moves': st['moves'], 'applied': st['applied'],
+                 'pos': st['pos'].T.contiguous()}
 
 
 def _union_planes(slicer, uniform_log2, w, sparse=False) -> int:
@@ -390,15 +559,19 @@ def run_walks_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
     Args:
         batch: :class:`SABatchFW` on ``device``.
         betas: ``[T]`` inverse temperatures, or ``[T, B]`` one per
-            replica (float32 on the device).
+            replica.
         update_slices_mask: ``[T]`` host booleans, reslice after step t.
         max_width: the width cap.
-        log2d_w32: ``float32 [W, 32]`` padded log2 dims.
+        log2d_w32: ``[W, 32]`` padded log2 dims in the state's float type
+            (float32, or float64 under the float64 mode).
         skip_wb: ``int32 [W]`` (or ``[W, 1]``) lanes never sliced.
+        cfg: a config with ``n_leaves``, ``n_lanes``, ``prob_kind`` and
+            ``disable_shared_inds``.
         pos: ``int32 [P, B]`` walk positions (-1 = start a fresh walk).
         sparse_wb, log2_n_projs: the sparse cost model's cap
             (``int32 [W]`` or ``[W, 1]`` sparse bits; every cost's and
             width's sparse part at most ``log2_n_projs``), or None.
+        claim, on_block, accept_rule: as in :func:`run_walks`.
         slicer: None (the plane slicer on uniform power-of-two dims
             without sparse indices, the reference-shaped one elsewhere),
             ``'plane'`` (required; other dims and sparse indices raise)
@@ -413,29 +586,21 @@ def run_walks_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
     Returns ``(batch, {'moves', 'applied', 'pos'})``.  The batch's
     tensors are new; the packed working state is updated in place.
     """
-    dev = resolve_device(device)
-    if batch.c0.device.type != dev.type:
-        raise ValueError(f"batch is on {batch.c0.device}, device={dev}.")
+    dev = _device_batch(batch, device, generator, draws)
     w = cfg.n_lanes
     nl = cfg.n_leaves
     dtype = log2d_w32.dtype
     nk = _nk(dtype)
-    _check_options(cfg, dtype, claim, on_block, accept_rule)
+    _check_options(cfg, claim, on_block, accept_rule)
     sp = sparse_args(sparse_wb, log2_n_projs)
     sp = {'sparse_w': sp['sparse_wb'], 'log2_n_projs': sp['log2_n_projs']}
     up = _union_planes(slicer, uniform_log2, w, sp['sparse_w'] is not None)
-    if draws is None and generator is None:
-        raise ValueError("Pass draws= or generator=.")
-    betas = torch.as_tensor(
-        betas if isinstance(betas, torch.Tensor) else
-        np.asarray(betas, dtype=np.float32),
-        dtype=torch.float32, device=batch.c0.device)
+    n, b = batch.c0.shape
+    betas = smw.as_betas(betas, dev, b, dtype)
     mask = np.asarray(update_slices_mask, dtype=bool)
-    max_width = torch.as_tensor(max_width, dtype=dtype,
-                                device=batch.c0.device)
+    max_width = torch.as_tensor(max_width, dtype=dtype, device=dev)
     skip_w = skip_wb.reshape(-1)
-    n_bits = w * 32
-    b = batch.c0.shape[1]
+    opts = dict(claim=claim, on_block=on_block, accept_rule=accept_rule)
 
     S = _pack_w(batch.c0, batch.c1, batch.par, batch.inds, batch.lcc,
                 width=batch.width)
@@ -459,31 +624,22 @@ def run_walks_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
               min_slices=batch.min_slices.clone(),
               min_lt=batch.min_log2_total.clone(),
               pos=pos.T.contiguous(), moves=0,
-              applied=torch.zeros((), dtype=torch.int64,
-                                  device=batch.c0.device))
+              applied=torch.zeros((), dtype=torch.int64, device=dev))
     p = st['pos'].shape[1]
     for t in range(len(betas)):
-        if draws is None:
-            dr = draw_walks(generator, nl, b, p, n_bits, dtype)
-        else:
-            dr = {k: v[t] for k, v in draws.items()}
+        dr = _walk_draws(draws, generator, t, nl, b, p, w * 32, dtype)
         _iter_walks_fw(st, betas[t], bool(mask[t]), max_width, log2d_w32,
-                       skip_w, cfg, uniform_log2, dr, up, sp)
+                       skip_w, cfg, uniform_log2, dr, up, sp, opts)
 
-    S, lt, S_min = st['S'], st['lt'], st['S_min']
-    improved = lt < st['min_lt']
-    min_lt = torch.where(improved, lt, st['min_lt'])
-    S_min = torch.where(improved[None, :, None], S, S_min)
-    min_slices = torch.where(improved[None, :], st['slices'],
-                             st['min_slices'])
-    n = batch.c0.shape[0]
+    S, lt = st['S'], st['lt']
+    _snapshot(st, lt, st['slices'])
     c0, c1, par, inds, lcc, width = _unpack_w(S, w, dtype, n, fw=True,
                                               u=up)
-    mc0, mc1, mpar, minds, _ml, _mw = _unpack_w(S_min, w, dtype, n,
+    mc0, mc1, mpar, minds, _ml, _mw = _unpack_w(st['S_min'], w, dtype, n,
                                                 fw=True, u=up)
     hyper = compute_hyper_b(c0, c1, inds)
     out = SABatchFW(c0, c1, par, inds, hyper, lcc, width, st['slices'], lt,
-                    min_lt, mc0, mc1, mpar, minds, min_slices,
+                    st['min_lt'], mc0, mc1, mpar, minds, st['min_slices'],
                     batch.keys.clone())
     return out, {'moves': st['moves'], 'applied': st['applied'],
                  'pos': st['pos'].T.contiguous()}

@@ -116,7 +116,8 @@ def _check(batch, cfg, n_walks, pos, log2d_w32, fw=False):
     if tuple(log2d_w32.shape) != (w, 32):
         raise ValueError(f"log2d_w32 must be [{w}, 32], got "
                          f"{tuple(log2d_w32.shape)}.")
-    smw.check_options(cfg, log2d_w32.dtype)
+    smw.check_options(cfg)
+    float32_only(log2d_w32.dtype)
     if batch.c0.device.type not in ('cpu', 'cuda'):
         raise ValueError(f"Unsupported device: {batch.c0.device}.")
 
@@ -187,6 +188,15 @@ def _one_beta_per_iteration(betas) -> None:
         raise ValueError(
             "The walker takes one beta per iteration ([K]); per-replica "
             "betas [K, B] run on 'batched', 'walks' and 'multiwalk'.")
+
+
+def float32_only(dtype) -> None:
+    """K5 keeps one 32-bit lcc lane per row (``pallas_walker.py:455,
+    476``), so a float64 state raises rather than run rounded."""
+    if dtype != torch.float32:
+        raise ValueError(
+            f"The walker runs float32 costs only, got {dtype}; float64 "
+            "state runs on 'batched', 'vmapped', 'multiwalk' and 'walks'.")
 
 
 def dense_only(sparse_wb) -> None:

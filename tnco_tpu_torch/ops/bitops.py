@@ -7,25 +7,57 @@ the reference's ``uint32`` lanes (bit ``j`` of word ``i`` = index
 followed by a mask.
 """
 
+import contextlib
+
 import numpy as np
 import torch
 
 __all__ = ['pad_log2_dims', 'device_dtype', 'pairwise_sum_last',
-           'popcount32', 'expand_bits', 'width', 'as_lanes', 'LANE_BITS']
+           'popcount32', 'expand_bits', 'width', 'as_lanes', 'LANE_BITS',
+           'enable_float64', 'set_float64', 'float64_enabled']
 
 LANE_BITS = 32
 
+# The port's float64 mode, the counterpart of JAX's x64 flag: off by
+# default, so every engine runs float32 unless a caller switches it on.
+_FLOAT64 = False
+
+
+def set_float64(enabled: bool) -> None:
+    """Switches the float64 mode on or off for the process (the
+    counterpart of ``jax.config.update('jax_enable_x64', True)``)."""
+    global _FLOAT64
+    _FLOAT64 = bool(enabled)
+
+
+def float64_enabled() -> bool:
+    """Whether the float64 mode is on."""
+    return _FLOAT64
+
+
+@contextlib.contextmanager
+def enable_float64(enabled: bool = True):
+    """The float64 mode inside a ``with`` block (the counterpart of
+    ``jax.enable_x64(True)``); the previous setting returns on exit."""
+    prev = _FLOAT64
+    set_float64(enabled)
+    try:
+        yield
+    finally:
+        set_float64(prev)
+
 
 def device_dtype(cost_type: str = 'float64') -> torch.dtype:
-    """Device dtype for a reference ``cost_type`` tag.
-
-    The JAX package runs float64 only under JAX x64 mode and float32
-    (with exact host bigint audits) otherwise, which is what its app runs
-    by default; the port runs float32 for every tag (``tnco_tpu/ops/
-    bitops.py:22-40``).
+    """Device dtype for a reference ``cost_type`` tag, by the JAX
+    package's rule (``tnco_tpu/ops/bitops.py:22-40``): 'float32' gives
+    float32; the wider tags ('float64', 'float128', 'float1024') give
+    float64 while the float64 mode is on (:func:`enable_float64`,
+    :func:`set_float64`) and float32, with exact host bigint audits,
+    otherwise.
     """
-    del cost_type
-    return torch.float32
+    if str(cost_type) == 'float32':
+        return torch.float32
+    return torch.float64 if _FLOAT64 else torch.float32
 
 
 def pad_log2_dims(log2_dims, n_lanes: int, dtype=torch.float32,

@@ -1,6 +1,6 @@
 """Replica runners (the port of ``tnco_tpu/parallel/replicas.py``):
 :class:`ReplicaRunner` (infinite memory, engines 'batched', 'vmapped',
-'walker' and 'multiwalk') and :class:`ReplicaRunnerFW` (finite width,
+'walks', 'walker' and 'multiwalk') and :class:`ReplicaRunnerFW` (finite width,
 engines 'batched', 'vmapped', 'walks', 'walker' and 'multiwalk'), and
 the population operators that run between chunks: island exchange
 (:func:`exchange_best`, :func:`exchange_best_fw`) and the slice-kick
@@ -43,14 +43,14 @@ __all__ = ['ReplicaRunner', 'ReplicaRunnerFW', 'exchange_best',
 _ENGINES = ('batched', 'vmapped', 'native', 'multiwalk', 'walker', 'sweep',
             'walks')
 _PORTED = ('batched', 'vmapped', 'walks', 'walker', 'multiwalk')
-_PORTED_IM = ('batched', 'vmapped', 'walker', 'multiwalk')
 # Engines whose state keeps the replica axis last; exchange and the kick
 # run on them only ('vmapped' keeps replica-major states), as in the JAX
 # runners.
 _LANE_MAJOR = ('batched', 'walks', 'walker', 'multiwalk')
-# ROADMAP queue 1 items of the engines that are not ported yet ('walks'
-# only for infinite memory).
-_ITEMS = {'native': 'item 10', 'walks': 'item 10', 'sweep': 'item 13'}
+# ROADMAP queue 1 items of the engines that are not ported yet.
+_ITEMS = {'native': 'item 10', 'sweep': 'item 13'}
+# The engines that take the walk options (on_block, accept_rule).
+_WALK_ENGINES = ('multiwalk', 'walks')
 
 
 def _accel_available(device: torch.device) -> bool:
@@ -95,6 +95,64 @@ def _resolve_walks(engine: str, n_walks, fw: bool = False) -> int:
     return 8
 
 
+def _resolve_on_block(on_block, engine: str) -> str:
+    """Walk scheduling on a claim's discard (``replicas.py:152-165``):
+    None means 'advance'; the others run on 'multiwalk' and 'walks'
+    only."""
+    if on_block is None:
+        return 'advance'
+    if on_block not in smw._ON_BLOCK:
+        raise ValueError(f"on_block must be one of {smw._ON_BLOCK}, "
+                         f"got {on_block!r}.")
+    if on_block != 'advance' and engine not in _WALK_ENGINES:
+        raise ValueError(f"on_block={on_block!r} is only supported by "
+                         "the 'multiwalk' and 'walks' engines "
+                         f"(engine={engine!r}).")
+    return on_block
+
+
+def _resolve_accept_rule(accept_rule, engine: str) -> str:
+    """'round' (every walk against the pre-round total) or 'chained'
+    (against the running total of the kept walks before it;
+    ``replicas.py:168-182``): None means 'round'; 'chained' runs on
+    'multiwalk' and 'walks' only."""
+    if accept_rule is None:
+        return 'round'
+    if accept_rule not in ('round', 'chained'):
+        raise ValueError("accept_rule must be 'round' or 'chained', "
+                         f"got {accept_rule!r}.")
+    if accept_rule != 'round' and engine not in _WALK_ENGINES:
+        raise ValueError(f"accept_rule={accept_rule!r} is only supported "
+                         "by the 'multiwalk' and 'walks' engines "
+                         f"(engine={engine!r}).")
+    return accept_rule
+
+
+def _resolve_prob_kind(prob_kind, engine: str) -> str:
+    """None means 'mh' (the ported engines; JAX's 'sweep' default
+    'mh_local' comes with item 13); 'mh_local' runs on 'sweep' and
+    'walks' only (``replicas.py:312-317``)."""
+    if prob_kind is None:
+        return 'mh'
+    if prob_kind == 'mh_local' and engine not in ('sweep', 'walks'):
+        raise ValueError("prob_kind='mh_local' is only supported by "
+                         "the 'sweep' and 'walks' engines.")
+    return prob_kind
+
+
+def _check_walk_options(runner) -> None:
+    """The walk engines' option checks, when the runner is built:
+    'multiwalk' its ``prob_kind`` and ``walk_chunk`` (at least 0,
+    dividing ``n_walks``), 'walks' its ``prob_kind`` ('walks' takes no
+    ``walk_chunk``, as in the JAX runner)."""
+    if runner.engine == 'multiwalk':
+        smw.check_options(runner.cfg, runner.on_block, runner.accept_rule)
+        smw.walk_groups(runner.n_walks, runner.walk_chunk)
+    elif runner.engine == 'walks':
+        swk._check_options(runner.cfg, 'sequential', runner.on_block,
+                           runner.accept_rule)
+
+
 def _check_exchange_axes(exchange_axes) -> None:
     if exchange_axes is not None:
         raise NotImplementedError(
@@ -118,10 +176,12 @@ def _warn_exchange(engine: str) -> None:
          f"(engine={engine!r}); ignored.")
 
 
-def _check_betas(betas, n_replicas: int) -> np.ndarray:
-    """``betas`` as float32 host rows: ``[n]``, or ``[n, B]``, one beta
-    per lane (a tempering ladder; the walker refuses those)."""
-    betas = np.asarray(betas, dtype=np.float32)
+def _check_betas(betas, n_replicas: int, dtype=torch.float32) -> np.ndarray:
+    """``betas`` as host rows of the runner's float type: ``[n]``, or
+    ``[n, B]``, one beta per lane (a tempering ladder; the walker refuses
+    those)."""
+    betas = np.asarray(betas, dtype=np.float64 if dtype == torch.float64
+                       else np.float32)
     if betas.ndim not in (1, 2) or (betas.ndim == 2 and
                                     betas.shape[1] != n_replicas):
         raise ValueError(f"betas must be [n] or [n, {n_replicas}], got "
@@ -140,18 +200,26 @@ class ReplicaRunner:
             cost's sparse part at ``log2(n_projs)`` ('walker' refuses it,
             as the JAX walker does).
         disable_shared_inds, prob_kind: Kernel flags; ``prob_kind`` None
-            means 'mh'.
-        engine: 'auto', 'batched', 'vmapped', 'walker' or 'multiwalk'.
-            'auto' resolves by the JAX runner's rule (``replicas.py:
-            282-301``: 'batched' for N*W <= 32768, else 'walker' on the
-            card for a dense model, else 'vmapped'); an engine that is
-            not ported yet raises, naming its ROADMAP item.  'vmapped'
-            keeps replica-major :class:`~tnco_tpu_torch.kernels.
-            sa_infinite.SAStateIM` states and runs the lockstep sweep on
-            them (equal to 'batched' on the same draws).
-        n_walks: Walks per replica (default 8; not used by 'batched').
-        on_block, accept_rule: 'multiwalk' options (see
+            means 'mh'; 'mh_local' runs on 'walks' only.
+        engine: 'auto', 'batched', 'vmapped', 'walks', 'walker' or
+            'multiwalk'.  'auto' resolves by the JAX runner's rule
+            (``replicas.py:282-301``: 'batched' for N*W <= 32768, else
+            'walker' on the card for a dense model, else 'vmapped'); an
+            engine that is not ported yet raises, naming its ROADMAP
+            item.  'vmapped' keeps replica-major :class:`~tnco_tpu_torch.
+            kernels.sa_infinite.SAStateIM` states and runs the lockstep
+            sweep on them (equal to 'batched' on the same draws).
+            'walks' runs :func:`~tnco_tpu_torch.kernels.sa_walks.
+            run_walks` (rows through K1 and K3).
+        n_walks: Walks per replica (default 32 for 'walks', 8 for
+            'walker' and 'multiwalk'; not used by the lockstep engines).
+        walk_chunk: 'multiwalk' evaluates its walks in groups of this
+            size (0: one group; the results are the same).
+        on_block, accept_rule: 'multiwalk' and 'walks' options (see
             :func:`~tnco_tpu_torch.kernels.sa_multiwalk.run_multiwalk`).
+        dtype: the device float type, ``torch.float32`` or (under the
+            float64 mode, :func:`~tnco_tpu_torch.ops.bitops.
+            device_dtype`) ``torch.float64``; the walker refuses float64.
         device: ``None`` means ``'cuda'``; pass ``'cpu'`` explicitly.
     """
 
@@ -165,6 +233,7 @@ class ReplicaRunner:
                  mesh=None,
                  engine: str = 'auto',
                  n_walks: int | None = None,
+                 walk_chunk: int = 0,
                  on_block: str | None = None,
                  accept_rule: str | None = None,
                  dtype=torch.float32,
@@ -198,38 +267,32 @@ class ReplicaRunner:
                 prob_kind=prob_kind, fw=False)
         if engine not in _ENGINES:
             raise ValueError(f"Unknown engine: {engine!r}")
-        if engine not in _PORTED_IM:
+        if engine not in _PORTED:
             raise NotImplementedError(
                 f"engine={engine!r} is not ported to tnco_tpu_torch yet "
                 f"(ROADMAP queue 1, {_ITEMS[engine]}); pass "
-                "engine='batched', engine='vmapped', engine='walker' or "
-                "engine='multiwalk'.")
+                "engine='batched', engine='vmapped', engine='walks', "
+                "engine='walker' or engine='multiwalk'.")
         if engine == 'walker':
             kwalker.dense_only(self.sparse_wb)
-        if prob_kind is None:
-            prob_kind = 'mh'
-        on_block = 'advance' if on_block is None else on_block
-        accept_rule = 'round' if accept_rule is None else accept_rule
+            kwalker.float32_only(dtype)
+        prob_kind = _resolve_prob_kind(prob_kind, engine)
         if engine == 'walker' and not kwalker.walker_supported(
                 len(self.template), self.template.n_leaves, n_lanes):
             raise ValueError(
                 f"engine='walker' does not run on N={len(self.template)}, "
                 f"W={n_lanes} (kernels.walker.walker_supported).")
-        if engine in ('walker', 'batched', 'vmapped') and (
-                on_block, accept_rule) != ('advance', 'round'):
-            raise ValueError(
-                "on_block and accept_rule other than 'advance' and 'round' "
-                "are only supported by the 'multiwalk' and 'walks' "
-                f"engines (engine={engine!r}).")
         self.cfg = SweepConfig(n_leaves=self.template.n_leaves,
                                n_lanes=n_lanes,
                                disable_shared_inds=disable_shared_inds,
                                prob_kind=prob_kind)
-        smw.check_options(self.cfg, dtype, on_block, accept_rule)
         self.engine = engine
         self.n_walks = _resolve_walks(engine, n_walks)
-        self.on_block = on_block
-        self.accept_rule = accept_rule
+        self.walk_chunk = int(walk_chunk)
+        self.on_block = _resolve_on_block(on_block, engine)
+        self.accept_rule = _resolve_accept_rule(accept_rule, engine)
+        _check_walk_options(self)
+        self.dtype = dtype
         self.log2d = bitops.pad_log2_dims(self.template.log2_dims_array,
                                           n_lanes, dtype, self.device)
         self.log2d_w32 = self.log2d.reshape(n_lanes, 32)
@@ -238,8 +301,8 @@ class ReplicaRunner:
         self.states = sb.init_batch(
             ctrees, seeds, self.log2d.cpu().numpy(),
             sparse_lanes=_host_lanes(self.sparse_lanes),
-            log2_n_projs=self.log2_n_projs, dtype=np.float32,
-            device=self.device)
+            log2_n_projs=self.log2_n_projs,
+            dtype=self.log2d.cpu().numpy().dtype, device=self.device)
         if engine == 'vmapped':
             self.states = sa.from_batch(self.states)
         self._mw_pos = torch.full((self.n_walks, len(ctrees)), -1,
@@ -280,7 +343,7 @@ class ReplicaRunner:
         _check_exchange_axes(exchange_axes)
         if exchange_every and self.engine not in _LANE_MAJOR:
             _warn_exchange(self.engine)
-        betas = _check_betas(betas, self.n_replicas)
+        betas = _check_betas(betas, self.n_replicas, self.dtype)
         start = time.perf_counter()
         n = len(betas)
         pos = 0
@@ -309,12 +372,19 @@ class ReplicaRunner:
                 self.states, metrics = kwalker.run_walker(
                     self.states, chunk, self.log2d_w32, self.cfg,
                     self.n_walks, self._mw_pos, generator=self.generator)
+            elif self.engine == 'walks':
+                self.states, metrics = swk.run_walks(
+                    self.states, chunk, self.log2d_w32, self.cfg,
+                    self._mw_pos, *sp, uniform_log2=self.uniform_log2,
+                    on_block=self.on_block, accept_rule=self.accept_rule,
+                    generator=self.generator, device=self.device)
             else:
                 self.states, metrics = smw.run_multiwalk(
                     self.states, chunk, self.log2d_w32, self.cfg,
                     self.n_walks, self._mw_pos, *sp,
                     uniform_log2=self.uniform_log2, on_block=self.on_block,
-                    accept_rule=self.accept_rule, generator=self.generator)
+                    accept_rule=self.accept_rule, walk_chunk=self.walk_chunk,
+                    generator=self.generator)
             self._count(metrics, chunk_size)
             pos += chunk_size
             n_chunks += 1
@@ -413,10 +483,13 @@ class ReplicaRunnerFW:
         max_number_new_slices: Slices a rejected move may add to fit the
             cap (the rescue; 'batched' and 'vmapped' only, as in the JAX
             runner).
+        prob_kind: None means 'mh'; 'mh_local' runs on 'walks' only.
         n_walks: Walks per replica (default 128 for 'walks', 8 for
             'walker' and 'multiwalk').
+        walk_chunk: as in :class:`ReplicaRunner` ('multiwalk').
         on_block, accept_rule: 'walks' and 'multiwalk' options ('walker'
             takes only 'advance' and 'round').
+        dtype: as in :class:`ReplicaRunner` (the walker refuses float64).
         device: ``None`` means ``'cuda'``; pass ``'cpu'`` explicitly.
     """
 
@@ -432,6 +505,7 @@ class ReplicaRunnerFW:
                  mesh=None,
                  engine: str = 'auto',
                  n_walks: int | None = None,
+                 walk_chunk: int = 0,
                  on_block: str | None = None,
                  accept_rule: str | None = None,
                  fw_slicer: str | None = None,
@@ -484,34 +558,28 @@ class ReplicaRunnerFW:
                 "engine='vmapped'.")
         if engine == 'walker':
             kwalker.dense_only(self.sparse_wb)
+            kwalker.float32_only(dtype)
         if max_number_new_slices and engine not in ('batched', 'vmapped'):
             raise ValueError(f"engine={engine!r} does not support "
                              "max_number_new_slices.")
-        if prob_kind is None:
-            prob_kind = 'mh'
-        self.on_block = 'advance' if on_block is None else on_block
-        self.accept_rule = 'round' if accept_rule is None else accept_rule
+        prob_kind = _resolve_prob_kind(prob_kind, engine)
         if engine == 'walker' and not kwalker.walker_supported_fw(
                 len(self.template), self.template.n_leaves, n_lanes):
             raise ValueError(
                 f"engine='walker' does not run on N={len(self.template)}, "
                 f"W={n_lanes} (kernels.walker.walker_supported_fw).")
-        if engine in ('walker', 'batched', 'vmapped') and (
-                self.on_block, self.accept_rule) != ('advance', 'round'):
-            raise ValueError(
-                "on_block and accept_rule other than 'advance' and 'round' "
-                "are only supported by the 'multiwalk' and 'walks' "
-                f"engines (engine={engine!r}).")
         self.cfg = SweepConfigFW(n_leaves=self.template.n_leaves,
                                  n_lanes=n_lanes,
                                  disable_shared_inds=disable_shared_inds,
                                  prob_kind=prob_kind,
                                  max_new_slices=int(max_number_new_slices))
-        if engine != 'walks':
-            smw.check_options(self.cfg, dtype, self.on_block,
-                              self.accept_rule)
         self.engine = engine
         self.n_walks = _resolve_walks(engine, n_walks, fw=True)
+        self.walk_chunk = int(walk_chunk)
+        self.on_block = _resolve_on_block(on_block, engine)
+        self.accept_rule = _resolve_accept_rule(accept_rule, engine)
+        _check_walk_options(self)
+        self.dtype = dtype
         self.log2d_w32 = self.log2d.reshape(n_lanes, 32)
         self.uniform_log2 = uniform_log2_dim(self.template.log2_dims_array)
         if engine in ('batched', 'vmapped') and \
@@ -524,8 +592,8 @@ class ReplicaRunnerFW:
         self.states = sfb.init_batch_fw(
             ctrees, seeds, float(self.max_width), self.log2d.cpu().numpy(),
             skip_lanes=skip, sparse_lanes=_host_lanes(self.sparse_lanes),
-            log2_n_projs=self.log2_n_projs, dtype=np.float32,
-            device=self.device)
+            log2_n_projs=self.log2_n_projs,
+            dtype=self.log2d.cpu().numpy().dtype, device=self.device)
         if engine == 'vmapped':
             self.states = saf.from_batch_fw(self.states)
         self._mw_pos = torch.full((self.n_walks, len(ctrees)), -1,
@@ -560,7 +628,7 @@ class ReplicaRunnerFW:
         _check_exchange_axes(exchange_axes)
         if exchange_every and self.engine not in _LANE_MAJOR:
             _warn_exchange(self.engine)
-        betas = _check_betas(betas, self.n_replicas)
+        betas = _check_betas(betas, self.n_replicas, self.dtype)
         n = len(betas)
         mask = ((np.arange(n) % max(1, update_slices)) == 0
                 if update_slices else np.zeros(n, dtype=bool))
@@ -610,7 +678,7 @@ class ReplicaRunnerFW:
                     self.log2d_w32, self.skip_lanes, self.cfg, self.n_walks,
                     self._mw_pos, *sp, uniform_log2=self.uniform_log2,
                     on_block=self.on_block, accept_rule=self.accept_rule,
-                    generator=self.generator)
+                    walk_chunk=self.walk_chunk, generator=self.generator)
             self._count(metrics, chunk_size)
             pos += chunk_size
             n_chunks += 1
