@@ -134,7 +134,8 @@ Phases, each fatal on failure:
    checks' prefix networks optimized with 8 sweeps): every probability
    the sampling loop contracts on QAOA-10 p=2 equals the statevector's
    within 1e-10; the same circuit under a width cap two below its widest
-   contraction (sliced amplitudes within 1e-10 relative of the unsliced
+   contraction, one lower at a time (at most twice) while it forces no
+   slice (sliced amplitudes within 1e-10 relative of the unsliced
    ones); 1000 samples of QAOA-4 p=2 within 0.15 of the statevector's
    distribution in total variation; a timed run on QAOA-26 at depth
    SAMPLER_P (cut from 4) with the CLI's ``sample`` defaults (50 sweeps
@@ -189,11 +190,32 @@ Phases, each fatal on failure:
    integer and bit state bitwise, totals within 1e-5 (float32) or
    F64_CARD (float64); (e) K1 and K3 bitwise against their plain
    versions at each shape the phase launched them, the float64 plane
-   counts included.
+   counts included;
+24. the synchronous 'sweep' engine, the single optimizers and a
+   checkpoint on the card (full network, N=3241, W=64): (a)
+   ``Optimizer(seed=0, engine='sweep')`` and ``Optimizer(max_width=30,
+   seed=0, engine='sweep')`` (reslice every 10 rounds), SWEEP_APP_RUNS
+   runs x 32 rounds each ('mh_local', K1 must launch), every result and
+   every replica's best state audited; (b) each app's runner, its
+   replicas repeated to B=64, as the flagship: a warm-up round and
+   SWEEP_TIMED timed rounds in
+   chunks of SWEEP_CHUNK, ms a round, proposals/s (NI * B a round),
+   applied/s, K1 launches a round and, FW, the reslice's share (CUDA
+   events); (c) one IM round and one FW round with a reslice from the
+   first SWEEP_CHECK_B replicas of each, on the card and on the CPU
+   with the same draws: integer and bit state bitwise, totals within
+   1e-5; (d) ``tnco_tpu_torch.optimize``'s IM and FW (max_width 30)
+   ``Optimizer`` on one full-network tree: OPT_UPDATES updates and an
+   ``update_many`` of as many betas (ms an update), ``is_valid()``, the
+   exact min cost, and a pickled copy and a ``prng_state`` copy that
+   continue bitwise for 4 updates; (e) an IM 'batched' runner at the
+   default fuse checkpointed after CKPT_K sweeps and resumed equals one
+   that ran 2 * CKPT_K straight, bitwise; (f) K1 and K3 bitwise against
+   their plain versions at each shape the phase launched them.
 
-Phases 11-23 run between phases 9 and 10, whose kernel line carries
+Phases 11-24 run between phases 9 and 10, whose kernel line carries
 every phase's launch counts (K1's and K3's rows add phases 15-17's, 19's,
-21's, 22's and 23's); phase 13's profiled sweeps run after 10.
+21's, 22's, 23's and 24's); phase 13's profiled sweeps run after 10.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
@@ -247,14 +269,19 @@ SPARSE_PATHS = ('sparse_im', 'sparse_fw', 'sparse_qaoa', 'sparse_walks')
 # Phase 23: the IM walks app, the walk variants, the float64 apps.
 PHASE23_PATHS = ('im_walks_app', 'walk_variants', 'f64_fw_walks',
                  'f64_batched_im', 'f64_batched_fw')
+# Phase 24: the 'sweep' apps (K1 only), the single optimizers and the
+# checkpoint (K1 and K3, the lockstep sweep).
+PHASE24_K3_PATHS = ('single_optimizers', 'checkpoint')
+PHASE24_PATHS = ('sweep_im_app', 'sweep_fw_app', *PHASE24_K3_PATHS)
 MAIN_PATHS = {'gather_gbn': ('fw_app', 'batched_fw_app', 'batched_im_app',
                              'fw_product', 'fw_throughput', 'fw_tempering',
-                             *CIRCUIT_PATHS, *SPARSE_PATHS, *PHASE23_PATHS),
+                             *CIRCUIT_PATHS, *SPARSE_PATHS, *PHASE23_PATHS,
+                             *PHASE24_PATHS),
               'scatter_rows_inplace': ('fw_app', 'batched_fw_app',
                                        'batched_im_app', 'fw_product',
                                        'fw_throughput', 'fw_tempering',
                                        *CIRCUIT_PATHS, *SPARSE_PATHS,
-                                       *PHASE23_PATHS),
+                                       *PHASE23_PATHS, *PHASE24_K3_PATHS),
               'walker_im': ('im_app',), 'walker_fw': ('fw_walker_app',),
               'inv_ids': ('bench',), 'scatter_rows_gbn': ('bench',),
               'probe_loop': ('bench',), 'probe_take': ('bench',)}
@@ -2070,14 +2097,20 @@ def _sampler_runs(torch):
         fail(f'sampler: visited probabilities differ by {err}')
 
     # Sliced against unsliced, same circuit and sampler seed: a cap two
-    # under the widest unsliced contraction.
+    # under the widest unsliced contraction, one lower at a time (at most
+    # two more) while it forces no slice.  The prefix networks, and so
+    # the paths and their widths, follow the process's hash seed (ROADMAP
+    # queue 3): on the card one whole run found paths within the cap.
     widest = max(_widest(ContractionTree(e[1].path, e[0].ts_inds, e[0].dims,
                                          output_inds=()))
                  for e in state if e[0] is not None)
-    cap = widest - 2
-    sliced_state, secs = state_of(Sampler(seed=0, max_width=cap), gates)
-    n_sliced = sum(bool(e[1].slices) for e in sliced_state
-                   if e[0] is not None)
+    for cap in (widest - 2, widest - 3, widest - 4):
+        sliced_state, secs = state_of(Sampler(seed=0, max_width=cap), gates)
+        n_sliced = sum(bool(e[1].slices) for e in sliced_state
+                       if e[0] is not None)
+        if n_sliced:
+            break
+        log(f'sampler: max_width {cap} forced no slice; one lower')
     if not n_sliced:
         fail(f'sampler: max_width {cap} forced no slice')
     with ts.recorded_amplitudes(sliced_state) as sliced:
@@ -2860,6 +2893,360 @@ def phase_walk_variants_float64(torch, card, product=None):
     return counts
 
 
+# Phase 24: the 'sweep' engine (IM and FW) through the app and as the
+# flagships, the single optimizers and a checkpoint, on the card.
+# The app runs are cut from 64 to 32: with 64, phase 24 took 101.4 s
+# (apps 82.9 s, most of it host set-up) on an H100 80GB HBM3 card's
+# machine, against a budget of 60 s.
+SWEEP_APP_RUNS = 32
+SWEEP_TIMED = 16       # timed rounds of each flagship, after 1 warm-up
+SWEEP_CHUNK = 64       # rounds a chunk (benchmarks/quality.py:345)
+SWEEP_CHECK_B = 16     # replicas of the card-vs-CPU rounds
+OPT_UPDATES = 8        # updates (and betas of update_many) an optimizer
+CKPT_K = 4             # sweeps before and after the checkpoint
+
+
+def _sweep_app(torch, tn, loaded, fw):
+    """Phase 24a: ``Optimizer(seed=0, engine='sweep')`` (``max_width=30``,
+    reslice every UPDATE_SLICES rounds, if ``fw``), SWEEP_APP_RUNS runs x
+    32 rounds on the full network, every result and every replica's best
+    state audited: ``(runner, launch counts, seen K1 shapes)``."""
+    from tnco_tpu_torch.app import Optimizer
+    from tnco_tpu_torch.app.finite_width import sa as fw_sa
+    from tnco_tpu_torch.app.infinite_memory import sa as im_sa
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tnco_tpu_torch.testing.kernel_cases import recorded_cases
+
+    what = f"sweep {'FW' if fw else 'IM'} app"
+    recorded, restore = (_record_runners(fw_sa, 'ReplicaRunnerFW') if fw
+                         else _record_runners(im_sa, 'ReplicaRunner'))
+    try:
+        with recorded_cases() as seen:
+            opt = (Optimizer(max_width=30, seed=0, engine='sweep') if fw
+                   else Optimizer(seed=0, engine='sweep'))
+            kw = dict(update_slices=UPDATE_SLICES) if fw else {}
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            _, res = opt.optimize(tn, betas=(0, 60), n_steps=32,
+                                  n_runs=SWEEP_APP_RUNS, fuse=0, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+    finally:
+        restore()
+    (runner,) = recorded
+    log(f'{what}: {SWEEP_APP_RUNS} runs x 32 rounds in {wall:.2f} s (set-up '
+        f'{runner.setup_s:.2f} s, anneal {runner.run_s:.2f} s: '
+        f'{1e3 * runner.run_s / 32:.2f} ms a round); engine '
+        f'{runner.engine!r}, prob_kind {runner.cfg.prob_kind!r}; launches '
+        f'{counts}')
+    if runner.engine != 'sweep' or runner.cfg.prob_kind != 'mh_local':
+        fail(f'{what}: engine {runner.engine!r}, prob_kind '
+             f'{runner.cfg.prob_kind!r}')
+    if counts['gather_gbn'] == 0:
+        fail(f'{what}: K1 was never launched')
+    if fw:
+        for r in res:
+            _audit_result(r, loaded, 30)
+        _audit_fw_runner(runner, 30, what)
+        log(f'{what}: {len(res)} results and {runner.n_replicas} replicas '
+            'audited')
+    else:
+        _audit_im_results(res, loaded, runner, what)
+    return runner, counts, seen
+
+
+def _widen(torch, runner, b):
+    """The app's runner as a B=``b`` flagship, in place: its replicas'
+    states repeated across ``b`` lanes (their draws differ from there
+    on), with no second host set-up."""
+    reps = b // runner.n_replicas
+    s = runner.states
+    runner.states = type(s)(**{
+        k: (getattr(s, k).repeat(reps, 1) if k == 'keys' else
+            torch.cat([getattr(s, k)] * reps, dim=-1))
+        for k in s.field_names()})
+    runner._mw_pos = torch.cat([runner._mw_pos] * reps, dim=1)
+    runner.n_replicas = b
+
+
+def _sweep_flagship(torch, card, runner, fw):
+    """Phase 24b: the app's runner widened to B=64 (:func:`_widen`;
+    'mh_local') as the flagship: one
+    warm-up round, then SWEEP_TIMED rounds in chunks of SWEEP_CHUNK (FW:
+    reslice every UPDATE_SLICES rounds): ms a round, proposals/s,
+    applied/s, K1 launches a round and, FW, the reslice's share of the
+    rounds (CUDA events around the slicer and its recost)."""
+    import numpy as np
+
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tnco_tpu_torch.kernels import sa_finite_batched as sfb
+
+    what = f"sweep {'FW' if fw else 'IM'} flagship"
+    _widen(torch, runner, B)
+    kw = dict(update_slices=UPDATE_SLICES) if fw else {}
+    betas = np.linspace(20.0, 60.0, 1 + SWEEP_TIMED)
+    runner.run(betas[:1], chunk_size=SWEEP_CHUNK, **kw)       # warm-up
+    torch.cuda.synchronize()
+    spans, originals = [], {}
+
+    def timed(fn):
+        def call(*a, **k):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = fn(*a, **k)
+            ev[1].record()
+            spans.append(ev)
+            return out
+        return call
+
+    if fw:
+        for name in ('_greedy_slices_b', '_lcc_fw_b'):
+            originals[name] = getattr(sfb, name)
+            setattr(sfb, name, timed(originals[name]))
+    try:
+        reset_launch_counts()
+        moves0, applied0 = runner.moves_done, runner.applied_done
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        start.record()
+        runner.run(betas[1:], chunk_size=SWEEP_CHUNK, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        for name, fn in originals.items():
+            setattr(sfb, name, fn)
+    dev_ms = start.elapsed_time(end)
+    moves = runner.moves_done - moves0
+    applied = runner.applied_done - applied0
+    n = len(runner.template)
+    log(f'{what}: N={n} W={runner.cfg.n_lanes} B={runner.n_replicas}, '
+        f'{SWEEP_TIMED} rounds in {1e3 * dt:.3f} ms: '
+        f'{1e3 * dt / SWEEP_TIMED:.4f} ms a round (events '
+        f'{dev_ms / SWEEP_TIMED:.4f}) on {card}')
+    log(f'proposals/s {what}: {moves / dt:.6g} ({card})')
+    log(f'applied/s {what}: {applied / dt:.6g} ({card})')
+    log(f"{what}: K1 launches {counts['gather_gbn']} "
+        f"({counts['gather_gbn'] / SWEEP_TIMED:.3g} a round)")
+    if moves != SWEEP_TIMED * (n - runner.template.n_leaves) * \
+            runner.n_replicas or counts['gather_gbn'] == 0:
+        fail(f'{what}: moves {moves}, launches {counts}')
+    if fw:
+        share = sum(a.elapsed_time(b) for a, b in spans)
+        log(f'{what}: reslice {share:.3f} ms over {len(spans) // 2} '
+            f'reslices, {100 * share / dev_ms:.1f}% of the rounds')
+        _audit_fw_runner(runner, 30, what)
+    else:
+        _audit_im_runner(runner, what)
+    return {'ms': 1e3 * dt / SWEEP_TIMED, 'prop_s': moves / dt,
+            'applied_s': applied / dt}
+
+
+def _sweep_card_vs_cpu(torch, im, fw):
+    """Phase 24c: one IM round, and one FW round with a reslice, from the
+    first SWEEP_CHECK_B replicas of each flagship's state with the same
+    draws (drawn once on the host), on the card and on the CPU: integer
+    and bit state bitwise, totals within 1e-5."""
+    from tnco_tpu_torch.kernels import sa_fullsweep as sfs
+
+    gen = torch.Generator().manual_seed(24)
+    b = SWEEP_CHECK_B
+    for runner, is_fw in ((im, False), (fw, True)):
+        what = f"sweep {'FW round with a reslice' if is_fw else 'IM round'}"
+        n = runner.states.c0.shape[0]
+        ni = n - runner.cfg.n_leaves
+        dtype = runner.states.lcc.dtype
+        dr = {'u': torch.rand((1, b, ni), generator=gen, dtype=dtype),
+              'bits': torch.randint(-2**31, 2**31, (1, b, ni), generator=gen,
+                                    dtype=torch.int32)}
+        if is_fw:
+            dr['jitter'] = torch.rand((1, runner.log2d_w32.numel(), b),
+                                      generator=gen, dtype=dtype)
+        runs = {}
+        for dev in ('cpu', 'cuda'):
+            st = _states_on(torch, runner.states, dev, b)
+            d = {k: v.to(dev) for k, v in dr.items()}
+            kw = dict(uniform_log2=runner.uniform_log2, draws=d)
+            if is_fw:
+                if not bool((st.slices != 0).any()):
+                    fail(f'{what}: no replica holds slices')
+                runs[dev] = sfs.run_fullsweep_fw(
+                    st, [30.0], [True], runner.max_width.to(dev),
+                    runner.log2d_w32.to(dev), runner.skip_lanes.to(dev),
+                    runner.cfg, **kw)
+            else:
+                runs[dev] = sfs.run_fullsweep(
+                    st, [30.0], runner.log2d_w32.to(dev), runner.cfg, **kw)
+        torch.cuda.synchronize()
+        worst = _same_on_card(torch, runs, what)
+        log(f'card vs CPU {what} ({b} replicas): integer and bit state '
+            f'bitwise equal, applied {int(runs["cuda"][1]["applied"])}, '
+            f'totals within {worst:.2e}')
+
+
+def _single_optimizers(torch, card, ctree):
+    """Phase 24d: the IM ``Optimizer`` and the FW ``Optimizer`` (max_width
+    30) of ``tnco_tpu_torch.optimize`` on one full-network tree: OPT_UPDATES
+    ``update(MetropolisHastings(beta))`` and one ``update_many`` of as
+    many betas, ``is_valid()`` and the exact min cost; then a pickled
+    copy and a copy from ``prng_state`` continue bitwise with the
+    original for 4 more updates."""
+    import pickle
+
+    import numpy as np
+
+    from tnco_tpu_torch.optimize import finite_width as ofw
+    from tnco_tpu_torch.optimize import infinite_memory as oim
+    from tnco_tpu_torch.optimize.prob import MetropolisHastings as MH
+
+    betas = np.linspace(1.0, 8.0, OPT_UPDATES)
+    for fw in (False, True):
+        what = f"single optimizer {'FW' if fw else 'IM'}"
+        t0 = time.perf_counter()
+        opt = (ofw.Optimizer(ctree, ofw.SimpleCostModel(max_width=30),
+                             seed=0) if fw else
+               oim.Optimizer(ctree, oim.SimpleCostModel(), seed=0))
+        setup = time.perf_counter() - t0
+        if not opt.prng_state.startswith('torchgen:cuda:'):
+            fail(f'{what}: prng_state {opt.prng_state[:20]!r}')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for beta in betas:
+            opt.update(MH(beta=beta))
+        torch.cuda.synchronize()
+        upd = (time.perf_counter() - t0) / OPT_UPDATES
+        t0 = time.perf_counter()
+        opt.update_many(MH(), betas)
+        torch.cuda.synchronize()
+        many = (time.perf_counter() - t0) / OPT_UPDATES
+        ok, msg = opt.is_valid(return_message=True)
+        if not ok:
+            fail(f'{what}: is_valid: {msg}')
+        gap = abs(opt.log2_min_total_cost -
+                  math.log2(int(opt.min_total_cost)))
+        if gap > 1e-3:
+            fail(f'{what}: min total {opt.log2_min_total_cost} vs exact '
+                 f'(gap {gap})')
+        clone = pickle.loads(pickle.dumps(opt))
+        kw = (dict(slices=opt.slices, min_slices=opt.min_slices) if fw
+              else {})
+        again = type(opt)(opt.ctree, opt.cmodel, seed=opt.prng_state,
+                          min_ctree=opt.min_ctree, **kw)
+        for _ in range(4):
+            for o in (opt, clone, again):
+                o.update(MH(beta=8.0))
+        for o, name in ((clone, 'pickled copy'), (again, 'prng_state copy')):
+            if o != opt or o.log2_total_cost != opt.log2_total_cost:
+                fail(f'{what}: the {name} did not continue bitwise')
+        log(f'{what}: N={len(ctree)}, set-up {setup:.2f} s, '
+            f'{1e3 * upd:.2f} ms an update, {1e3 * many:.2f} ms a sweep of '
+            f'update_many, log2 min total {opt.log2_min_total_cost:.4f} '
+            f'(exact within {gap:.2e}); pickled and prng_state copies '
+            f'continue bitwise ({card})')
+
+
+def _checkpoint_on_card(torch):
+    """Phase 24e: an IM 'batched' runner at the default fuse (B=64) runs
+    2 * CKPT_K sweeps; a second runner runs CKPT_K, ``save_runner``,
+    ``load_runner`` into a fresh runner, then CKPT_K more: the two end
+    bitwise equal."""
+    import os
+
+    import numpy as np
+
+    from tnco_tpu_torch.app.finite_width.sa import _build_run_paths
+    from tnco_tpu_torch.ctree import ContractionTree
+    from tnco_tpu_torch.parallel import ReplicaRunner
+    from tnco_tpu_torch.parallel.checkpoint import load_runner, save_runner
+
+    _, loaded = _sycamore_fused(fw=False)
+    seeds = list(range(B))
+    ctrees = [ContractionTree(p[0], loaded.ts_inds, loaded.dims,
+                              output_inds=loaded.output_inds)
+              for p in _build_run_paths(loaded, seeds, -1)]
+    betas = np.linspace(1.0, 30.0, 2 * CKPT_K)
+
+    def runner():
+        r = ReplicaRunner(ctrees, seeds, engine='batched')
+        if r.engine != 'batched':
+            fail(f'checkpoint: engine {r.engine!r}')
+        return r
+
+    whole = runner()
+    whole.run(betas, chunk_size=CKPT_K)
+    first = runner()
+    first.run(betas[:CKPT_K], chunk_size=CKPT_K)
+    os.makedirs('build/smoke', exist_ok=True)
+    path = 'build/smoke/ckpt.npz'
+    t0 = time.perf_counter()
+    save_runner(path, first)
+    resumed = runner()
+    load_runner(path, resumed)
+    io = time.perf_counter() - t0
+    resumed.run(betas[CKPT_K:], chunk_size=CKPT_K)
+    torch.cuda.synchronize()
+    a, b = _fields_cpu(whole.states), _fields_cpu(resumed.states)
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    if bad or whole.sweeps_done != resumed.sweeps_done or \
+            whole.moves_done != resumed.moves_done:
+        fail(f'checkpoint: the resumed runner differs in {bad}')
+    log(f'checkpoint: B={B} N={len(ctrees[0])}, {CKPT_K} + {CKPT_K} '
+        f'sweeps through save_runner/load_runner ({os.path.getsize(path)} '
+        f'bytes, {io:.2f} s) equal to {2 * CKPT_K} straight, bitwise')
+
+
+def phase_sweep(torch, card):
+    """Phase 24: the 'sweep' engine through ``Optimizer`` and as the
+    flagships, the card against the CPU, the single optimizers and a
+    checkpoint on the card, and K1 (and K3) at every shape launched."""
+    from tnco_tpu_torch.app import load_tn
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tnco_tpu_torch.testing.kernel_cases import recorded_cases
+
+    _, _, _, tn = _sycamore()
+    loaded = load_tn(tn, fuse=0, seed=0)
+    counts, seen_all, t_phase = {}, set(), time.perf_counter()
+    im, counts['sweep_im_app'], seen = _sweep_app(torch, tn, loaded, False)
+    seen_all |= seen
+    fw, counts['sweep_fw_app'], seen = _sweep_app(torch, tn, loaded, True)
+    seen_all |= seen
+    t_apps = time.perf_counter()
+    with recorded_cases() as seen:
+        _sweep_flagship(torch, card, im, False)
+        _sweep_flagship(torch, card, fw, True)
+    seen_all |= seen
+    t_flag = time.perf_counter()
+    _sweep_card_vs_cpu(torch, im, fw)
+    t_cpu = time.perf_counter()
+    with recorded_cases() as seen:
+        reset_launch_counts()
+        _single_optimizers(torch, card, im.min_ctree(0))
+        torch.cuda.synchronize()
+        counts['single_optimizers'] = launch_counts()
+        t_opt = time.perf_counter()
+        reset_launch_counts()
+        _checkpoint_on_card(torch)
+        torch.cuda.synchronize()
+        counts['checkpoint'] = launch_counts()
+    seen_all |= seen
+    for name in ('single_optimizers', 'checkpoint'):
+        if not all(counts[name][k] > 0 for k in BATCHED_KERNELS):
+            fail(f'{name}: a kernel of the path was never launched')
+    _check_recorded(torch, seen_all, "'sweep', optimizers and checkpoint "
+                    '(phase 24)')
+    planes = sorted({c.g for c, dt in seen_all})
+    log(f'phase 24 K1/K3 plane counts seen: {planes}')
+    log(f'phase 24: {time.perf_counter() - t_phase:.1f} s (apps '
+        f'{t_apps - t_phase:.1f}, flagships {t_flag - t_apps:.1f}, card vs '
+        f'CPU {t_cpu - t_flag:.1f}, optimizers {t_opt - t_cpu:.1f}, '
+        f'checkpoint {time.perf_counter() - t_opt:.1f} s)')
+    return counts
+
+
 def _time_ms(torch, fn, reps=50, rounds=11):
     """Device ms of one call of ``fn``: ``reps`` calls captured in one
     CUDA graph, replayed between two events, median over ``rounds``.
@@ -3473,9 +3860,11 @@ def main() -> int:
         counts.update(phase_sparse(torch))
         t4 = time.perf_counter()
         counts.update(phase_walk_variants_float64(torch, card, product))
-        log(f'phases 19 / 20 / 21 / 22 / 23: {t1 - t0:.1f} / '
+        t5 = time.perf_counter()
+        counts.update(phase_sweep(torch, card))
+        log(f'phases 19 / 20 / 21 / 22 / 23 / 24: {t1 - t0:.1f} / '
             f'{t2 - t1:.1f} / {t3 - t2:.1f} / {t4 - t3:.1f} / '
-            f'{time.perf_counter() - t4:.1f} s')
+            f'{t5 - t4:.1f} / {time.perf_counter() - t5:.1f} s')
         rows = phase_times(torch, counts, im_runner, fw_runner)
         phase_batched_launches(torch, card, (fw_prof, im_prof))
     finally:

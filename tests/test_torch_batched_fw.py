@@ -381,9 +381,13 @@ def test_runner_fw_rescue_rules(monkeypatch):
                             max_number_new_slices=2, **kw)
     runner = ReplicaRunnerFW(ctrees, [1], max_number_new_slices=2, **kw)
     assert runner.engine == 'vmapped' and runner.cfg.max_new_slices == 2
-    for engine, item in (('native', 'item 10'), ('sweep', 'item 13')):
-        with pytest.raises(NotImplementedError, match=f'ROADMAP.*{item}'):
-            ReplicaRunnerFW(ctrees, [1], engine=engine, **kw)
+    with pytest.raises(NotImplementedError, match='ROADMAP.*item 10'):
+        ReplicaRunnerFW(ctrees, [1], engine='native', **kw)
+    with pytest.raises(ValueError, match='max_number_new_slices'):
+        ReplicaRunnerFW(ctrees, [1], engine='sweep', max_number_new_slices=2,
+                        **kw)
+    assert ReplicaRunnerFW(ctrees, [1], engine='sweep', **kw).engine == \
+        'sweep'
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ReplicaRunnerFW(ctrees, [1], cmodel=SimpleCostModel(max_width=3),

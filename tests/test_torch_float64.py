@@ -1,5 +1,5 @@
-"""Float64 state in the port (the counterpart of ``tests/test_float64.py``
-without the single-optimizer cases, which come with those wrappers).
+"""Float64 state in the port (the counterpart of ``tests/test_float64.py``,
+its two single-optimizer cases included).
 
 ``cost_type='float64'`` runs the engines in float64 under the port's
 float64 mode (``ops.bitops.enable_float64`` / ``set_float64``, the
@@ -530,3 +530,57 @@ def test_optimizer_float64_end_to_end(monkeypatch, random_seed, fw):
         for r in range(runner.n_replicas if not fw else 0):
             exact = math.log2(int(runner.min_ctree(r).total_cost_exact()))
             assert abs(exact - float(mins[r])) <= 1e-9
+
+
+def _opt_tree(rng, random_seed):
+    from tnco_tpu.testing.utils import generate_random_tensors
+    from tnco_tpu_torch.ctree import ContractionTree as TTree
+    from tnco_tpu_torch.utils.tn import get_random_contraction_path
+    ts_inds, output_inds, dims = generate_random_tensors(rng,
+                                                         n_output_inds=2)
+    (path,) = [p for p in get_random_contraction_path(
+        ts_inds, output_inds, merge_paths=False, seed=random_seed) if p]
+    return TTree(path, ts_inds, dims, output_inds=output_inds,
+                 check_shared_inds=True)
+
+
+def test_im_optimizer_float64(rng, random_seed):
+    """The counterpart of ``test_float64.test_im_optimizer_float64``: the
+    single IM optimizer under the float64 mode keeps float64 state, and
+    its log2 min total is within 1e-9 of the exact bigint cost."""
+    from tnco_tpu_torch.optimize.infinite_memory import (Optimizer,
+                                                         SimpleCostModel)
+    from tnco_tpu_torch.optimize.prob import MetropolisHastings
+
+    with tbit.enable_float64():
+        opt = Optimizer(_opt_tree(rng, random_seed),
+                        SimpleCostModel(cost_type='float64'),
+                        seed=random_seed, device='cpu')
+        assert opt._state.lcc.dtype == torch.float64
+        prob = MetropolisHastings(beta=1.0)
+        for _ in range(10):
+            opt.update(prob)
+        ok, msg = opt.is_valid(return_message=True)
+        assert ok, msg
+        assert opt.log2_min_total_cost == pytest.approx(
+            math.log2(int(opt.min_total_cost)), abs=1e-9)
+
+
+def test_fw_optimizer_float64(rng, random_seed):
+    """The counterpart of ``test_float64.test_fw_optimizer_float64``."""
+    from tnco_tpu_torch.optimize.finite_width import (Optimizer,
+                                                      SimpleCostModel)
+    from tnco_tpu_torch.optimize.prob import MetropolisHastings
+
+    with tbit.enable_float64():
+        opt = Optimizer(_opt_tree(rng, random_seed),
+                        SimpleCostModel(max_width=3.0, cost_type='float64'),
+                        seed=random_seed, device='cpu')
+        assert opt._state.lcc.dtype == torch.float64
+        prob = MetropolisHastings(beta=1.0)
+        for i in range(10):
+            opt.update(prob, update_slices=(i % 3 == 0))
+        ok, msg = opt.is_valid(return_message=True)
+        assert ok, msg
+        assert opt.log2_min_total_cost == pytest.approx(
+            math.log2(int(opt.min_total_cost)), abs=1e-9)

@@ -8,10 +8,17 @@ mirrors the reference package so each counterpart is found by path:
 
 - :mod:`tnco_tpu_torch.bitset`, :mod:`tnco_tpu_torch.ctree` — data model.
 - :mod:`tnco_tpu_torch.ops` — bitset and log2-cost primitives.
-- :mod:`tnco_tpu_torch.kernels` — the SA engine and its hand-written
+- :mod:`tnco_tpu_torch.kernels` — the SA engines and their hand-written
   Hopper kernels (``csrc/*.cu``, built with ``nvcc`` at first use).
-- :mod:`tnco_tpu_torch.parallel` — the replica runner.
-- :mod:`tnco_tpu_torch.app` — ``Optimizer`` and ``load_tn``.
+- :mod:`tnco_tpu_torch.optimize` — the cost models, the single-optimizer
+  wrappers and the acceptance probabilities.
+- :mod:`tnco_tpu_torch.parallel` — the replica runners, the population
+  operators, checkpoints and the host fan-out.
+- :mod:`tnco_tpu_torch.app` — ``Optimizer``, ``load_tn``, the CLI and the
+  sampler.
+- :mod:`tnco_tpu_torch.utils` — host utilities: networks, circuits, the
+  greedy path finder, profiling, the compile cache.
+- :mod:`tnco_tpu_torch.testing` — the test and smoke-run helpers.
 
 Device rule: every entry point takes ``device=None``, which means
 ``'cuda'``; without CUDA it raises and asks for ``device='cpu'``.  It

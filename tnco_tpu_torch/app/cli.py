@@ -8,9 +8,10 @@ and JSON as the default output format, and ``tnco-tpu-torch sample
 
 ``--device`` (default: the card) takes the place of the JAX CLI's
 platform selection; without CUDA the command exits non-zero unless
-``--device cpu`` is given.  There is no compilation cache to enable: the
-port has no XLA programs, and its CUDA kernels are built at their first
-launch into ``build/kernels/``.
+``--device cpu`` is given.  The port has no XLA programs: its CUDA
+kernels are built at their first launch into ``build/kernels/``, which
+``utils.compile_cache.enable`` names where the JAX CLI enables its
+compile cache.
 """
 
 import argparse
@@ -21,6 +22,7 @@ from typing import Any
 
 from tnco_tpu_torch.app.app import Optimizer
 from tnco_tpu_torch.device import resolve_device
+from tnco_tpu_torch.utils import compile_cache
 
 __all__ = ['main']
 
@@ -111,6 +113,9 @@ def _build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    # Where the JAX CLI enables its compile cache (changes no setting).
+    compile_cache.enable()
+
     if argv is None:
         argv = sys.argv[1:]
     # Reference-CLI compatibility: python-fire accepts underscore flags

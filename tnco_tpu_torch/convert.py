@@ -7,9 +7,13 @@ width, ``SABatchFW``) take the JAX batch's fields as numpy arrays
 (``uint32`` words become ``int32`` bit patterns) and build the port's
 batch on a device; :func:`batch_to_numpy` and :func:`batch_fw_to_numpy`
 go back (``int32`` words of the bitset and key fields return as
-``uint32``).  :func:`sampling_state_from_numpy` does the same for the
+``uint32``).  :func:`state_from_numpy` and :func:`state_fw_from_numpy`
+build the single-replica ``SAStateIM`` / ``SAStateFW`` of a JAX
+optimizer's ``_state`` the same way, so both optimizers start from one
+state.  :func:`sampling_state_from_numpy` does the same for the
 sampler's intermediate state, so that both sampling loops run on the
-same optimized paths.
+same optimized paths.  (A JAX checkpoint ``.npz`` of a 'batched' runner
+loads with :func:`tnco_tpu_torch.parallel.checkpoint.load_batch`.)
 """
 
 from decimal import Decimal
@@ -18,14 +22,17 @@ import numpy as np
 import torch
 
 from tnco_tpu_torch.kernels.sa_batched import SABatch
+from tnco_tpu_torch.kernels.sa_finite import SAStateFW
 from tnco_tpu_torch.kernels.sa_finite_batched import SABatchFW
+from tnco_tpu_torch.kernels.sa_infinite import SAStateIM
 
 __all__ = ['batch_from_numpy', 'batch_to_numpy', 'batch_fw_from_numpy',
-           'batch_fw_to_numpy', 'sampling_state_from_numpy']
+           'batch_fw_to_numpy', 'state_from_numpy', 'state_fw_from_numpy',
+           'sampling_state_from_numpy']
 
 # Fields that hold uint32 words in the JAX package.
 _UINT32_FIELDS = ('inds', 'hyper', 'slices', 'min_inds', 'min_slices',
-                  'keys')
+                  'keys', 'key')
 
 
 def _from_numpy(cls, fields: dict, device):
@@ -66,6 +73,18 @@ def batch_fw_from_numpy(fields: dict, device) -> SABatchFW:
 def batch_fw_to_numpy(batch: SABatchFW) -> dict:
     """:class:`SABatchFW` -> ``{name: np.ndarray}`` in the JAX layout."""
     return _to_numpy(batch)
+
+
+def state_from_numpy(fields: dict, device) -> SAStateIM:
+    """``{name: np.ndarray}`` (a JAX ``SAStateIM``'s fields) ->
+    :class:`~tnco_tpu_torch.kernels.sa_infinite.SAStateIM`."""
+    return _from_numpy(SAStateIM, fields, device)
+
+
+def state_fw_from_numpy(fields: dict, device) -> SAStateFW:
+    """``{name: np.ndarray}`` (a JAX ``SAStateFW``'s fields) ->
+    :class:`~tnco_tpu_torch.kernels.sa_finite.SAStateFW`."""
+    return _from_numpy(SAStateFW, fields, device)
 
 
 def sampling_state_from_numpy(data, qubits):

@@ -14,8 +14,8 @@ from pathlib import Path
 import shutil
 import subprocess
 
-__all__ = ['load', 'load_walker', 'build', 'nvcc_path', 'BUILD_DIR',
-           'SOURCES']
+__all__ = ['load', 'load_walker', 'build', 'up_to_date', 'nvcc_path',
+           'BUILD_DIR', 'SOURCES']
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / 'csrc'
@@ -72,15 +72,22 @@ def nvcc_path() -> str:
     return found
 
 
+def up_to_date(sources=SOURCES, lib_name=_LIB_NAME) -> bool:
+    """Whether ``build/kernels/<lib_name>`` exists and is newer than every
+    source and header (file times only)."""
+    lib = BUILD_DIR / lib_name
+    deps = [CSRC / s for s in sources] + sorted(CSRC.glob('*.cuh'))
+    newest = max(p.stat().st_mtime for p in deps)
+    return lib.is_file() and lib.stat().st_mtime >= newest
+
+
 def build(sources=SOURCES, defines=(), lib_name=_LIB_NAME) -> Path:
     """Compiles ``sources`` (names in ``csrc/``, or paths) with the extra
     ``defines`` into ``build/kernels/<lib_name>`` when stale."""
     global build_log
     lib = BUILD_DIR / lib_name
     srcs = [CSRC / s for s in sources]    # an absolute path stays itself
-    deps = srcs + sorted(CSRC.glob('*.cuh'))
-    newest = max(p.stat().st_mtime for p in deps)
-    if lib.is_file() and lib.stat().st_mtime >= newest:
+    if up_to_date(sources, lib_name):
         return lib
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

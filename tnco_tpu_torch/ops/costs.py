@@ -12,7 +12,8 @@ import torch
 from tnco_tpu_torch.ops.bitops import pairwise_sum_last, width
 
 __all__ = ['ccost_log2', 'pairwise_sum', 'log2_total_from_lcc',
-           'log2_total_from_lcc_last', 'new_total_log2', 'mh_log2_accept']
+           'log2_total_from_lcc_last', 'new_total_log2', 'delta_log2_local',
+           'mh_log2_accept']
 
 # Floor for the scaled linear sum: if the true new total underflows this,
 # the move is a colossal improvement and is accepted regardless.
@@ -85,6 +86,21 @@ def new_total_log2(lt, l_a, l_b, ln_a, ln_b):
     s = (torch.exp2(lt - m) - torch.exp2(l_a - m) - torch.exp2(l_b - m) +
          torch.exp2(ln_a - m) + torch.exp2(ln_b - m))
     return m + torch.log2(torch.clamp(s, min=_SCALED_FLOOR))
+
+
+def delta_log2_local(lt, l_a, l_b, ln_a, ln_b):
+    """``log2(new_total) - log2(total)`` at full relative precision
+    (``tnco_tpu/ops/costs.py:121-146``, same op order): the local form
+    ``log1p((2^ln_a + 2^ln_b - 2^l_a - 2^l_b) / 2^lt) / ln 2`` keeps the
+    sign and leading digits of deltas far below the total, where
+    ``new_total_log2(...) - lt`` rounds to zero.  Same clamp at the
+    move-removes-nearly-everything edge."""
+    m = torch.maximum(torch.maximum(l_a, l_b), torch.maximum(ln_a, ln_b))
+    d = (torch.exp2(ln_a - m) + torch.exp2(ln_b - m) -
+         torch.exp2(l_a - m) - torch.exp2(l_b - m))
+    x = d * torch.exp2(m - lt)
+    x = torch.clamp(x, min=_SCALED_FLOOR - 1.0)
+    return torch.log1p(x) * 1.4426950408889634
 
 
 def mh_log2_accept(log2_u, beta, l_new, l_old):

@@ -59,6 +59,23 @@ class SimpleCostModel(_IMCostModel):
         sparse = sum(math.log2(dims[x]) for x in inds & self.sparse_inds)
         return float(dense + min(sparse, math.log2(self.n_projs)))
 
+    def delta_width(self, inds, dims, x) -> float:
+        """Width change from toggling index ``x``.
+
+        Reference: simple.hpp:59-76, simple_sparse_inds.hpp:53-79.
+        """
+        inds = frozenset(inds)
+        if x in self.sparse_inds:
+            toggled = inds ^ {x}
+            cap = math.log2(self.n_projs)
+            old_sp = sum(math.log2(dims[i])
+                         for i in inds & self.sparse_inds)
+            new_sp = sum(math.log2(dims[i])
+                         for i in toggled & self.sparse_inds)
+            return float(min(new_sp, cap) - min(old_sp, cap))
+        sign = 1 - 2 * (x in inds)
+        return float(sign * math.log2(dims[x]))
+
     def contraction_cost(self, inds_in1, inds_in2, inds_out, dims,
                          slices=frozenset()):
         """Exact cost over ``in1 | in2 | slices`` (sparse min-capped).

@@ -1,7 +1,7 @@
 """Replica runners (the port of ``tnco_tpu/parallel/replicas.py``):
 :class:`ReplicaRunner` (infinite memory, engines 'batched', 'vmapped',
-'walks', 'walker' and 'multiwalk') and :class:`ReplicaRunnerFW` (finite width,
-engines 'batched', 'vmapped', 'walks', 'walker' and 'multiwalk'), and
+'walks', 'walker', 'multiwalk' and 'sweep') and :class:`ReplicaRunnerFW`
+(finite width, the same engines), and
 the population operators that run between chunks: island exchange
 (:func:`exchange_best`, :func:`exchange_best_fw`) and the slice-kick
 (:func:`kick_lanes_fw`).  Both runners take a sparse cost model (every
@@ -26,6 +26,7 @@ from tnco_tpu_torch.device import resolve_device
 from tnco_tpu_torch.kernels import sa_batched as sb
 from tnco_tpu_torch.kernels import sa_finite as saf
 from tnco_tpu_torch.kernels import sa_finite_batched as sfb
+from tnco_tpu_torch.kernels import sa_fullsweep as sfs
 from tnco_tpu_torch.kernels import sa_infinite as sa
 from tnco_tpu_torch.kernels import sa_multiwalk as smw
 from tnco_tpu_torch.kernels import sa_walks as swk
@@ -42,13 +43,13 @@ __all__ = ['ReplicaRunner', 'ReplicaRunnerFW', 'exchange_best',
 
 _ENGINES = ('batched', 'vmapped', 'native', 'multiwalk', 'walker', 'sweep',
             'walks')
-_PORTED = ('batched', 'vmapped', 'walks', 'walker', 'multiwalk')
+_PORTED = ('batched', 'vmapped', 'walks', 'walker', 'multiwalk', 'sweep')
 # Engines whose state keeps the replica axis last; exchange and the kick
 # run on them only ('vmapped' keeps replica-major states), as in the JAX
 # runners.
-_LANE_MAJOR = ('batched', 'walks', 'walker', 'multiwalk')
+_LANE_MAJOR = ('batched', 'walks', 'walker', 'multiwalk', 'sweep')
 # ROADMAP queue 1 items of the engines that are not ported yet.
-_ITEMS = {'native': 'item 10', 'sweep': 'item 13'}
+_ITEMS = {'native': 'item 10'}
 # The engines that take the walk options (on_block, accept_rule).
 _WALK_ENGINES = ('multiwalk', 'walks')
 
@@ -129,11 +130,11 @@ def _resolve_accept_rule(accept_rule, engine: str) -> str:
 
 
 def _resolve_prob_kind(prob_kind, engine: str) -> str:
-    """None means 'mh' (the ported engines; JAX's 'sweep' default
-    'mh_local' comes with item 13); 'mh_local' runs on 'sweep' and
-    'walks' only (``replicas.py:312-317``)."""
+    """None means 'mh_local' on 'sweep' and 'mh' on every other engine;
+    'mh_local' runs on 'sweep' and 'walks' only (``replicas.py:
+    312-317``)."""
     if prob_kind is None:
-        return 'mh'
+        return 'mh_local' if engine == 'sweep' else 'mh'
     if prob_kind == 'mh_local' and engine not in ('sweep', 'walks'):
         raise ValueError("prob_kind='mh_local' is only supported by "
                          "the 'sweep' and 'walks' engines.")
@@ -200,9 +201,10 @@ class ReplicaRunner:
             cost's sparse part at ``log2(n_projs)`` ('walker' refuses it,
             as the JAX walker does).
         disable_shared_inds, prob_kind: Kernel flags; ``prob_kind`` None
-            means 'mh'; 'mh_local' runs on 'walks' only.
-        engine: 'auto', 'batched', 'vmapped', 'walks', 'walker' or
-            'multiwalk'.  'auto' resolves by the JAX runner's rule
+            means 'mh_local' on 'sweep', else 'mh'; 'mh_local' runs on
+            'sweep' and 'walks' only.
+        engine: 'auto', 'batched', 'vmapped', 'walks', 'walker',
+            'multiwalk' or 'sweep'.  'auto' resolves by the JAX runner's rule
             (``replicas.py:282-301``: 'batched' for N*W <= 32768, else
             'walker' on the card for a dense model, else 'vmapped'); an
             engine that is not ported yet raises, naming its ROADMAP
@@ -210,7 +212,10 @@ class ReplicaRunner:
             kernels.sa_infinite.SAStateIM` states and runs the lockstep
             sweep on them (equal to 'batched' on the same draws).
             'walks' runs :func:`~tnco_tpu_torch.kernels.sa_walks.
-            run_walks` (rows through K1 and K3).
+            run_walks` (rows through K1 and K3); 'sweep' runs
+            :func:`~tnco_tpu_torch.kernels.sa_fullsweep.run_fullsweep`
+            (a proposal at every node a round, rows through K1; 'auto'
+            never picks it).
         n_walks: Walks per replica (default 32 for 'walks', 8 for
             'walker' and 'multiwalk'; not used by the lockstep engines).
         walk_chunk: 'multiwalk' evaluates its walks in groups of this
@@ -271,8 +276,7 @@ class ReplicaRunner:
             raise NotImplementedError(
                 f"engine={engine!r} is not ported to tnco_tpu_torch yet "
                 f"(ROADMAP queue 1, {_ITEMS[engine]}); pass "
-                "engine='batched', engine='vmapped', engine='walks', "
-                "engine='walker' or engine='multiwalk'.")
+                f"one of {_PORTED}.")
         if engine == 'walker':
             kwalker.dense_only(self.sparse_wb)
             kwalker.float32_only(dtype)
@@ -372,6 +376,10 @@ class ReplicaRunner:
                 self.states, metrics = kwalker.run_walker(
                     self.states, chunk, self.log2d_w32, self.cfg,
                     self.n_walks, self._mw_pos, generator=self.generator)
+            elif self.engine == 'sweep':
+                self.states, metrics = sfs.run_fullsweep(
+                    self.states, chunk, self.log2d_w32, self.cfg, *sp,
+                    uniform_log2=self.uniform_log2, generator=self.generator)
             elif self.engine == 'walks':
                 self.states, metrics = swk.run_walks(
                     self.states, chunk, self.log2d_w32, self.cfg,
@@ -471,19 +479,22 @@ class ReplicaRunnerFW:
             caps every cost's and width's sparse part at
             ``log2(n_projs)`` ('walker' refuses it, as the JAX walker
             does; 'walks' then takes the reference slicer).
-        engine: 'auto', 'batched', 'vmapped', 'walks', 'walker' or
-            'multiwalk'.  'auto' resolves by the JAX runner's rule
+        engine: 'auto', 'batched', 'vmapped', 'walks', 'walker',
+            'multiwalk' or 'sweep'.  'auto' resolves by the JAX runner's rule
             (``replicas.py:689-708``: 'batched' for N*W <= 32768 without
             new slices, else 'walks' on the card for a dense model
             without new slices, else 'vmapped'), which never picks
-            'walker'; an engine that is not ported yet raises, naming
-            its ROADMAP item.  'vmapped' keeps replica-major
-            :class:`~tnco_tpu_torch.kernels.sa_finite.SAStateFW` states
-            and runs the lockstep sweep on them.
+            'walker' or 'sweep'; an engine that is not ported yet
+            raises, naming its ROADMAP item.  'vmapped' keeps
+            replica-major :class:`~tnco_tpu_torch.kernels.sa_finite.
+            SAStateFW` states and runs the lockstep sweep on them.
+            'sweep' runs :func:`~tnco_tpu_torch.kernels.sa_fullsweep.
+            run_fullsweep_fw`.
         max_number_new_slices: Slices a rejected move may add to fit the
             cap (the rescue; 'batched' and 'vmapped' only, as in the JAX
             runner).
-        prob_kind: None means 'mh'; 'mh_local' runs on 'walks' only.
+        prob_kind: None means 'mh_local' on 'sweep', else 'mh';
+            'mh_local' runs on 'sweep' and 'walks' only.
         n_walks: Walks per replica (default 128 for 'walks', 8 for
             'walker' and 'multiwalk').
         walk_chunk: as in :class:`ReplicaRunner` ('multiwalk').
@@ -553,13 +564,13 @@ class ReplicaRunnerFW:
         if engine not in _PORTED:
             raise NotImplementedError(
                 f"engine={engine!r} is not ported to tnco_tpu_torch yet "
-                f"(ROADMAP queue 1, {_ITEMS[engine]}); pass engine='walks', "
-                "engine='walker', engine='multiwalk', engine='batched' or "
-                "engine='vmapped'.")
+                f"(ROADMAP queue 1, {_ITEMS[engine]}); pass one of "
+                f"{_PORTED}.")
         if engine == 'walker':
             kwalker.dense_only(self.sparse_wb)
             kwalker.float32_only(dtype)
         if max_number_new_slices and engine not in ('batched', 'vmapped'):
+            # 'sweep' included (replicas.py:731-734).
             raise ValueError(f"engine={engine!r} does not support "
                              "max_number_new_slices.")
         prob_kind = _resolve_prob_kind(prob_kind, engine)
@@ -666,6 +677,11 @@ class ReplicaRunnerFW:
                     on_block=self.on_block,
                     accept_rule=self.accept_rule, slicer=self.fw_slicer,
                     generator=self.generator, device=self.device)
+            elif self.engine == 'sweep':
+                self.states, metrics = sfs.run_fullsweep_fw(
+                    self.states, chunk, mchunk, self.max_width,
+                    self.log2d_w32, self.skip_lanes, self.cfg, *sp,
+                    uniform_log2=self.uniform_log2, generator=self.generator)
             elif self.engine == 'walker':
                 self.states, metrics = kwalker.run_walker_fw(
                     self.states, chunk, mchunk, self.max_width,
