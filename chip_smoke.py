@@ -211,17 +211,46 @@ Phases, each fatal on failure:
    continue bitwise for 4 updates; (e) an IM 'batched' runner at the
    default fuse checkpointed after CKPT_K sweeps and resumed equals one
    that ran 2 * CKPT_K straight, bitwise; (f) K1 and K3 bitwise against
-   their plain versions at each shape the phase launched them.
+   their plain versions at each shape the phase launched them;
+25. the native CPU engine and the replica mesh: (a) 'native' on the
+   card's host (the library built with g++ into ``build/native/``): the
+   flagship trees (full network, B=64), IM and FW (max_width 30, reslice
+   every 10), NATIVE_SWEEPS sweeps in chunks of NATIVE_CHUNK, sweeps/s
+   and moves/s beside ``os.cpu_count()`` and the thread count, every
+   replica audited (valid, within the cap after its slices, the exact
+   bigint total within 1e-3 in log2 of the best, ``native.total_cost``
+   equal to the bigint); ``n_threads=1`` equal to all threads bitwise
+   (NATIVE_CHECK_B replicas x NATIVE_CHECK_SWEEPS sweeps, IM and FW);
+   ``ReplicaRunnerFW(max_number_new_slices=2)`` under 'auto' on the card
+   resolves to 'native'; ``Optimizer(seed=0, engine='native')`` on a
+   QAOA circuit; (b) one NCCL rank (``mesh.spawn``): 'batched', 'walks'
+   FW, 'walker' IM and FW on ``make_mesh()`` equal the same runners
+   without a mesh, bitwise (default fuse, MESH_ONE_B replicas), and the
+   sharded exchanges equal ``exchange_best(_fw)``; (c) four gloo ranks
+   sharing the card on a (2, 2) ('dcn', 'ici') mesh, full network at B:
+   'walks' FW (MESH_FW_ITERS iterations, the 'ici' exchange every chunk)
+   and 'walker' IM (MESH_K iterations) equal the one-device runs bitwise
+   (the one-device FW run exchanges as the mesh does,
+   ``mesh_cases.exchange_blocks``); in (b) and (c) each rank holds K1
+   and K3 bitwise against their plain versions at every shape it
+   launched and K5 on its block, and the phase prints which all-reduce
+   gloo does not take on CUDA tensors (none is copied across); (d) the
+   global draw stream's cost to a rank: ms of a draw of the whole
+   replica axis kept to a block of B/4, against the block's own draw and
+   the whole axis, at (c)'s 'walks' FW and 'walker' IM shapes.  A rank's
+   failure fails the phase.
 
-Phases 11-24 run between phases 9 and 10, whose kernel line carries
+Phases 11-25 run between phases 9 and 10, whose kernel line carries
 every phase's launch counts (K1's and K3's rows add phases 15-17's, 19's,
-21's, 22's, 23's and 24's); phase 13's profiled sweeps run after 10.
+21's, 22's, 23's, 24's and 25's, K5's 25's); phase 13's profiled sweeps
+run after 10.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
 result.
 """
 
+from concurrent.futures import ThreadPoolExecutor
 from decimal import Decimal
 import functools
 import json
@@ -273,16 +302,21 @@ PHASE23_PATHS = ('im_walks_app', 'walk_variants', 'f64_fw_walks',
 # checkpoint (K1 and K3, the lockstep sweep).
 PHASE24_K3_PATHS = ('single_optimizers', 'checkpoint')
 PHASE24_PATHS = ('sweep_im_app', 'sweep_fw_app', *PHASE24_K3_PATHS)
+# Phase 25: the runners on a one-rank NCCL mesh ('batched', 'walks' FW,
+# 'walker' IM and FW) and on four gloo ranks ('walks' FW, 'walker' IM).
+MESH_PATHS = ('mesh_one_rank', 'mesh_four_ranks')
 MAIN_PATHS = {'gather_gbn': ('fw_app', 'batched_fw_app', 'batched_im_app',
                              'fw_product', 'fw_throughput', 'fw_tempering',
                              *CIRCUIT_PATHS, *SPARSE_PATHS, *PHASE23_PATHS,
-                             *PHASE24_PATHS),
+                             *PHASE24_PATHS, *MESH_PATHS),
               'scatter_rows_inplace': ('fw_app', 'batched_fw_app',
                                        'batched_im_app', 'fw_product',
                                        'fw_throughput', 'fw_tempering',
                                        *CIRCUIT_PATHS, *SPARSE_PATHS,
-                                       *PHASE23_PATHS, *PHASE24_K3_PATHS),
-              'walker_im': ('im_app',), 'walker_fw': ('fw_walker_app',),
+                                       *PHASE23_PATHS, *PHASE24_K3_PATHS,
+                                       *MESH_PATHS),
+              'walker_im': ('im_app', *MESH_PATHS),
+              'walker_fw': ('fw_walker_app', 'mesh_one_rank'),
               'inv_ids': ('bench',), 'scatter_rows_gbn': ('bench',),
               'probe_loop': ('bench',), 'probe_take': ('bench',)}
 
@@ -308,6 +342,16 @@ N_BATCHED, F_BATCHED = 855, 26 + 5
 # row ops per round over R=256 rounds.
 PROBE_P, PROBE_R = 128, 256
 F32_OPS_PER_S = 67e12  # H100 SXM published float32 rate (no tensor cores)
+# Phase 25: the 'native' runners sweep the full network NATIVE_SWEEPS
+# times in chunks of NATIVE_CHUNK; the threads check runs NATIVE_CHECK_B
+# replicas x NATIVE_CHECK_SWEEPS sweeps.  The one-rank mesh runs
+# MESH_ONE_B replicas of the default-fuse network; the four ranks run
+# the full network at B: MESH_FW_ITERS walks-FW iterations in chunks of 2
+# (the 'ici' exchange after the first) and MESH_K walker-IM iterations in
+# two chunks.
+NATIVE_SWEEPS, NATIVE_CHUNK = 32, 8
+NATIVE_CHECK_B, NATIVE_CHECK_SWEEPS = 8, 4
+MESH_ONE_B, MESH_FW_ITERS, MESH_K = 8, 4, 8
 
 
 def log(msg):
@@ -320,6 +364,7 @@ def fail(msg):
 
 
 def phase_card_and_build(torch):
+    from tnco_tpu_torch import native
     from tnco_tpu_torch.device import card_info
     from tnco_tpu_torch.kernels import build
     smi = ', '.join(card_info(torch.device('cuda')).values())
@@ -330,6 +375,13 @@ def phase_card_and_build(torch):
     for line in build.build_log.splitlines():
         if 'registers' in line or 'spill' in line:
             log(f'  ptxas: {line.strip()}')
+    # The native library too, here: ContractionTree.is_valid calls it, so
+    # its g++ build would otherwise land in the first phase that audits.
+    t0 = time.perf_counter()
+    if not native.available():
+        fail('native: the library is not available')
+    log(f'build native: {time.perf_counter() - t0:.1f} s into '
+        f"{native.LIB_PATH} (g++ {' '.join(native.CXX_FLAGS)})")
     return smi
 
 
@@ -594,7 +646,7 @@ def phase_flagship(torch, card):
     mins = runner.log2_min_totals()
     log(f'flagship: {B} replicas audited; best log2 total {mins.min():.4f};'
         f' |device - exact| <= {worst:.2e}')
-    return counts, ctrees
+    return counts, ctrees, [p[0] for p in paths]
 
 
 def _sycamore():
@@ -3247,6 +3299,318 @@ def phase_sweep(torch, card):
     return counts
 
 
+def _native_audit(runner, fw, what):
+    """Phase 25a's audit: every replica's best tree valid (and, FW, within
+    the cap after its slices), its exact bigint total (sliced, FW) within
+    1e-3 in log2 of the runner's best, and ``native.total_cost`` of the
+    tree equal to the Python bigint total."""
+    from tnco_tpu_torch import native
+
+    worst = (_audit_fw_runner(runner, 30, what) if fw else
+             _audit_im_runner(runner, what)[1])
+    for r in range(runner.n_replicas):
+        best = runner.min_ctree(r)
+        dec, log2 = native.total_cost(best.nodes_array, best.inds_array,
+                                      best.dims_array)
+        exact = _exact_total(best)[1]
+        if int(dec) != exact or abs(log2 - math.log2(exact)) > 1e-9:
+            fail(f'{what}: replica {r}: native.total_cost {dec} != the '
+                 f'bigint {exact}')
+    return worst
+
+
+def _phase_native(torch, card, ctrees, device='cuda'):
+    """Phase 25a: the 'native' engine on the card's host (the runner
+    resolves the card by the device rule; the C++ engine's state is host
+    numpy), IM and FW (max_width 30) on the full network at B, audited;
+    the threads check; 'auto' with new slices on the card; one circuit
+    through ``Optimizer(engine='native')``."""
+    import os
+
+    import numpy as np
+
+    from tnco_tpu_torch import native
+    from tnco_tpu_torch.app import Optimizer
+    from tnco_tpu_torch.optimize.finite_width import SimpleCostModel
+    from tnco_tpu_torch.parallel import ReplicaRunner, ReplicaRunnerFW
+    from tnco_tpu_torch.testing.networks import qaoa_circuit
+
+    if not native.available():
+        fail('native: the library is not available')
+    seeds = list(range(len(ctrees)))
+    betas = np.linspace(0.0, 60.0, NATIVE_SWEEPS)
+    runners = {}
+    for fw in (False, True):
+        what = f"native {'FW' if fw else 'IM'}"
+        t0 = time.perf_counter()
+        runner = (ReplicaRunnerFW(ctrees, seeds, engine='native',
+                                  cmodel=SimpleCostModel(max_width=30),
+                                  device=device)
+                  if fw else ReplicaRunner(ctrees, seeds, engine='native',
+                                           device=device))
+        t1 = time.perf_counter()
+        kw = dict(update_slices=UPDATE_SLICES) if fw else {}
+        info = runner.run(betas, chunk_size=NATIVE_CHUNK, **kw)
+        dt = time.perf_counter() - t1
+        worst = _native_audit(runner, fw, what)
+        log(f'{what}: N={len(ctrees[0])} W={ctrees[0].inds_array.shape[1]} '
+            f'B={runner.n_replicas}, {info["sweeps"]} sweeps in chunks of '
+            f'{NATIVE_CHUNK} in {dt:.4f} s on the host of {card} '
+            f'(os.cpu_count() {os.cpu_count()}, n_threads 0: all '
+            'hardware threads): '
+            f'{info["sweeps"] / dt:.6g} sweeps/s, {info["moves"] / dt:.6g} '
+            f'moves/s ({info["moves"]} moves); set-up {t1 - t0:.2f} s; best '
+            f'log2 total {info["log2_min_total"].min():.4f}; every replica '
+            f'audited (|best - exact| <= {worst:.2e}, native.total_cost == '
+            'bigint)')
+        runners[fw] = runner
+    k = NATIVE_CHECK_B
+    chunk = betas[:NATIVE_CHECK_SWEEPS]
+    im, fwr = runners[False], runners[True]
+    seeds_k = np.arange(k, dtype=np.uint64) + 7
+    skip = np.zeros(ctrees[0].inds_array.shape[1], np.uint32)
+    outs = [native.sa_run(im._nat_nodes[:k].copy(), im._nat_inds[:k].copy(),
+                          ctrees[0].log2_dims_array, chunk, seeds_k,
+                          n_threads=t, return_final=True) for t in (1, 0)]
+    outs_fw = [native.sa_run_fw(
+        fwr._nat_nodes[:k].copy(), fwr._nat_inds[:k].copy(),
+        fwr._nat_slices[:k].copy(), ctrees[0].log2_dims_array, skip, 30.0,
+        chunk, seeds_k, reslice_every=2, n_threads=t, return_final=True)
+        for t in (1, 0)]
+    for a, b in (outs, outs_fw):
+        for x, y in zip(a, b):
+            if not np.array_equal(np.asarray(x), np.asarray(y)):
+                fail('native: n_threads=1 and all threads differ')
+    log(f'native: n_threads=1 == all threads bitwise (IM and FW, {k} '
+        f'replicas x {NATIVE_CHECK_SWEEPS} sweeps; {outs[0][1]} and '
+        f'{outs_fw[0][1]} moves)')
+    auto = ReplicaRunnerFW(ctrees[:2], [0, 1],
+                           cmodel=SimpleCostModel(max_width=30),
+                           max_number_new_slices=2, device=device)
+    if auto.engine != 'native' or auto.device.type != device:
+        fail(f"native: 'auto' with new slices on the card resolved to "
+             f'{auto.engine!r} on {auto.device}')
+    log("native: ReplicaRunnerFW(max_number_new_slices=2) under 'auto' on "
+        f"the card resolves to {auto.engine!r}, as the JAX rule does")
+    t0 = time.perf_counter()
+    _, res = Optimizer(seed=0, engine='native', device=device).optimize(
+        qaoa_circuit(n_qubits=12, p_layers=2), betas=(0, 20), n_steps=16,
+        n_runs=8)
+    costs = [r.disconnected_costs for r in res]
+    if len(res) != 8 or res != sorted(res) or not all(c for c in costs):
+        fail(f'native: Optimizer(engine=native) results {costs}')
+    log(f"native: Optimizer(seed=0, engine='native') on QAOA-12 (p=2): 8 "
+        f'runs x 16 sweeps in {time.perf_counter() - t0:.2f} s, best cost '
+        f'{res[0].cost}')
+
+
+def _card_mesh(torch, spec, n_ranks, backend, what):
+    """Runs ``mesh_cases.card_runs`` on ``n_ranks`` ranks; fails unless
+    every rank held K1, K3 (and K5) against their plain versions; returns
+    the ranks' results and their summed launch counts."""
+    from tnco_tpu_torch import mesh as tmesh
+    from tnco_tpu_torch.testing import mesh_cases as mc
+
+    t0 = time.perf_counter()
+    try:
+        ranks = tmesh.spawn(mc.card_runs, n_ranks, (spec,), backend=backend,
+                            timeout=400, threads=2)
+    except RuntimeError as e:
+        fail(f'{what}: {e}')
+    counts = {k: sum(r['counts'][k] for r in ranks) for k in ranks[0]['counts']}
+    for i, r in enumerate(ranks):
+        if r['bad']:
+            fail(f'{what}: rank {i}: K1/K3 != plain: {r["bad"]}')
+        if not all(c['equal'] for c in r['k5']):
+            fail(f'{what}: rank {i}: K5 != plain: {r["k5"]}')
+    probe = ranks[0]['probe']
+    copied = [k for k, v in probe.items() if v != 'ok']
+    log(f'{what}: {n_ranks} {backend} ranks on {[r["device"] for r in ranks]}'
+        f' in {time.perf_counter() - t0:.1f} s (rank set-up '
+        f'{max(r["setup_s"] for r in ranks):.1f} s, runs '
+        f'{max(r["run_s"] for r in ranks):.2f} s); K1/K3 == plain at '
+        f'{ranks[0]["n_shapes"]} shapes a rank, K5 == plain on '
+        f'{len(ranks[0]["k5"])} walker block(s) a rank; launches {counts}')
+    log(f"{what}: all-reduce on {ranks[0]['device']} tensors over {backend} "
+        f'(sum/min/max; int32, int64, float32): '
+        + ('every op taken on the device, none copied across' if not copied
+           else f'not taken: {copied} ({[probe[k] for k in copied]})'))
+    if copied:
+        fail(f'{what}: the mesh needs these all-reduces on the card: '
+             f'{copied}')
+    return ranks, counts
+
+
+def _mesh_one_rank(torch, device='cuda', backend='nccl'):
+    """Phase 25b: a one-rank NCCL group on the card: 'batched', 'walks'
+    FW, 'walker' IM and FW with ``mesh=make_mesh()`` equal the same
+    runners without a mesh, bitwise, and the sharded exchanges equal
+    ``exchange_best(_fw)``."""
+    import numpy as np
+
+    from tnco_tpu_torch.testing import mesh_cases as mc
+    from tnco_tpu_torch.utils.tn import get_random_contraction_path
+
+    _, loaded = _sycamore_fused(True)
+    ts, out, dims = loaded.ts_inds, loaded.output_inds, loaded.dims
+    paths = [get_random_contraction_path(ts, out, seed=s)
+             for s in range(MESH_ONE_B)]
+    b4, b8 = list(np.linspace(0, 10, 4)), list(np.linspace(0, 10, 8))
+    cases = [dict(fw=False, engine='batched', betas=b4,
+                  run=dict(chunk_size=2)),
+             dict(fw=True, engine='walks', max_width=30.0, betas=b4,
+                  kw=dict(n_walks=32), run=dict(chunk_size=2,
+                                                update_slices=2)),
+             dict(fw=False, engine='walker', betas=b8,
+                  run=dict(chunk_size=4)),
+             dict(fw=True, engine='walker', max_width=30.0, betas=b8,
+                  run=dict(chunk_size=4, update_slices=2))]
+    spec = dict(net=mc.network(ts, out, dims, paths), cases=cases,
+                seeds=list(range(MESH_ONE_B)), device=device,
+                one_device=True)
+    what = f'mesh (one {backend} rank)'
+    (r,), counts = _card_mesh(torch, spec, 1, backend, what)
+    if not all(r['one_device_equal']) or not all(r['exchange_equal']):
+        fail(f"{what}: mesh != one device: {r['one_device_equal']}, "
+             f"exchanges {r['exchange_equal']}")
+    if device == 'cuda' and not all(counts[k] > 0 for k in (
+            'gather_gbn', 'scatter_rows_inplace', 'walker_im', 'walker_fw')):
+        fail(f'{what}: a kernel of the path was never launched: {counts}')
+    log(f"{what}: 'batched', 'walks' FW, 'walker' IM and FW on "
+        f'N={2 * len(ts) - 1}, B={MESH_ONE_B} equal the runners without a '
+        'mesh bitwise; exchange_best(_fw)_sharded == exchange_best(_fw)')
+    return counts
+
+
+def _mesh_four_ranks(torch, paths, device='cuda'):
+    """Phase 25c: four gloo ranks on the one card, a (2, 2) ('dcn',
+    'ici') mesh, the full network at B: 'walks' FW with the 'ici'
+    exchange every chunk and 'walker' IM equal the one-device runs
+    bitwise (the one-device FW run exchanges as the mesh does,
+    ``mesh_cases.exchange_blocks``); K1, K3 and K5 held against their
+    plain versions in each rank."""
+    import numpy as np
+
+    from tnco_tpu_torch.testing import mesh_cases as mc
+    from tnco_tpu_torch.testing.networks import sycamore_like_tn
+
+    ts, out, dims = sycamore_like_tn(20)
+    net = mc.network(ts, out, dims, paths)
+    seeds = list(range(len(paths)))
+    shape, names = (2, 2), ('dcn', 'ici')
+    cases = [dict(fw=True, engine='walks', max_width=30.0,
+                  betas=list(np.linspace(0, 60, MESH_FW_ITERS)),
+                  run=dict(chunk_size=2, update_slices=2, exchange_every=1,
+                           exchange_axes=('ici',))),
+             dict(fw=False, engine='walker',
+                  betas=list(np.linspace(0, 60, MESH_K)),
+                  run=dict(chunk_size=MESH_K // 2))]
+    spec = dict(net=net, seeds=seeds, cases=cases, shape=shape,
+                axis_names=names, device=device)
+    what = 'mesh (four gloo ranks, one card)'
+    # The one-device runs go on in this process while the ranks run (the
+    # host set-up of both is most of the phase).
+    with ThreadPoolExecutor(1) as pool:
+        job = pool.submit(_card_mesh, torch, spec, 4, 'gloo', what)
+        t0 = time.perf_counter()
+        ctrees = mc.trees(net)
+        refs = []
+        for case in cases:
+            one = mc.build_runner(case, ctrees, seeds, None, device)
+            info = mc.run_case(one, case, (shape, names))
+            refs.append((info, mc.local_fields(one.states),
+                         one._mw_pos.cpu().numpy()))
+        t_ref = time.perf_counter() - t0
+        ranks, counts = job.result()
+    if device == 'cuda' and not all(counts[k] > 0 for k in (
+            'gather_gbn', 'scatter_rows_inplace', 'walker_im')):
+        fail(f'{what}: a kernel of the path was never launched: {counts}')
+    for i, (case, (info, want, want_pos)) in enumerate(zip(cases, refs)):
+        got = mc.join_blocks([r['local'][i] for r in ranks])
+        pos = np.concatenate([r['pos'][i] for r in ranks], axis=1)
+        bad = [f for f in want if not np.array_equal(got[f], want[f])]
+        if bad or not np.array_equal(pos, want_pos):
+            fail(f"{what}: {case['engine']}: sharded != one device in {bad}")
+        for r in ranks:
+            ri = r['infos'][i]
+            if (ri['sweeps'], ri['moves'], ri['applied']) != (
+                    info['sweeps'], info['moves'], info['applied']) or \
+                    not np.array_equal(ri['log2_min_total'],
+                                       info['log2_min_total']):
+                fail(f"{what}: {case['engine']}: counts {ri} != {info}")
+    log(f"{what}: 'walks' FW ({MESH_FW_ITERS} iterations, 'ici' exchange "
+        f"every chunk) and 'walker' IM ({MESH_K} iterations) at "
+        f'B={len(paths)}, N={len(ctrees[0])} equal the one-device runs '
+        f'bitwise (one-device runs {t_ref:.1f} s, beside the ranks)')
+    return counts
+
+
+def _block_draws(torch, card, ctrees, n_ranks=4, reps=200):
+    """Phase 25d: what the global draw stream costs a rank.  On a mesh of
+    ``n_ranks`` each rank draws the whole replica axis and keeps its
+    block (``ops/rng.BlockGenerator``); timed on the card against the
+    draw of the block alone and of the whole axis, at phase 25c's shapes:
+    one 'walks' FW iteration (``draw_walks``, P=128, the reslice jitter
+    over the W*32 bits) and one 'walker' IM chunk (``draw_chunk``, K =
+    MESH_K // 2, P=8), B replicas.  Wall ms a draw (host and card, the
+    mean of ``reps`` after a warm-up), the card synchronised at both
+    ends."""
+    from tnco_tpu_torch.kernels import sa_multiwalk as smw
+    from tnco_tpu_torch.ops import rng
+
+    b = len(ctrees)
+    blk = b // n_ranks
+    nl, n_bits = ctrees[0].n_leaves, 32 * ctrees[0].inds_array.shape[1]
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    sites = {
+        'walks FW iteration': lambda g, n: smw.draw_walks(g, nl, n, 128,
+                                                          n_bits),
+        'walker IM chunk': lambda g, n: smw.draw_chunk(g, nl, MESH_K // 2,
+                                                       8, n)}
+    out = {}
+    for site, draw in sites.items():
+        arms = {'whole': (gen, b), 'own block': (gen, blk),
+                'block of the whole': (rng.BlockGenerator(gen, 0, blk, b),
+                                       blk)}
+        ms = {}
+        for arm, (g, n) in arms.items():
+            for _ in range(10):
+                draw(g, n)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                draw(g, n)
+            torch.cuda.synchronize()
+            ms[arm] = (time.perf_counter() - t0) * 1e3 / reps
+        out[site] = ms
+        log(f'draws ({site}, B={b}, a rank\'s block {blk} of {n_ranks}; '
+            f'{card}): whole {ms["whole"]:.4f} ms, own block '
+            f'{ms["own block"]:.4f} ms, the block of the whole '
+            f'{ms["block of the whole"]:.4f} ms a draw; the global stream '
+            f'costs a rank {ms["block of the whole"] - ms["own block"]:.4f}'
+            ' ms a draw')
+    return out
+
+
+def phase_native_mesh(torch, card, ctrees, paths):
+    """Phase 25: (a) 'native' on the card's host, (b) a one-rank NCCL
+    mesh, (c) four gloo ranks on the card; returns the launch counts of
+    (b) and (c)."""
+    t0 = time.perf_counter()
+    _phase_native(torch, card, ctrees)
+    t1 = time.perf_counter()
+    counts = {'mesh_one_rank': _mesh_one_rank(torch)}
+    t2 = time.perf_counter()
+    counts['mesh_four_ranks'] = _mesh_four_ranks(torch, paths)
+    t3 = time.perf_counter()
+    _block_draws(torch, card, ctrees)
+    log(f'phase 25: {time.perf_counter() - t0:.1f} s (native '
+        f'{t1 - t0:.1f}, one rank {t2 - t1:.1f}, four ranks '
+        f'{t3 - t2:.1f}, draws {time.perf_counter() - t3:.1f} s)')
+    return counts
+
+
 def _time_ms(torch, fn, reps=50, rounds=11):
     """Device ms of one call of ``fn``: ``reps`` calls captured in one
     CUDA graph, replayed between two events, median over ``rounds``.
@@ -3823,56 +4187,83 @@ def main() -> int:
               'not found)', file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    walls, last = {}, [t_start]
+
+    def lap(name):
+        """Records the wall seconds since the last lap under ``name``."""
+        now = time.perf_counter()
+        walls[name] = round(now - last[0], 1)
+        last[0] = now
+
     try:
         card = phase_card_and_build(torch)
+        lap('1 card and build')
         phase_kernels(torch)
         phase_walker_checks(torch)
         phase_walker_fw_checks(torch)
         phase_k4_p1_checks(torch)
+        lap('2 kernel checks')
         counts = {'fw_app': phase_app(torch)}
-        counts['fw_flagship'], fw_trees = phase_flagship(torch, card)
+        lap('3 FW app')
+        counts['fw_flagship'], fw_trees, fw_paths = phase_flagship(torch,
+                                                                   card)
+        lap('4 FW flagship')
         counts['im_app'] = phase_app_im(torch)
+        lap('5 IM app')
         counts['im_flagship'], im_runner = phase_flagship_im(torch, card)
+        lap('6 IM flagship')
         counts['fw_walker_app'] = phase_app_fw_walker(torch)
+        lap('7 FW walker app')
         counts['fw_walker_flagship'], fw_runner = phase_flagship_fw_walker(
             torch, card)
+        lap('8 FW walker flagship')
         counts['bench'] = phase_bench(torch)
+        lap('9 bench')
         counts['batched_fw_app'] = phase_app_batched(torch, fw=True)
         counts['batched_im_app'] = phase_app_batched(torch, fw=False)
+        lap('11-12 batched apps')
         counts['batched_fw_flagship'], ctrees, fw_prof = \
             phase_flagship_batched(torch, card, fw=True)
         counts['batched_im_flagship'], _, im_prof = phase_flagship_batched(
             torch, card, fw=False)
+        lap('13 batched flagships')
         phase_batched_card_vs_cpu(torch, ctrees)
+        lap('14 batched card vs CPU')
         counts['fw_product'], product = phase_product_point(torch, card,
                                                             fw_trees)
+        lap('15 product point')
         phase_exchange_kick_card_vs_cpu(torch, product)
+        lap('18 exchange and kick card vs CPU')
         counts['fw_throughput'] = phase_throughput_point(torch, card,
                                                          fw_trees)
+        lap('16 throughput point')
         counts['fw_tempering'] = phase_tempering(torch, card, product)
-        t0 = time.perf_counter()
+        lap('17 tempering')
         counts.update(phase_circuits(torch))
-        t1 = time.perf_counter()
+        lap('19 circuits')
         phase_cli(torch)
-        t2 = time.perf_counter()
+        lap('20 CLI')
         counts['sampler'] = phase_sampler(torch)
-        t3 = time.perf_counter()
+        lap('21 sampler')
         counts.update(phase_sparse(torch))
-        t4 = time.perf_counter()
+        lap('22 sparse')
         counts.update(phase_walk_variants_float64(torch, card, product))
-        t5 = time.perf_counter()
+        lap('23 walk variants and float64')
         counts.update(phase_sweep(torch, card))
-        log(f'phases 19 / 20 / 21 / 22 / 23 / 24: {t1 - t0:.1f} / '
-            f'{t2 - t1:.1f} / {t3 - t2:.1f} / {t4 - t3:.1f} / '
-            f'{t5 - t4:.1f} / {time.perf_counter() - t5:.1f} s')
+        lap('24 sweep')
+        counts.update(phase_native_mesh(torch, card, fw_trees, fw_paths))
+        lap('25 native and mesh')
         rows = phase_times(torch, counts, im_runner, fw_runner)
+        lap('10 kernel times')
         phase_batched_launches(torch, card, (fw_prof, im_prof))
+        lap('13 batched launches')
     finally:
         try:
             from joblib.externals.loky import get_reusable_executor
             get_reusable_executor().shutdown(wait=True)
         except ImportError:
             pass
+    log(f'phase wall s: {json.dumps(walls)}')
     log(f'total: {time.perf_counter() - t_start:.1f} s')
     print(card)
     print(json.dumps({'kernels': rows}))

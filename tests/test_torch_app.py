@@ -88,9 +88,10 @@ def test_runner_timeout_and_unported_paths():
     runner.run([1.0] * 4, chunk_size=1, update_slices=2, exchange_every=1)
     assert runner.ctree(0).is_valid(check_shared_inds=True)
     assert runner.min_ctree(0).is_valid(check_shared_inds=True)
-    with pytest.raises(NotImplementedError, match='ROADMAP.*item 15'):
-        runner.run([1.0], exchange_every=1, exchange_axes=('ici',))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    # Without a mesh exchange_axes is not used, as in the JAX runner.
+    runner.run([1.0], exchange_every=1, exchange_axes=('ici',))
+    assert runner.min_ctree(0).is_valid(check_shared_inds=True)
+    with pytest.raises(TypeError, match='DeviceMesh'):
         ReplicaRunnerFW(ctrees, [1], mesh=object(), **kw)
     with pytest.raises(ValueError, match='One seed'):
         ReplicaRunnerFW(ctrees, [1, 2], **kw)
@@ -170,9 +171,12 @@ def test_optimizer_device_rule_and_unported(monkeypatch):
 
 
 def _jax_engine(ctrees, monkeypatch, accel, **kw):
+    """The JAX runner's engine with its native engine off; the port's is
+    pinned off too (the native cases: tests/test_torch_native.py)."""
     from tnco_tpu import native
     monkeypatch.setattr(jrep, '_accel_available', lambda: accel)
     monkeypatch.setattr(native, 'available', lambda: False)
+    monkeypatch.setattr(trep, '_native_available', lambda: False)
     return jrep.ReplicaRunnerFW(ctrees, list(range(len(ctrees))),
                                 cmodel=JCostModel(max_width=40),
                                 **kw).engine

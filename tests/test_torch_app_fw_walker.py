@@ -116,8 +116,9 @@ def test_runner_options_and_unported_paths():
     runner.run([1.0] * 4, chunk_size=1, update_slices=2, exchange_every=1)
     assert runner.ctree(0).is_valid(check_shared_inds=True)
     assert runner.min_ctree(0).is_valid(check_shared_inds=True)
-    with pytest.raises(NotImplementedError, match='ROADMAP.*item 15'):
-        runner.run([1.0], exchange_every=1, exchange_axes=('ici',))
+    # Without a mesh exchange_axes is not used, as in the JAX runner.
+    runner.run([1.0], exchange_every=1, exchange_axes=('ici',))
+    assert runner.min_ctree(0).is_valid(check_shared_inds=True)
     wide = _trees('dim2', 1, 0, 46, 46)             # 4140 indices: W = 130
     assert wide[0].inds_array.shape[1] > 123
     with pytest.raises(ValueError, match='walker_supported_fw'):
@@ -132,6 +133,7 @@ def test_auto_never_picks_walker(monkeypatch):
     path = get_random_contraction_path(ts, out, seed=0)
     monkeypatch.setattr(jrep, '_accel_available', lambda: True)
     monkeypatch.setattr(native, 'available', lambda: False)
+    monkeypatch.setattr(trep, '_native_available', lambda: False)
     want = jrep.ReplicaRunnerFW(
         [ContractionTree(path, ts, dims, output_inds=out)], [0],
         cmodel=JCostModel(max_width=40)).engine

@@ -85,9 +85,10 @@ def test_runner_timeout_and_unported_paths():
     runner.run([1.0] * 4, chunk_size=1, exchange_every=1)
     assert runner.ctree(0).is_valid(check_shared_inds=True)
     assert runner.min_ctree(0).is_valid(check_shared_inds=True)
-    with pytest.raises(NotImplementedError, match='ROADMAP.*item 15'):
-        runner.run([1.0], exchange_every=1, exchange_axes=('ici',))
-    with pytest.raises(NotImplementedError, match='ROADMAP.*item 15'):
+    # Without a mesh exchange_axes is not used, as in the JAX runner.
+    runner.run([1.0], exchange_every=1, exchange_axes=('ici',))
+    assert runner.min_ctree(0).is_valid(check_shared_inds=True)
+    with pytest.raises(TypeError, match='DeviceMesh'):
         ReplicaRunner(ctrees, [1], engine='walker', mesh=object(),
                       device='cpu')
     with pytest.raises(NotImplementedError,
@@ -115,9 +116,12 @@ def test_runner_timeout_and_unported_paths():
 
 
 def _jax_engine(ctrees, monkeypatch, accel, **kw):
+    """The JAX runner's engine with its native engine off; the port's is
+    pinned off too (the native cases: tests/test_torch_native.py)."""
     from tnco_tpu import native
     monkeypatch.setattr(jrep, '_accel_available', lambda: accel)
     monkeypatch.setattr(native, 'available', lambda: False)
+    monkeypatch.setattr(trep, '_native_available', lambda: False)
     return jrep.ReplicaRunner(ctrees, list(range(len(ctrees))), **kw).engine
 
 

@@ -364,8 +364,9 @@ def test_runner_fw_batched(random_seed, kind, mns):
 
 
 def test_runner_fw_rescue_rules(monkeypatch):
-    """New slices only with 'batched' and 'vmapped'; 'auto' with new
-    slices keeps the JAX rule ('vmapped'); the device rule."""
+    """New slices not with the walk engines and 'sweep'; 'auto' with new
+    slices keeps the JAX rule ('native' where the library runs, else
+    'vmapped'); the device rule."""
     from tnco_tpu_torch.ctree import ContractionTree as TContractionTree
     from tnco_tpu_torch.optimize.finite_width import SimpleCostModel
     from tnco_tpu_torch.parallel import ReplicaRunnerFW
@@ -379,10 +380,16 @@ def test_runner_fw_rescue_rules(monkeypatch):
         with pytest.raises(ValueError, match='max_number_new_slices'):
             ReplicaRunnerFW(ctrees, [1], engine=engine,
                             max_number_new_slices=2, **kw)
+    from tnco_tpu_torch.parallel import replicas as trep
+    runner = ReplicaRunnerFW(ctrees, [1], max_number_new_slices=2, **kw)
+    assert runner.engine == 'native' and runner.cfg.max_new_slices == 2
+    monkeypatch.setattr(trep, '_native_available', lambda: False)
     runner = ReplicaRunnerFW(ctrees, [1], max_number_new_slices=2, **kw)
     assert runner.engine == 'vmapped' and runner.cfg.max_new_slices == 2
-    with pytest.raises(NotImplementedError, match='ROADMAP.*item 10'):
-        ReplicaRunnerFW(ctrees, [1], engine='native', **kw)
+    # 'native' takes the rescue, as in the JAX runner.
+    nat = ReplicaRunnerFW(ctrees, [1], engine='native',
+                          max_number_new_slices=2, **kw)
+    assert nat.engine == 'native' and nat.cfg.max_new_slices == 2
     with pytest.raises(ValueError, match='max_number_new_slices'):
         ReplicaRunnerFW(ctrees, [1], engine='sweep', max_number_new_slices=2,
                         **kw)

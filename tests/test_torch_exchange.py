@@ -270,14 +270,20 @@ def test_im_runner_anneals_with_exchange(random_seed, engine):
 
 
 def test_exchange_axes_raise_naming_item_15():
+    """``exchange_axes`` names mesh axes: without a mesh it is not used,
+    as in the JAX runner, so the run equals one without it (the mesh
+    cases: tests/test_torch_mesh.py)."""
     _, tt, _ = tree_pairs('lattice', 0, b=2)
-    for runner in (trep.ReplicaRunner(tt, [0, 1], engine='batched',
-                                      device='cpu'),
-                   trep.ReplicaRunnerFW(tt, [0, 1], engine='batched',
-                                        cmodel=TFWModel(max_width=3.0),
-                                        device='cpu')):
-        with pytest.raises(NotImplementedError, match='item 15'):
-            runner.run([1.0, 2.0], exchange_every=1, exchange_axes=('ici',))
+    for make in (lambda: trep.ReplicaRunner(tt, [0, 1], engine='batched',
+                                            device='cpu'),
+                 lambda: trep.ReplicaRunnerFW(tt, [0, 1], engine='batched',
+                                              cmodel=TFWModel(max_width=3.0),
+                                              device='cpu')):
+        a, b = make(), make()
+        a.run([1.0, 2.0], exchange_every=1, exchange_axes=('ici',))
+        b.run([1.0, 2.0], exchange_every=1)
+        for f in ('c0', 'inds', 'lcc', 'min_log2_total'):
+            assert torch.equal(getattr(a.states, f), getattr(b.states, f))
 
 
 @pytest.mark.cuda

@@ -648,7 +648,7 @@ def test_runner_sweep_routing():
     with pytest.raises(ValueError, match='max_number_new_slices'):
         trep.ReplicaRunnerFW(ctrees, [0, 1], cmodel=cm, engine='sweep',
                              max_number_new_slices=2, **kw)
-    with pytest.raises(NotImplementedError, match='item 15'):
+    with pytest.raises(ValueError, match='multi-chip'):
         trep.ReplicaRunner(ctrees, [0, 1], engine='sweep', mesh=object(),
                            **kw)
     for fw in (False, True):

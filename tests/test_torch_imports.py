@@ -22,6 +22,10 @@ names = [m.name for m in pkgutil.walk_packages(tnco_tpu_torch.__path__,
                                                'tnco_tpu_torch.')]
 for name in names:
     importlib.import_module(name)
+for name in ('tnco_tpu_torch.native', 'tnco_tpu_torch.mesh',
+             'tnco_tpu_torch.parallel.dryrun',
+             'tnco_tpu_torch.testing.mesh_cases'):
+    assert name in names, name
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'tnco_tpu', 'benchmarks')

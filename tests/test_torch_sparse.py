@@ -492,9 +492,12 @@ def test_walks_slicer_rule_and_walker_refusal(random_seed):
 
 
 def _jax_engine(monkeypatch, ctrees, fw, accel, **kw):
+    """The JAX runner's engine with its native engine off; the port's is
+    pinned off too (the native cases: tests/test_torch_native.py)."""
     from tnco_tpu import native
     monkeypatch.setattr(jrep, '_accel_available', lambda: accel)
     monkeypatch.setattr(native, 'available', lambda: False)
+    monkeypatch.setattr(trep, '_native_available', lambda: False)
     cls = jrep.ReplicaRunnerFW if fw else jrep.ReplicaRunner
     return cls(ctrees, list(range(len(ctrees))), **kw).engine
 

@@ -1,6 +1,7 @@
 """Array-backed contraction tree (host side; the port's own copy of
-``tnco_tpu/ctree.py`` with the native-validator fast path removed —
-validation is the numpy implementation below and exact costs are Python
+``tnco_tpu/ctree.py``: validation takes the port's native validator
+(``tnco_tpu_torch.native``) when it is available and the numpy
+implementation below, its plain version, otherwise; exact costs are Python
 bigints).
 
 The canonical tree representation is a pair of flat arrays (uploaded to
@@ -25,6 +26,7 @@ from typing import Any
 
 import numpy as np
 
+from tnco_tpu_torch import native
 from tnco_tpu_torch.bitset import Bitset, n_lanes
 
 __all__ = ['ContractionTree', 'Node', 'traverse', 'get_contraction']
@@ -464,6 +466,15 @@ class ContractionTree:
         return ok if return_message else ok[0]
 
     def _is_valid_impl(self, check_shared_inds):
+        # The native validator (native/core.cpp) when it is available, as
+        # in the JAX package; it gives the same (ok, message) as the numpy
+        # code below, which is its plain version (_is_valid_numpy).
+        res = native.validate(self._nodes, self._inds, check_shared_inds)
+        if res is not None:
+            return res
+        return self._is_valid_numpy(check_shared_inds)
+
+    def _is_valid_numpy(self, check_shared_inds):
         nodes = self._nodes
         n = len(nodes)
         c0, c1, par = nodes[:, 0], nodes[:, 1], nodes[:, 2]

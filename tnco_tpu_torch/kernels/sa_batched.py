@@ -32,6 +32,7 @@ from tnco_tpu_torch.kernels.scatter import scatter_rows_inplace
 from tnco_tpu_torch.kernels.sa_fullsweep import (_join_f, _nk, _split_f,
                                                   _width_bn)
 from tnco_tpu_torch.ops import costs as costs_ops
+from tnco_tpu_torch.ops import rng
 
 __all__ = ['SABatch', 'init_batch', 'compute_hyper_b', 'run_sweeps_batched',
            'run_sweeps_per_replica', 'run_stream_batched', 'draw_sweep',
@@ -204,14 +205,10 @@ def draw_sweep(generator: torch.Generator, n_leaves: int, b: int,
     replica's ``t``-th walk step reads row ``t``.  torch's generator gives
     other numbers than the JAX package's threefry keys; tests inject
     those instead."""
-    dev = generator.device
     t = max_walk_steps(n_leaves)
-    return {'leaf': torch.randint(0, n_leaves, (b,), generator=generator,
-                                  device=dev, dtype=torch.int32),
-            'rand_bit': torch.randint(0, 2, (t, b), generator=generator,
-                                      device=dev, dtype=torch.int32) != 0,
-            'u': torch.rand((t, b), generator=generator, device=dev,
-                            dtype=dtype)}
+    return {'leaf': rng.randint(generator, 0, n_leaves, (b,), 0),
+            'rand_bit': rng.randint(generator, 0, 2, (t, b), -1) != 0,
+            'u': rng.rand(generator, (t, b), -1, dtype)}
 
 
 def check_draws(draws: dict, spec: dict, device) -> None:

@@ -33,6 +33,7 @@ from tnco_tpu_torch.kernels.sa_finite import (_WIDTH_EPS, _cumsum_blocked,
                                               greedy_slices_host)
 from tnco_tpu_torch.kernels.sa_fullsweep import _join_f, _nk, _split_f
 from tnco_tpu_torch.ops import costs as costs_ops
+from tnco_tpu_torch.ops import rng
 from tnco_tpu_torch.ops.bitops import popcount32
 
 __all__ = ['SABatchFW', 'init_batch_fw', 'run_sweeps_fw_batched',
@@ -482,13 +483,10 @@ def draw_sweep_fw(generator: torch.Generator, n_leaves: int, b: int,
     rescue (if ``rescue``), ``u2 [T, B]``.  The rescue's priorities
     (``[n_bits, B]`` a step) are drawn step by step by the sweep."""
     dr = sb.draw_sweep(generator, n_leaves, b, dtype)
-    dev = generator.device
     if reslice:
-        dr['jitter'] = torch.rand((n_bits, b), generator=generator,
-                                  device=dev, dtype=dtype)
+        dr['jitter'] = rng.rand(generator, (n_bits, b), -1, dtype)
     if rescue:
-        dr['u2'] = torch.rand(dr['u'].shape, generator=generator, device=dev,
-                              dtype=dtype)
+        dr['u2'] = rng.rand(generator, dr['u'].shape, -1, dtype)
     return dr
 
 
@@ -664,8 +662,7 @@ def run_sweeps_fw_per_replica(batch: SABatchFW, betas, update_slices_mask,
                                bool(mask[i]), rescue, dtype)
 
             def prio_at(step):
-                return torch.rand((n_bits, b), generator=generator,
-                                  device=dev, dtype=dtype)
+                return rng.rand(generator, (n_bits, b), -1, dtype)
         lt, moves = _sweep_fw(st, w, betas[i], bool(mask[i]), max_width,
                               log2d_w32, skip_wb, cfg, dr, prio_at,
                               uniform_log2, sp)

@@ -47,6 +47,7 @@ from tnco_tpu_torch.kernels.sa_finite_batched import (SABatchFW,
                                                       _greedy_slices_b,
                                                       _lcc_fw_b)
 from tnco_tpu_torch.ops import costs as costs_ops
+from tnco_tpu_torch.ops import rng
 
 __all__ = ['run_multiwalk', 'run_multiwalk_fw', 'draw_walks', 'draw_chunk',
            'draw_chunk_fw', 'NULL']
@@ -106,16 +107,12 @@ def draw_walks(generator: torch.Generator, n_leaves: int, b: int, p: int,
     generator gives other numbers than JAX's threefry from the same
     seed; tests inject the JAX draws instead.
     """
-    dev = generator.device
-    leaf = torch.randint(0, n_leaves, (b, p), generator=generator,
-                         device=dev, dtype=torch.int32)
-    rand_bit = torch.randint(0, 2, (b, p), generator=generator, device=dev,
-                             dtype=torch.int32) != 0
-    u = torch.rand((b, p), generator=generator, device=dev, dtype=dtype)
+    leaf = rng.randint(generator, 0, n_leaves, (b, p), 0)
+    rand_bit = rng.randint(generator, 0, 2, (b, p), 0) != 0
+    u = rng.rand(generator, (b, p), 0, dtype)
     dr = {'leaf': leaf, 'rand_bit': rand_bit, 'u': u}
     if n_bits:
-        dr['jitter'] = torch.rand((n_bits, b), generator=generator,
-                                  device=dev, dtype=dtype)
+        dr['jitter'] = rng.rand(generator, (n_bits, b), -1, dtype)
     return dr
 
 
@@ -125,12 +122,9 @@ def draw_chunk(generator: torch.Generator, n_leaves: int, k: int, p: int,
     (int32), ``rand_bit`` (bool) and ``u`` (``dtype``), each ``[K, P,
     B]`` — the streams ``pallas_walker._run_walker`` draws before its
     launch (``:514-520``), from a ``torch.Generator`` instead."""
-    dev = generator.device
-    leaf = torch.randint(0, n_leaves, (k, p, b), generator=generator,
-                         device=dev, dtype=torch.int32)
-    rand_bit = torch.randint(0, 2, (k, p, b), generator=generator,
-                             device=dev, dtype=torch.int32) != 0
-    u = torch.rand((k, p, b), generator=generator, device=dev, dtype=dtype)
+    leaf = rng.randint(generator, 0, n_leaves, (k, p, b), -1)
+    rand_bit = rng.randint(generator, 0, 2, (k, p, b), -1) != 0
+    u = rng.rand(generator, (k, p, b), -1, dtype)
     return {'leaf': leaf, 'rand_bit': rand_bit, 'u': u}
 
 
@@ -140,8 +134,7 @@ def draw_chunk_fw(generator: torch.Generator, n_leaves: int, k: int, p: int,
     streams plus ``jitter [R, n_bits, B]`` in ``[0, 1)``, one slicer
     jitter per reslice point of the chunk (true mask entry), in order."""
     dr = draw_chunk(generator, n_leaves, k, p, b, dtype)
-    dr['jitter'] = torch.rand((n_reslices, n_bits, b), generator=generator,
-                              device=generator.device, dtype=dtype)
+    dr['jitter'] = rng.rand(generator, (n_reslices, n_bits, b), -1, dtype)
     return dr
 
 

@@ -66,6 +66,9 @@ def load_batch(path, device=None):
 
 
 def _check_layout(runner) -> None:
+    if getattr(runner, 'mesh', None) is not None:
+        raise ValueError("A runner on a mesh holds one rank's block of the "
+                         "replicas; checkpoints hold one-device runners.")
     if not isinstance(runner.states, SABatch):
         raise ValueError(
             f"engine={runner.engine!r} keeps a "

@@ -1,17 +1,27 @@
 """Replica runners (the port of ``tnco_tpu/parallel/replicas.py``):
 :class:`ReplicaRunner` (infinite memory, engines 'batched', 'vmapped',
-'walks', 'walker', 'multiwalk' and 'sweep') and :class:`ReplicaRunnerFW`
-(finite width, the same engines), and
+'walks', 'walker', 'multiwalk', 'sweep' and 'native') and
+:class:`ReplicaRunnerFW` (finite width, the same engines), and
 the population operators that run between chunks: island exchange
-(:func:`exchange_best`, :func:`exchange_best_fw`) and the slice-kick
-(:func:`kick_lanes_fw`).  Both runners take a sparse cost model (every
-engine but 'walker', which refuses it as the JAX walker does).
+(:func:`exchange_best`, :func:`exchange_best_fw`, and on a mesh
+:func:`exchange_best_sharded`, :func:`exchange_best_fw_sharded`) and the
+slice-kick (:func:`kick_lanes_fw`).  Both runners take a sparse cost
+model (every engine but 'walker', which refuses it as the JAX walker
+does).
 
 Replicas of one connected component share array shapes, so a batch is
 one stacked state on one device; ``run`` anneals it in chunks with a
 wall-clock budget and host callbacks (and, finite width, re-derives the
 slice set every ``update_slices`` steps, reference finite_width/sa.py:
-228).
+228).  'native' keeps its state in host numpy and anneals it with the
+multithreaded C++ engine of :mod:`tnco_tpu_torch.native`.
+
+On a mesh (``mesh=``, :func:`make_mesh`) every rank of the process group
+builds the runner with all trees and seeds and keeps its own block of the
+replicas on its device (:func:`replica_sharding`); the engines run on the
+block, their draws are the one-device run's columns
+(:class:`~tnco_tpu_torch.ops.rng.BlockGenerator`), so a sharded run
+equals the one-device run bitwise, and the accessors are collectives.
 """
 
 import dataclasses
@@ -22,6 +32,8 @@ from warnings import warn
 import numpy as np
 import torch
 
+from tnco_tpu_torch import mesh as tmesh
+from tnco_tpu_torch import native
 from tnco_tpu_torch.device import resolve_device
 from tnco_tpu_torch.kernels import sa_batched as sb
 from tnco_tpu_torch.kernels import sa_finite as saf
@@ -35,21 +47,25 @@ from tnco_tpu_torch.kernels.sa_finite import (SweepConfigFW,
                                               greedy_slices_host)
 from tnco_tpu_torch.kernels.sa_fullsweep import uniform_log2_dim
 from tnco_tpu_torch.kernels.sa_infinite import SweepConfig
+from tnco_tpu_torch.mesh import make_mesh, replica_sharding
 from tnco_tpu_torch.ops import bitops
 from tnco_tpu_torch.ops import costs as costs_ops
+from tnco_tpu_torch.ops import rng
 
 __all__ = ['ReplicaRunner', 'ReplicaRunnerFW', 'exchange_best',
-           'exchange_best_fw', 'kick_lanes_fw']
+           'exchange_best_fw', 'exchange_best_sharded',
+           'exchange_best_fw_sharded', 'kick_lanes_fw', 'make_mesh',
+           'replica_sharding']
 
 _ENGINES = ('batched', 'vmapped', 'native', 'multiwalk', 'walker', 'sweep',
             'walks')
-_PORTED = ('batched', 'vmapped', 'walks', 'walker', 'multiwalk', 'sweep')
 # Engines whose state keeps the replica axis last; exchange and the kick
 # run on them only ('vmapped' keeps replica-major states), as in the JAX
 # runners.
 _LANE_MAJOR = ('batched', 'walks', 'walker', 'multiwalk', 'sweep')
-# ROADMAP queue 1 items of the engines that are not ported yet.
-_ITEMS = {'native': 'item 10'}
+# Engines with no multi-device path: the runners refuse a mesh for them,
+# as the JAX runners do (replicas.py:57-63).
+_MESHLESS = ('sweep',)
 # The engines that take the walk options (on_block, accept_rule).
 _WALK_ENGINES = ('multiwalk', 'walks')
 
@@ -61,8 +77,10 @@ def _accel_available(device: torch.device) -> bool:
 
 
 def _native_available() -> bool:
-    """The port has no native C++ engine yet (ROADMAP queue 1, item 10)."""
-    return False
+    """Whether the native C++ engine can run on this host (the library
+    builds, ``TNCO_TPU_NO_NATIVE`` is unset); the 'auto' rule's "native
+    available".  A compile error of ``native/core.cpp`` raises."""
+    return native.available()
 
 
 def resolve_engine(n_nodes: int, n_lanes: int, *, accel: bool,
@@ -72,8 +90,9 @@ def resolve_engine(n_nodes: int, n_lanes: int, *, accel: bool,
     """The JAX runners' 'auto' rule (``replicas.py:689-708`` finite
     width, ``:282-301`` infinite memory with ``fw=False``): small states
     go to 'batched', large dense ones on a device to 'walks' (FW) or
-    'walker' (IM), the rest (sparse indices, new slices, other accept
-    rules) to 'vmapped'."""
+    'walker' (IM), large dense ones elsewhere to 'native' where it is
+    available (``native``), the rest (sparse indices, new slices, other
+    accept rules) to 'vmapped'."""
     if n_nodes * n_lanes <= 32768 and max_new_slices == 0:
         return 'batched'
     if (accel and not sparse and max_new_slices == 0 and
@@ -154,11 +173,33 @@ def _check_walk_options(runner) -> None:
                            runner.accept_rule)
 
 
-def _check_exchange_axes(exchange_axes) -> None:
-    if exchange_axes is not None:
-        raise NotImplementedError(
-            "exchange_axes names mesh axes; multi-device runs are not "
-            "ported yet (ROADMAP queue 1, item 15).")
+def _check_meshless(engine: str, mesh) -> None:
+    if mesh is not None and engine in _MESHLESS:
+        raise ValueError(
+            f"engine={engine!r} has no multi-chip execution path "
+            "(its kernels run on one device; there is no sharded form).  "
+            "Use engine='walks' (sharded path, same chained-walk "
+            "semantics) or drop the mesh.")
+
+
+def _runner_device(device, mesh) -> torch.device:
+    """The device rule; on a mesh, the rank's device
+    (:func:`~tnco_tpu_torch.mesh.rank_device`)."""
+    if mesh is None:
+        return resolve_device(device)
+    tmesh.check_mesh(mesh)
+    return tmesh.rank_device(device)
+
+
+def _set_block(runner, n: int) -> tuple[int, int]:
+    """Sets and returns this rank's replicas ``[lo, hi)`` of ``n`` (all of
+    them without a mesh, and on 'native', which runs every replica on
+    each rank's host as the JAX runner does with a mesh)."""
+    runner._block = (None if runner.mesh is None or runner.engine == 'native'
+                     else replica_sharding(runner.mesh))
+    runner._lo, runner._hi = ((0, n) if runner._block is None else
+                              runner._block.bounds(n))
+    return runner._lo, runner._hi
 
 
 def _sparse_params(cmodel, template, device):
@@ -191,31 +232,43 @@ def _check_betas(betas, n_replicas: int, dtype=torch.float32) -> np.ndarray:
 
 
 class ReplicaRunner:
-    """Infinite-memory replica batch on one device.
+    """Infinite-memory replica batch on one device, or on one rank's
+    device of a mesh.
 
     Args:
         ctrees: One initial ``ContractionTree`` per replica (same shape).
         seeds: One integer seed per replica (the batch's
-            ``torch.Generator`` is seeded from all of them).
+            ``torch.Generator`` is seeded from all of them; 'native'
+            seeds one mt19937 stream per replica and chunk).
         cmodel: Infinite-memory cost model; a sparse one caps every
             cost's sparse part at ``log2(n_projs)`` ('walker' refuses it,
             as the JAX walker does).
         disable_shared_inds, prob_kind: Kernel flags; ``prob_kind`` None
             means 'mh_local' on 'sweep', else 'mh'; 'mh_local' runs on
             'sweep' and 'walks' only.
+        mesh: a ``DeviceMesh`` (:func:`make_mesh`) to split the replicas
+            over, or None.  On a mesh every rank builds the runner with
+            all trees and seeds, keeps its block on its device
+            (``cuda:<LOCAL_RANK>``, or the CPU when ``device='cpu'``), and
+            calls ``run`` and the accessors with the other ranks; the
+            replica count must divide by the mesh size.  'sweep' refuses
+            a mesh, as in the JAX runner; 'native' runs every replica on
+            each rank's host.
         engine: 'auto', 'batched', 'vmapped', 'walks', 'walker',
-            'multiwalk' or 'sweep'.  'auto' resolves by the JAX runner's rule
-            (``replicas.py:282-301``: 'batched' for N*W <= 32768, else
-            'walker' on the card for a dense model, else 'vmapped'); an
-            engine that is not ported yet raises, naming its ROADMAP
-            item.  'vmapped' keeps replica-major :class:`~tnco_tpu_torch.
+            'multiwalk', 'sweep' or 'native'.  'auto' resolves by the JAX
+            runner's rule (``replicas.py:282-301``: 'batched' for N*W <=
+            32768, else 'walker' on the card for a dense model, else
+            'native' where :func:`_native_available`, else 'vmapped').
+            'vmapped' keeps replica-major :class:`~tnco_tpu_torch.
             kernels.sa_infinite.SAStateIM` states and runs the lockstep
             sweep on them (equal to 'batched' on the same draws).
             'walks' runs :func:`~tnco_tpu_torch.kernels.sa_walks.
             run_walks` (rows through K1 and K3); 'sweep' runs
             :func:`~tnco_tpu_torch.kernels.sa_fullsweep.run_fullsweep`
             (a proposal at every node a round, rows through K1; 'auto'
-            never picks it).
+            never picks it).  'native' anneals host numpy trees with the
+            C++ engine (:func:`tnco_tpu_torch.native.sa_run`, one sweep
+            per beta, bitwise the JAX package's 'native').
         n_walks: Walks per replica (default 32 for 'walks', 8 for
             'walker' and 'multiwalk'; not used by the lockstep engines).
         walk_chunk: 'multiwalk' evaluates its walks in groups of this
@@ -243,7 +296,8 @@ class ReplicaRunner:
                  accept_rule: str | None = None,
                  dtype=torch.float32,
                  device=None) -> None:
-        self.device = resolve_device(device)
+        _check_meshless(engine, mesh)
+        self.device = _runner_device(device, mesh)
         ctrees = list(ctrees)
         seeds = [int(s) for s in seeds]
         if len(ctrees) != len(seeds):
@@ -253,10 +307,6 @@ class ReplicaRunner:
         shapes = {(len(c), c.inds_array.shape[1]) for c in ctrees}
         if len(shapes) != 1:
             raise ValueError("All replicas must share the tree shape.")
-        if mesh is not None:
-            raise NotImplementedError(
-                "Multi-device runs are not ported yet (ROADMAP queue 1, "
-                "item 15).")
 
         self.template = ctrees[0]
         n_lanes = self.template.inds_array.shape[1]
@@ -272,11 +322,6 @@ class ReplicaRunner:
                 prob_kind=prob_kind, fw=False)
         if engine not in _ENGINES:
             raise ValueError(f"Unknown engine: {engine!r}")
-        if engine not in _PORTED:
-            raise NotImplementedError(
-                f"engine={engine!r} is not ported to tnco_tpu_torch yet "
-                f"(ROADMAP queue 1, {_ITEMS[engine]}); pass "
-                f"one of {_PORTED}.")
         if engine == 'walker':
             kwalker.dense_only(self.sparse_wb)
             kwalker.float32_only(dtype)
@@ -297,27 +342,28 @@ class ReplicaRunner:
         self.accept_rule = _resolve_accept_rule(accept_rule, engine)
         _check_walk_options(self)
         self.dtype = dtype
+        self.mesh = mesh
+        self.n_replicas = len(ctrees)
+        self.sweeps_done = 0
+        self.moves_done = 0
+        self.applied_done = None
         self.log2d = bitops.pad_log2_dims(self.template.log2_dims_array,
                                           n_lanes, dtype, self.device)
         self.log2d_w32 = self.log2d.reshape(n_lanes, 32)
         self.uniform_log2 = uniform_log2_dim(self.template.log2_dims_array)
+        lo, hi = _set_block(self, len(ctrees))
+        if engine == 'native':
+            _init_native(self, ctrees, seeds)
+            return
 
         self.states = sb.init_batch(
-            ctrees, seeds, self.log2d.cpu().numpy(),
+            ctrees[lo:hi], seeds[lo:hi], self.log2d.cpu().numpy(),
             sparse_lanes=_host_lanes(self.sparse_lanes),
             log2_n_projs=self.log2_n_projs,
             dtype=self.log2d.cpu().numpy().dtype, device=self.device)
         if engine == 'vmapped':
             self.states = sa.from_batch(self.states)
-        self._mw_pos = torch.full((self.n_walks, len(ctrees)), -1,
-                                  dtype=torch.int32, device=self.device)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(
-            int(np.random.SeedSequence(seeds).generate_state(1)[0]))
-        self.n_replicas = len(ctrees)
-        self.sweeps_done = 0
-        self.moves_done = 0
-        self.applied_done = None
+        _init_draws(self, seeds)
 
     def run(self,
             betas,
@@ -333,28 +379,33 @@ class ReplicaRunner:
         of ``chunk_size`` (the last chunk padded with its last beta, as in
         the JAX runner), drawing the streams from the batch's generator.
         ``betas`` is ``[n]`` or per lane ``[n, B]`` (a tempering ladder;
-        not on 'walker', whose kernel reads one beta per iteration).
-        After each chunk the host checks the wall-clock budget and calls
-        ``callback``.  'batched' and 'vmapped' count no applied moves
-        (``applied`` stays None, as in the JAX runner).
+        not on 'walker', whose kernel reads one beta per iteration, nor
+        on 'native', one beta per sweep).  After each chunk the host
+        checks the wall-clock budget and calls ``callback``.  'batched'
+        and 'vmapped' count no applied moves (``applied`` stays None, as
+        in the JAX runner).
 
         ``exchange_every``: every that many chunks (not after the last),
         :func:`exchange_best` restarts the worst ``exchange_fraction`` of
         each of ``exchange_islands`` islands from its best lane (the
-        lane-major engines; 'vmapped' warns and ignores it, as the JAX
-        runner does).  ``exchange_axes`` names mesh axes, so it raises
-        (one device)."""
-        _check_exchange_axes(exchange_axes)
+        lane-major engines; the others warn and ignore it, as the JAX
+        runner does).  On a mesh it is :func:`exchange_best_sharded` over
+        the mesh axes ``exchange_axes`` (default: all), and
+        ``exchange_islands`` is not used; without a mesh
+        ``exchange_axes`` is not used.  On a mesh every rank calls
+        ``run`` with the same arguments; the counts are the mesh's."""
         if exchange_every and self.engine not in _LANE_MAJOR:
             _warn_exchange(self.engine)
-        betas = _check_betas(betas, self.n_replicas, self.dtype)
+        if self.engine == 'native':
+            return _run_native(self, betas, chunk_size, timeout, callback)
+        betas = _local_betas(self, betas)
         start = time.perf_counter()
         n = len(betas)
         pos = 0
         n_chunks = 0
         chunk_size = max(1, min(chunk_size, n))
         while pos < n:
-            if timeout is not None and time.perf_counter() - start > timeout:
+            if _out_of_time(self, start, timeout):
                 break
             chunk = betas[pos:pos + chunk_size]
             if len(chunk) < chunk_size:
@@ -363,43 +414,49 @@ class ReplicaRunner:
                      np.repeat(chunk[-1:], chunk_size - len(chunk), axis=0)])
             chunk = torch.from_numpy(chunk).to(self.device)
             sp = (self.sparse_wb, self.log2_n_projs)
+            gen = self._draws
             if self.engine == 'batched':
                 self.states, metrics = sb.run_sweeps_batched(
                     self.states, chunk, self.log2d_w32, self.cfg, *sp,
-                    uniform_log2=self.uniform_log2, generator=self.generator)
+                    uniform_log2=self.uniform_log2, generator=gen)
             elif self.engine == 'vmapped':
                 self.states, metrics = sa.run_sweeps_batch(
                     self.states, chunk, self.log2d, self.cfg,
                     self.sparse_lanes, self.log2_n_projs,
-                    uniform_log2=self.uniform_log2, generator=self.generator)
+                    uniform_log2=self.uniform_log2, generator=gen)
             elif self.engine == 'walker':
                 self.states, metrics = kwalker.run_walker(
                     self.states, chunk, self.log2d_w32, self.cfg,
-                    self.n_walks, self._mw_pos, generator=self.generator)
+                    self.n_walks, self._mw_pos, generator=gen)
             elif self.engine == 'sweep':
                 self.states, metrics = sfs.run_fullsweep(
                     self.states, chunk, self.log2d_w32, self.cfg, *sp,
-                    uniform_log2=self.uniform_log2, generator=self.generator)
+                    uniform_log2=self.uniform_log2, generator=gen)
             elif self.engine == 'walks':
                 self.states, metrics = swk.run_walks(
                     self.states, chunk, self.log2d_w32, self.cfg,
                     self._mw_pos, *sp, uniform_log2=self.uniform_log2,
                     on_block=self.on_block, accept_rule=self.accept_rule,
-                    generator=self.generator, device=self.device)
+                    generator=gen, device=self.device)
             else:
                 self.states, metrics = smw.run_multiwalk(
                     self.states, chunk, self.log2d_w32, self.cfg,
                     self.n_walks, self._mw_pos, *sp,
                     uniform_log2=self.uniform_log2, on_block=self.on_block,
                     accept_rule=self.accept_rule, walk_chunk=self.walk_chunk,
-                    generator=self.generator)
+                    generator=gen)
             self._count(metrics, chunk_size)
             pos += chunk_size
             n_chunks += 1
             if (exchange_every and self.engine in _LANE_MAJOR and pos < n
                     and n_chunks % exchange_every == 0):
-                self.states = exchange_best(self.states, exchange_fraction,
-                                            exchange_islands)
+                if self.mesh is not None:
+                    self.states = exchange_best_sharded(
+                        self.states, self.mesh, exchange_axes,
+                        exchange_fraction)
+                else:
+                    self.states = exchange_best(
+                        self.states, exchange_fraction, exchange_islands)
             if callback is not None:
                 callback({
                     'progress': min(pos, n) / n,
@@ -414,7 +471,10 @@ class ReplicaRunner:
         }
 
     def _count(self, metrics, chunk_size):
-        """Adds a chunk's counts (and keeps the walk engines' positions)."""
+        """Adds a chunk's counts, the mesh's on a mesh (and keeps the walk
+        engines' positions)."""
+        if self.mesh is not None:
+            metrics = tmesh.sum_counts(metrics, self.device)
         self._mw_pos = metrics.get('pos', self._mw_pos)
         self.sweeps_done += chunk_size
         self.moves_done += int(torch.as_tensor(metrics['moves']).sum())
@@ -423,30 +483,194 @@ class ReplicaRunner:
                                  int(metrics['applied']))
 
     def best(self) -> tuple[int, float]:
-        """(replica index, log2 cost) of the best replica."""
+        """(replica index, log2 cost) of the best replica (a collective
+        on a mesh, as :meth:`log2_min_totals` is)."""
         mins = self.log2_min_totals()
         idx = int(np.argmin(mins))
         return idx, float(mins[idx])
 
-    def min_ctree(self, replica: int):
-        """Best tree found by ``replica`` as a host ``ContractionTree``."""
-        s = self.states
+    def _replica(self, names, replica: int) -> list:
+        """The state fields ``names`` of ``replica`` (its column, or row
+        of a replica-major state).  On a mesh this is a collective: every
+        rank calls it, and the owner's rows reach all of them."""
+        axis = 0 if self.engine == 'vmapped' else -1
+
+        def rows(r):
+            return [getattr(self.states, f).select(axis, r).contiguous()
+                    for f in names]
+
+        if self._block is None:
+            return rows(replica)
+        if not 0 <= replica < self.n_replicas:
+            raise IndexError(f"replica {replica} of {self.n_replicas}.")
+        owner = replica // (self._hi - self._lo) == self._block.index
+        return tmesh.owner_rows(rows(replica - self._lo if owner else 0),
+                                owner)
+
+    def _tree(self, prefix: str, replica: int):
+        """``replica``'s tree (``prefix`` 'min_': its best) as a host
+        ``ContractionTree``."""
         if self.engine == 'vmapped':
-            return sa.state_to_ctree(self.template, s.min_nodes[replica],
-                                     s.min_inds[replica])
-        return _tree_of(self.template, s.min_c0, s.min_c1, s.min_par,
-                        s.min_inds, replica)
+            nodes, inds = self._replica((prefix + 'nodes', prefix + 'inds'),
+                                        replica)
+        else:
+            c0, c1, par, inds = self._replica(
+                tuple(prefix + f for f in ('c0', 'c1', 'par', 'inds')),
+                replica)
+            nodes = torch.stack([c0, c1, par], dim=1)
+        return sa.state_to_ctree(self.template, nodes, inds)
+
+    def min_ctree(self, replica: int):
+        """Best tree found by ``replica`` as a host ``ContractionTree``
+        (a collective on a mesh)."""
+        if self.engine == 'native':
+            return self.template.replace_arrays(
+                self._nat_best_nodes[replica], self._nat_best_inds[replica])
+        return self._tree('min_', replica)
 
     def ctree(self, replica: int):
-        """Current (not best) tree of ``replica``."""
-        s = self.states
-        if self.engine == 'vmapped':
-            return sa.state_to_ctree(self.template, s.nodes[replica],
-                                     s.inds[replica])
-        return _tree_of(self.template, s.c0, s.c1, s.par, s.inds, replica)
+        """Current (not best) tree of ``replica`` (a collective on a
+        mesh)."""
+        if self.engine == 'native':
+            return self.template.replace_arrays(
+                self._nat_nodes[replica], self._nat_inds[replica])
+        return self._tree('', replica)
 
     def log2_min_totals(self) -> np.ndarray:
-        return self.states.min_log2_total.cpu().numpy()
+        """Every replica's best log2 total (a collective on a mesh: the
+        blocks of all ranks, in mesh order)."""
+        if self.engine == 'native':
+            return self._nat_best.copy()
+        mins = self.states.min_log2_total
+        if self._block is not None:
+            mins = tmesh.gather_blocks(mins, self._block)
+        return mins.cpu().numpy()
+
+
+def _init_draws(runner, seeds) -> None:
+    """The batch's walk positions (``[P, hi - lo]``) and its generator,
+    seeded alike on every rank from all the seeds; on a mesh the engines
+    draw through a :class:`~tnco_tpu_torch.ops.rng.BlockGenerator`."""
+    runner._mw_pos = torch.full((runner.n_walks, runner._hi - runner._lo),
+                                -1, dtype=torch.int32, device=runner.device)
+    runner.generator = torch.Generator(device=runner.device)
+    runner.generator.manual_seed(
+        int(np.random.SeedSequence(seeds).generate_state(1)[0]))
+    runner._draws = (runner.generator if runner._block is None else
+                     rng.BlockGenerator(runner.generator, runner._lo,
+                                        runner._hi, runner.n_replicas))
+
+
+def _local_betas(runner, betas) -> np.ndarray:
+    """Checked ``betas``; of ``[n, B]`` ones, the rank's columns."""
+    betas = _check_betas(betas, runner.n_replicas, runner.dtype)
+    if betas.ndim == 1:
+        return betas
+    return np.ascontiguousarray(betas[:, runner._lo:runner._hi])
+
+
+def _out_of_time(runner, start: float, timeout) -> bool:
+    """Whether the wall-clock budget is spent; on a mesh, whether it is
+    spent on any rank (a collective, so that all ranks stop after the same
+    chunk)."""
+    if timeout is None:
+        return False
+    late = time.perf_counter() - start > timeout
+    if runner.mesh is None:
+        return late
+    flag = torch.tensor([int(late)], device=runner.device)
+    return bool(tmesh.all_reduce(flag, 'max'))
+
+
+def _init_native(runner, ctrees, seeds, fw: bool = False) -> None:
+    """Host replica arrays of the 'native' engine (``replicas.py:371-384``;
+    finite width ``:798-825``: initial slices from the host greedy slicer,
+    ``Random(seed & 0x7FFFFFFF)`` jitter, the skip lanes' bits)."""
+    if not native.available():
+        raise RuntimeError(
+            "engine='native' needs the native library, which is switched "
+            "off (TNCO_TPU_NO_NATIVE) or cannot be built (no g++) here.")
+    runner.states = None
+    runner._nat_nodes = np.stack([c.nodes_array.copy() for c in ctrees])
+    runner._nat_inds = np.stack([c.inds_array.copy() for c in ctrees])
+    runner._nat_best_nodes = runner._nat_nodes.copy()
+    runner._nat_best_inds = runner._nat_inds.copy()
+    runner._nat_seeds = np.asarray(seeds, dtype=np.uint64)
+    runner._nat_chunk = 0
+    if not fw:
+        costs = [c.total_cost_exact() for c in ctrees]
+        runner._nat_best = np.array([
+            float(np.log2(float(x))) if x > 0 else -np.inf for x in costs])
+        return
+    skip = runner.skip_lanes.cpu().numpy().view(np.uint32)
+    shifts = np.arange(32, dtype=np.uint32)
+    skip_bits = ((skip[:, None] >> shifts) & 1).astype(bool).reshape(-1)
+    log2d = runner.log2d.cpu().numpy().astype(np.float64)
+    runner._nat_slices = np.stack([
+        greedy_slices_host(c.inds_array, log2d, float(runner.max_width),
+                           Random(s & 0x7FFFFFFF), skip_bits=skip_bits)
+        for c, s in zip(ctrees, seeds)])
+    runner._nat_best_slices = runner._nat_slices.copy()
+    runner._nat_best = np.full(len(ctrees), np.inf)
+
+
+def _run_native(runner, betas, chunk_size, timeout, callback,
+                update_slices=None) -> dict:
+    """'native' chunks (``replicas.py:386-424``; finite width, with
+    ``update_slices``, ``:827-870``): each chunk runs
+    :func:`~tnco_tpu_torch.native.sa_run` (or ``sa_run_fw``) from the
+    final trees of the last one, on fresh mt19937 seeds ``seeds + 1000003
+    * (chunk + 1)``, and keeps each replica's best."""
+    betas = np.asarray(betas, dtype=np.float64)
+    if betas.ndim != 1:
+        raise ValueError("engine='native' takes one beta per sweep, [n]; "
+                         f"got {betas.shape}.")
+    fw = update_slices is not None
+    n = len(betas)
+    start = time.perf_counter()
+    pos = 0
+    chunk_size = max(1, min(chunk_size, n))
+    log2d = runner.template.log2_dims_array
+    while pos < n:
+        if _out_of_time(runner, start, timeout):
+            break
+        chunk = betas[pos:pos + chunk_size]
+        seeds = runner._nat_seeds + np.uint64(
+            1000003 * (runner._nat_chunk + 1))
+        if fw:
+            (best, moves, runner._nat_nodes, runner._nat_inds,
+             runner._nat_slices, bn, bi, bs) = native.sa_run_fw(
+                 runner._nat_nodes, runner._nat_inds, runner._nat_slices,
+                 log2d, runner.skip_lanes.cpu().numpy().view(np.uint32),
+                 float(runner.max_width), chunk, seeds,
+                 reslice_every=update_slices, n_threads=0,
+                 max_new_slices=runner.cfg.max_new_slices,
+                 return_final=True)
+        else:
+            (best, moves, runner._nat_nodes, runner._nat_inds, bn,
+             bi) = native.sa_run(runner._nat_nodes, runner._nat_inds, log2d,
+                                 chunk, seeds, n_threads=0,
+                                 return_final=True)
+        improved = best < runner._nat_best
+        runner._nat_best = np.where(improved, best, runner._nat_best)
+        runner._nat_best_nodes[improved] = bn[improved]
+        runner._nat_best_inds[improved] = bi[improved]
+        if fw:
+            runner._nat_best_slices[improved] = bs[improved]
+        runner._nat_chunk += 1
+        runner.sweeps_done += len(chunk)
+        runner.moves_done += moves
+        pos += chunk_size
+        if callback is not None:
+            callback({'progress': min(pos, n) / n,
+                      'log2_min_total': runner._nat_best.copy()})
+    return {
+        'log2_min_total': runner._nat_best.copy(),
+        'sweeps': runner.sweeps_done,
+        'moves': runner.moves_done,
+        'applied': runner.applied_done,
+        'runtime_s': time.perf_counter() - start,
+    }
 
 
 def _host_lanes(lanes):
@@ -455,21 +679,9 @@ def _host_lanes(lanes):
         lanes.cpu().numpy().view(np.uint32)
 
 
-def _host(x, replica):
-    return np.ascontiguousarray(x[..., replica].cpu().numpy())
-
-
-def _tree_of(template, c0, c1, par, inds, replica):
-    """Replica ``replica`` of replica-minor device arrays as a host
-    ``ContractionTree`` (``uint32`` words back from int32 bit patterns)."""
-    nodes = np.stack([_host(c0, replica), _host(c1, replica),
-                      _host(par, replica)], axis=1)
-    return template.replace_arrays(nodes,
-                                   _host(inds, replica).view(np.uint32))
-
-
 class ReplicaRunnerFW:
-    """Finite-width replica batch on one device.
+    """Finite-width replica batch on one device, or on one rank's device
+    of a mesh.
 
     Args:
         ctrees: One initial ``ContractionTree`` per replica (same shape).
@@ -479,20 +691,23 @@ class ReplicaRunnerFW:
             caps every cost's and width's sparse part at
             ``log2(n_projs)`` ('walker' refuses it, as the JAX walker
             does; 'walks' then takes the reference slicer).
+        mesh: as in :class:`ReplicaRunner`.
         engine: 'auto', 'batched', 'vmapped', 'walks', 'walker',
-            'multiwalk' or 'sweep'.  'auto' resolves by the JAX runner's rule
-            (``replicas.py:689-708``: 'batched' for N*W <= 32768 without
-            new slices, else 'walks' on the card for a dense model
-            without new slices, else 'vmapped'), which never picks
-            'walker' or 'sweep'; an engine that is not ported yet
-            raises, naming its ROADMAP item.  'vmapped' keeps
-            replica-major :class:`~tnco_tpu_torch.kernels.sa_finite.
-            SAStateFW` states and runs the lockstep sweep on them.
-            'sweep' runs :func:`~tnco_tpu_torch.kernels.sa_fullsweep.
-            run_fullsweep_fw`.
+            'multiwalk', 'sweep' or 'native'.  'auto' resolves by the JAX
+            runner's rule (``replicas.py:689-708``: 'batched' for N*W <=
+            32768 without new slices, else 'walks' on the card for a
+            dense model without new slices, else 'native' where
+            :func:`_native_available` and the model is dense, else
+            'vmapped'), which never picks 'walker' or 'sweep'.  'vmapped'
+            keeps replica-major :class:`~tnco_tpu_torch.kernels.
+            sa_finite.SAStateFW` states and runs the lockstep sweep on
+            them.  'sweep' runs :func:`~tnco_tpu_torch.kernels.
+            sa_fullsweep.run_fullsweep_fw`.  'native' runs
+            :func:`tnco_tpu_torch.native.sa_run_fw` on host numpy trees
+            and slices.
         max_number_new_slices: Slices a rejected move may add to fit the
-            cap (the rescue; 'batched' and 'vmapped' only, as in the JAX
-            runner).
+            cap (the rescue; not on 'walks', 'walker', 'multiwalk' and
+            'sweep', as in the JAX runner).
         prob_kind: None means 'mh_local' on 'sweep', else 'mh';
             'mh_local' runs on 'sweep' and 'walks' only.
         n_walks: Walks per replica (default 128 for 'walks', 8 for
@@ -522,7 +737,8 @@ class ReplicaRunnerFW:
                  fw_slicer: str | None = None,
                  dtype=torch.float32,
                  device=None) -> None:
-        self.device = resolve_device(device)
+        _check_meshless(engine, mesh)
+        self.device = _runner_device(device, mesh)
         ctrees = list(ctrees)
         seeds = [int(s) for s in seeds]
         if len(ctrees) != len(seeds) or not ctrees:
@@ -530,10 +746,6 @@ class ReplicaRunnerFW:
         shapes = {(len(c), c.inds_array.shape[1]) for c in ctrees}
         if len(shapes) != 1:
             raise ValueError("All replicas must share the tree shape.")
-        if mesh is not None:
-            raise NotImplementedError(
-                "Multi-device runs are not ported yet (ROADMAP queue 1, "
-                "item 15).")
 
         self.fw_slicer = fw_slicer
         self.template = ctrees[0]
@@ -561,16 +773,11 @@ class ReplicaRunnerFW:
                 prob_kind=prob_kind)
         if engine not in _ENGINES:
             raise ValueError(f"Unknown engine: {engine!r}")
-        if engine not in _PORTED:
-            raise NotImplementedError(
-                f"engine={engine!r} is not ported to tnco_tpu_torch yet "
-                f"(ROADMAP queue 1, {_ITEMS[engine]}); pass one of "
-                f"{_PORTED}.")
         if engine == 'walker':
             kwalker.dense_only(self.sparse_wb)
             kwalker.float32_only(dtype)
-        if max_number_new_slices and engine not in ('batched', 'vmapped'):
-            # 'sweep' included (replicas.py:731-734).
+        if max_number_new_slices and engine in ('multiwalk', 'walker',
+                                                'sweep', 'walks'):
             raise ValueError(f"engine={engine!r} does not support "
                              "max_number_new_slices.")
         prob_kind = _resolve_prob_kind(prob_kind, engine)
@@ -591,6 +798,11 @@ class ReplicaRunnerFW:
         self.accept_rule = _resolve_accept_rule(accept_rule, engine)
         _check_walk_options(self)
         self.dtype = dtype
+        self.mesh = mesh
+        self.n_replicas = len(ctrees)
+        self.sweeps_done = 0
+        self.moves_done = 0
+        self.applied_done = None
         self.log2d_w32 = self.log2d.reshape(n_lanes, 32)
         self.uniform_log2 = uniform_log2_dim(self.template.log2_dims_array)
         if engine in ('batched', 'vmapped') and \
@@ -599,23 +811,20 @@ class ReplicaRunnerFW:
             # The lockstep engine equals the JAX one bitwise only with
             # popcount widths on integer log2 dims (replicas.py:912-916).
             self.uniform_log2 = None
+        lo, hi = _set_block(self, len(ctrees))
+        if engine == 'native':
+            _init_native(self, ctrees, seeds, fw=True)
+            return
 
         self.states = sfb.init_batch_fw(
-            ctrees, seeds, float(self.max_width), self.log2d.cpu().numpy(),
-            skip_lanes=skip, sparse_lanes=_host_lanes(self.sparse_lanes),
+            ctrees[lo:hi], seeds[lo:hi], float(self.max_width),
+            self.log2d.cpu().numpy(), skip_lanes=skip,
+            sparse_lanes=_host_lanes(self.sparse_lanes),
             log2_n_projs=self.log2_n_projs,
             dtype=self.log2d.cpu().numpy().dtype, device=self.device)
         if engine == 'vmapped':
             self.states = saf.from_batch_fw(self.states)
-        self._mw_pos = torch.full((self.n_walks, len(ctrees)), -1,
-                                  dtype=torch.int32, device=self.device)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(
-            int(np.random.SeedSequence(seeds).generate_state(1)[0]))
-        self.n_replicas = len(ctrees)
-        self.sweeps_done = 0
-        self.moves_done = 0
-        self.applied_done = None
+        _init_draws(self, seeds)
 
     def run(self,
             betas,
@@ -629,17 +838,21 @@ class ReplicaRunnerFW:
             exchange_islands: int = 1,
             exchange_axes=None) -> dict:
         """Anneals over ``betas`` (``[n]`` or per lane ``[n, B]``, not on
-        'walker') in chunks of ``chunk_size`` steps (sweeps for 'batched';
-        the last chunk padded with its last beta and no reslice, as in the
-        JAX runner), drawing from the batch's generator.  The reslice mask
-        is global (``step % update_slices == 0``), cut per chunk.
-        'batched' and 'vmapped' count no applied moves.  Exchange as in
-        :meth:`ReplicaRunner.run`, with :func:`exchange_best_fw` (the
-        slice set travels with the tree)."""
-        _check_exchange_axes(exchange_axes)
+        'walker' or 'native') in chunks of ``chunk_size`` steps (sweeps
+        for 'batched'; the last chunk padded with its last beta and no
+        reslice, as in the JAX runner), drawing from the batch's
+        generator.  The reslice mask is global (``step % update_slices ==
+        0``), cut per chunk; 'native' reslices every ``update_slices``
+        sweeps of a chunk.  'batched' and 'vmapped' count no applied
+        moves.  Exchange as in :meth:`ReplicaRunner.run`, with
+        :func:`exchange_best_fw` (on a mesh :func:`exchange_best_fw_
+        sharded`; the slice set travels with the tree)."""
         if exchange_every and self.engine not in _LANE_MAJOR:
             _warn_exchange(self.engine)
-        betas = _check_betas(betas, self.n_replicas, self.dtype)
+        if self.engine == 'native':
+            return _run_native(self, betas, chunk_size, timeout, callback,
+                               update_slices)
+        betas = _local_betas(self, betas)
         n = len(betas)
         mask = ((np.arange(n) % max(1, update_slices)) == 0
                 if update_slices else np.zeros(n, dtype=bool))
@@ -648,7 +861,7 @@ class ReplicaRunnerFW:
         n_chunks = 0
         chunk_size = max(1, min(chunk_size, n))
         while pos < n:
-            if timeout is not None and time.perf_counter() - start > timeout:
+            if _out_of_time(self, start, timeout):
                 break
             chunk = betas[pos:pos + chunk_size]
             mchunk = mask[pos:pos + chunk_size]
@@ -658,50 +871,55 @@ class ReplicaRunnerFW:
                     [chunk, np.repeat(chunk[-1:], pad, axis=0)])
                 mchunk = np.concatenate([mchunk, np.zeros(pad, dtype=bool)])
             sp = (self.sparse_wb, self.log2_n_projs)
+            gen = self._draws
             if self.engine == 'batched':
                 self.states, metrics = sfb.run_sweeps_fw_batched(
                     self.states, chunk, mchunk, self.max_width,
                     self.log2d_w32, self.skip_lanes, self.cfg, *sp,
-                    uniform_log2=self.uniform_log2, generator=self.generator)
+                    uniform_log2=self.uniform_log2, generator=gen)
             elif self.engine == 'vmapped':
                 self.states, metrics = saf.run_sweeps_fw_batch(
                     self.states, chunk, mchunk, self.max_width, self.log2d,
                     self.skip_lanes, self.cfg, self.sparse_lanes,
                     self.log2_n_projs, uniform_log2=self.uniform_log2,
-                    generator=self.generator)
+                    generator=gen)
             elif self.engine == 'walks':
                 self.states, metrics = swk.run_walks_fw(
                     self.states, chunk, mchunk, self.max_width,
                     self.log2d_w32, self.skip_lanes, self.cfg, self._mw_pos,
                     *sp, uniform_log2=self.uniform_log2,
-                    on_block=self.on_block,
-                    accept_rule=self.accept_rule, slicer=self.fw_slicer,
-                    generator=self.generator, device=self.device)
+                    on_block=self.on_block, accept_rule=self.accept_rule,
+                    slicer=self.fw_slicer, generator=gen, device=self.device)
             elif self.engine == 'sweep':
                 self.states, metrics = sfs.run_fullsweep_fw(
                     self.states, chunk, mchunk, self.max_width,
                     self.log2d_w32, self.skip_lanes, self.cfg, *sp,
-                    uniform_log2=self.uniform_log2, generator=self.generator)
+                    uniform_log2=self.uniform_log2, generator=gen)
             elif self.engine == 'walker':
                 self.states, metrics = kwalker.run_walker_fw(
                     self.states, chunk, mchunk, self.max_width,
                     self.log2d_w32, self.skip_lanes, self.cfg, self.n_walks,
                     self._mw_pos, uniform_log2=self.uniform_log2,
-                    generator=self.generator)
+                    generator=gen)
             else:
                 self.states, metrics = smw.run_multiwalk_fw(
                     self.states, chunk, mchunk, self.max_width,
                     self.log2d_w32, self.skip_lanes, self.cfg, self.n_walks,
                     self._mw_pos, *sp, uniform_log2=self.uniform_log2,
                     on_block=self.on_block, accept_rule=self.accept_rule,
-                    walk_chunk=self.walk_chunk, generator=self.generator)
+                    walk_chunk=self.walk_chunk, generator=gen)
             self._count(metrics, chunk_size)
             pos += chunk_size
             n_chunks += 1
             if (exchange_every and self.engine in _LANE_MAJOR and pos < n
                     and n_chunks % exchange_every == 0):
-                self.states = exchange_best_fw(
-                    self.states, exchange_fraction, exchange_islands)
+                if self.mesh is not None:
+                    self.states = exchange_best_fw_sharded(
+                        self.states, self.mesh, exchange_axes,
+                        exchange_fraction)
+                else:
+                    self.states = exchange_best_fw(
+                        self.states, exchange_fraction, exchange_islands)
             if callback is not None:
                 callback({
                     'progress': min(pos, n) / n,
@@ -716,23 +934,27 @@ class ReplicaRunnerFW:
         }
 
     _count = ReplicaRunner._count
+    _replica = ReplicaRunner._replica
+    _tree = ReplicaRunner._tree
     min_ctree = ReplicaRunner.min_ctree
     ctree = ReplicaRunner.ctree
-
-    def _lanes(self, x, replica):
-        if self.engine == 'vmapped':
-            return x[replica].cpu().numpy().view(np.uint32)
-        return _host(x, replica).view(np.uint32)
+    log2_min_totals = ReplicaRunner.log2_min_totals
 
     def slices_lanes(self, replica: int) -> np.ndarray:
-        """Current slice lanes of ``replica`` (``uint32 [W]``)."""
-        return self._lanes(self.states.slices, replica)
+        """Current slice lanes of ``replica`` (``uint32 [W]``; a
+        collective on a mesh)."""
+        if self.engine == 'native':
+            return self._nat_slices[replica].copy()
+        (lanes,) = self._replica(('slices',), replica)
+        return lanes.cpu().numpy().view(np.uint32)
 
     def min_slices_lanes(self, replica: int) -> np.ndarray:
-        return self._lanes(self.states.min_slices, replica)
-
-    def log2_min_totals(self) -> np.ndarray:
-        return self.states.min_log2_total.cpu().numpy()
+        """Slice lanes of ``replica``'s best tree (a collective on a
+        mesh)."""
+        if self.engine == 'native':
+            return self._nat_best_slices[replica].copy()
+        (lanes,) = self._replica(('min_slices',), replica)
+        return lanes.cpu().numpy().view(np.uint32)
 
 
 def _island_exchange_plan(lt, fraction: float, islands: int, active):
@@ -806,6 +1028,60 @@ def exchange_best_fw(states: sfb.SABatchFW, fraction: float = 0.25,
     return _exchange(states, fraction, islands, active,
                      ('c0', 'c1', 'par', 'inds', 'hyper', 'lcc', 'width',
                       'slices'))
+
+
+def _exchange_sharded(states, mesh, axis_names, fraction, names):
+    """The sharded exchange (``replicas.py:1166-1244``) on this rank's
+    block ``states``: the group of ranks over ``axis_names`` (default:
+    all mesh axes) finds its best current total with an all-reduce MIN;
+    its owner is the lowest row-major rank index over those axes among
+    the ranks that hold it; the owner's best lane (``names``) reaches the
+    group as a masked sum of its words.  Then the rank restarts its local
+    lanes at or above the ``(b - k)``-th sorted total, ``k = max(1, int(b
+    * fraction))``, that are strictly worse than the group's best.  Min
+    snapshots and ``keys`` are untouched.  Every rank of the mesh calls
+    it."""
+    group, lin, _ = tmesh.axes_group(mesh, axis_names)
+    lt = states.log2_total
+    li = int(torch.argmin(lt))
+    local_min = lt[li:li + 1]
+    group_min = tmesh.all_reduce(local_min, 'min', group)
+    holds = bool(local_min == group_min)
+    cand = torch.tensor([lin if holds else 2**30], dtype=torch.int64,
+                        device=lt.device)
+    owner = int(tmesh.all_reduce(cand, 'min', group))
+    cols = tmesh.owner_rows([getattr(states, k)[..., li] for k in names],
+                            holds and lin == owner, group)
+    b = lt.shape[0]
+    k = max(1, int(b * fraction))
+    thresh = torch.sort(lt).values[b - k]
+    worst = (lt >= thresh) & (lt > group_min)
+    mixed = {name: torch.where(worst, col[..., None], getattr(states, name))
+             for name, col in zip(names, cols)}
+    return dataclasses.replace(
+        states, log2_total=torch.where(worst, group_min, lt), **mixed)
+
+
+def exchange_best_sharded(states: sb.SABatch, mesh, axis_names=None,
+                          fraction: float = 0.25) -> sb.SABatch:
+    """Mesh-aware population exchange (``replicas.py:1166``): within each
+    group of ranks spanned by ``axis_names`` (default: all mesh axes; e.g.
+    ``('ici',)`` of a ``('dcn', 'ici')`` mesh keeps it off the 'dcn'
+    axis), the group's best current tree replaces the worst ``fraction``
+    of each rank's local lanes (see :func:`_exchange_sharded`).
+    ``states`` is this rank's block; every rank calls it."""
+    return _exchange_sharded(states, mesh, axis_names, fraction,
+                             ('c0', 'c1', 'par', 'inds', 'hyper', 'lcc'))
+
+
+def exchange_best_fw_sharded(states: sfb.SABatchFW, mesh, axis_names=None,
+                             fraction: float = 0.25) -> sfb.SABatchFW:
+    """Mesh-aware finite-width exchange (``replicas.py:1273``): as
+    :func:`exchange_best_sharded`, with the pre-slicing widths and the
+    slice set travelling with the tree."""
+    return _exchange_sharded(states, mesh, axis_names, fraction,
+                             ('c0', 'c1', 'par', 'inds', 'hyper', 'lcc',
+                              'width', 'slices'))
 
 
 def _kick_keys(seed: int, lanes) -> np.ndarray:
@@ -924,11 +1200,15 @@ def kick_lanes_fw(runner: ReplicaRunnerFW, lanes, src: int, seed: int, *,
     ``'host'`` is the per-victim host slicer with the JAX package's
     ``random.Random`` streams and float64 costs (bitwise its values).
     Drive it from :class:`tnco_tpu_torch.parallel.stall.
-    IslandStallKicker`.
+    IslandStallKicker`.  One-device runners only (the JAX package's
+    "single-mesh runners only").
     """
     if runner.engine not in _LANE_MAJOR or runner.states is None:
         raise ValueError("kick_lanes_fw needs a lane-major device engine "
                          f"(engine={runner.engine!r}).")
+    if runner.mesh is not None:
+        raise ValueError("kick_lanes_fw runs on one-device runners; this "
+                         "runner holds one rank's block of a mesh.")
     if slicer not in ('device', 'host'):
         raise ValueError(f"slicer must be 'device' or 'host', got "
                          f"{slicer!r}.")
