@@ -138,10 +138,11 @@ Phases, each fatal on failure:
    slice (sliced amplitudes within 1e-10 relative of the unsliced
    ones); 1000 samples of QAOA-4 p=2 within 0.15 of the statevector's
    distribution in total variation; a timed run on QAOA-26 at depth
-   SAMPLER_P (cut from 4) with the CLI's ``sample`` defaults (50 sweeps
-   a prefix network): seconds to build the state (one card optimization
-   per non-classical gate; K1 and K3 must launch) and per sample, each
-   of SAMPLER_SAMPLES samples timed alone (median, min, max); then K1 and
+   SAMPLER_P (cut from 4) with the CLI's ``sample`` betas, 16 sweeps a
+   prefix network (cut from its 50): seconds to build the state (one
+   card optimization per non-classical gate; K1 and K3 must launch) and
+   per sample, each of SAMPLER_SAMPLES samples timed alone (median, min,
+   max); then K1 and
    K3 bitwise against their plain versions at each shape the phase
    launched them, as in phase 19;
 22. sparse networks: the Sycamore-53 m=20 fSim circuit and QAOA-26 p=4
@@ -238,12 +239,34 @@ Phases, each fatal on failure:
    global draw stream's cost to a rank: ms of a draw of the whole
    replica axis kept to a block of B/4, against the block's own draw and
    the whole axis, at (c)'s 'walks' FW and 'walker' IM shapes.  A rank's
-   failure fails the phase.
+   failure fails the phase;
+26. the examples' flows and the host API on the card: (a) the three
+   flows of ``examples/`` at their own sizes and seeds through
+   ``tnco_tpu_torch.testing.examples`` with ``device='cuda'``:
+   ``base_optimization`` (the chain's tree, ``max_width()``, exact cost,
+   100 IM and 100 FW ``update`` calls of the single optimizers, a pickle
+   round trip), ``optimization`` (the app's ``Optimizer`` by default,
+   with ``max_width=3.0``, 'multiwalk' and 'walks', 64 runs each) and
+   ``sampling`` (``Sampler`` plain and under ``max_width=2.0``), each
+   audited (valid trees, exact bigint costs, widths within the cap after
+   slicing, every contracted amplitude within 1e-10 of a statevector and
+   the frequencies within 0.35 of its distribution in total variation);
+   (b) the host API on the full network: an FW min tree of phase 24
+   within its cap after its slices (``max_width()``, ``get_max_width``),
+   the log2-sum of ``contraction_log2_costs()`` within 1e-9 of log2 of
+   the exact total on six trees of phases 4 and 24, four ``swap_with_nn``
+   moves on a copy of a phase 4 tree, each moved structure valid and
+   each swap back restoring the tree; (c) the eight random networks of
+   the JAX package's tests (``examples.RANDOM_SHAPES``) through
+   ``Optimizer(device='cuda')`` IM and FW (max_width 3), every result
+   audited; (d) K1 and K3 bitwise against their plain versions at each
+   shape the phase launched them.  The phase prints its wall seconds and
+   each flow's launch counts.
 
-Phases 11-25 run between phases 9 and 10, whose kernel line carries
+Phases 11-26 run between phases 9 and 10, whose kernel line carries
 every phase's launch counts (K1's and K3's rows add phases 15-17's, 19's,
-21's, 22's, 23's, 24's and 25's, K5's 25's); phase 13's profiled sweeps
-run after 10.
+21's, 22's, 23's, 24's, 25's and 26's, K5's 25's); phase 13's profiled
+sweeps run after 10.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
@@ -305,16 +328,20 @@ PHASE24_PATHS = ('sweep_im_app', 'sweep_fw_app', *PHASE24_K3_PATHS)
 # Phase 25: the runners on a one-rank NCCL mesh ('batched', 'walks' FW,
 # 'walker' IM and FW) and on four gloo ranks ('walks' FW, 'walker' IM).
 MESH_PATHS = ('mesh_one_rank', 'mesh_four_ranks')
+# Phase 26: the examples' flows and the random networks through
+# ``Optimizer`` (K1 and K3: the single optimizers' and the app's sweeps).
+PHASE26_PATHS = ('example_base', 'example_optimization', 'example_sampling',
+                 'random_networks')
 MAIN_PATHS = {'gather_gbn': ('fw_app', 'batched_fw_app', 'batched_im_app',
                              'fw_product', 'fw_throughput', 'fw_tempering',
                              *CIRCUIT_PATHS, *SPARSE_PATHS, *PHASE23_PATHS,
-                             *PHASE24_PATHS, *MESH_PATHS),
+                             *PHASE24_PATHS, *MESH_PATHS, *PHASE26_PATHS),
               'scatter_rows_inplace': ('fw_app', 'batched_fw_app',
                                        'batched_im_app', 'fw_product',
                                        'fw_throughput', 'fw_tempering',
                                        *CIRCUIT_PATHS, *SPARSE_PATHS,
                                        *PHASE23_PATHS, *PHASE24_K3_PATHS,
-                                       *MESH_PATHS),
+                                       *MESH_PATHS, *PHASE26_PATHS),
               'walker_im': ('im_app', *MESH_PATHS),
               'walker_fw': ('fw_walker_app', 'mesh_one_rank'),
               'inv_ids': ('bench',), 'scatter_rows_gbn': ('bench',),
@@ -439,39 +466,23 @@ def phase_kernels(torch):
 
 
 def _audit_result(res, tn, max_width):
-    """Valid path, exact cost recompute, widths within the cap."""
-    import numpy as np
-
+    """Valid path, exact cost recompute (``_exact_total``: bigints over
+    the index words), widths within the cap after the result's slices."""
     from tnco_tpu_torch.ctree import ContractionTree
-    from tnco_tpu_torch.optimize.finite_width import SimpleCostModel
 
-    cm = SimpleCostModel(max_width=max_width)
     ctree = ContractionTree(res.path, tn.ts_inds, tn.dims,
                             output_inds=tn.output_inds)
     ok, msg = ctree.is_valid(return_message=True)
     if not ok:
         fail(f'invalid path: {msg}')
-    inds = ctree.inds
-    dims = ctree.dims
-    total = 0
-    for pos, node in enumerate(ctree.nodes):
-        if not node.is_leaf():
-            total += cm.contraction_cost(inds[node.children[0]],
-                                         inds[node.children[1]], inds[pos],
-                                         dims, res.slices)
+    width, total = _exact_total(ctree, _label_lanes(ctree, res.slices))
     # The per-component costs are exact; the total is their Decimal sum
     # (context precision, as in the JAX package's results).
     if sum(int(c) for c in res.disconnected_costs) != total or \
             res.cost != Decimal(0) + Decimal(total):
         fail(f'cost {res.cost} != exact recompute {total}')
-    order = ctree.inds_order
-    sl = np.zeros(len(order), dtype=bool)
-    sl[[order.index(x) for x in res.slices]] = True
-    bits = np.unpackbits(ctree.inds_array.view(np.uint8), axis=1,
-                         bitorder='little')[:, :len(order)].astype(bool)
-    widths = (bits & ~sl) @ ctree.log2_dims_array
-    if widths.max() > max_width + 1e-9:
-        fail(f'width {widths.max()} > {max_width} after slicing')
+    if width > max_width + 1e-9:
+        fail(f'width {width} > {max_width} after slicing')
 
 
 def phase_app(torch):
@@ -522,14 +533,38 @@ def phase_app(torch):
     return counts
 
 
+def _int_widths(tree):
+    """``width(x)``: the sum of ``tree``'s log2 dims over the set bits of
+    index words ``x [..., W]`` as int64, from per-byte popcounts of the
+    words (one mask per log2 value); None unless every log2 dim is an
+    integer."""
+    import numpy as np
+
+    log2d = tree.log2_dims_array
+    if not np.array_equal(log2d, np.round(log2d)):
+        return None
+    pop8 = np.asarray([bin(i).count('1') for i in range(256)], np.int64)
+    log2i = np.zeros(32 * tree.inds_array.shape[1], dtype=np.int64)
+    log2i[:len(log2d)] = np.round(log2d)
+    masks = [(v, np.packbits(log2i == v, bitorder='little').view(np.uint32))
+             for v in np.unique(log2i[log2i > 0])]
+
+    def width(x):                                  # [..., W] -> int [...]
+        out = np.zeros(x.shape[:-1], dtype=np.int64)
+        for v, mask in masks:
+            out += v * pop8[(x & mask).view(np.uint8)].sum(axis=-1)
+        return out
+
+    return width
+
+
 def _exact_total(tree, lanes=None):
     """``(largest width after slicing, exact bigint sliced total)`` of
     ``tree`` under the slice lanes ``lanes`` (None: no slices), the
     total as ``ContractionTree.total_cost_exact`` defines it times the
     sliced dims' product.  On integer log2 dims every contraction costs
-    ``2**width``: widths come from per-byte popcounts of the index words
-    (one mask per log2 value) and the total from a count per width;
-    other dims multiply node by node."""
+    ``2**width``: widths come from ``_int_widths`` and the total from a
+    count per width; other dims multiply node by node."""
     import numpy as np
 
     log2d = tree.log2_dims_array
@@ -540,7 +575,8 @@ def _exact_total(tree, lanes=None):
     nodes = tree.nodes_array
     inner = nodes[nodes[:, 0] >= 0]
     union = (words[inner[:, 0]] | words[inner[:, 1]]) & ~sl
-    if not np.array_equal(log2d, np.round(log2d)):
+    width = _int_widths(tree)
+    if width is None:
         dims_l = tree.dims_array
 
         def bits(x):
@@ -551,20 +587,18 @@ def _exact_total(tree, lanes=None):
                     for u in bits(union))
         sl_mul = math.prod(int(d) for d in dims_l[bits(sl).astype(bool)])
         return (bits(words & ~sl) @ log2d).max(), total * sl_mul
-    pop8 = np.asarray([bin(i).count('1') for i in range(256)], np.int64)
-    log2i = np.zeros(32 * w, dtype=np.int64)
-    log2i[:len(log2d)] = np.round(log2d)
-
-    def width(x):                                  # [..., W] -> int [...]
-        out = np.zeros(x.shape[:-1], dtype=np.int64)
-        for v in np.unique(log2i[log2i > 0]):
-            mask = np.packbits(log2i == v, bitorder='little').view(np.uint32)
-            out += v * pop8[(x & mask).view(np.uint8)].sum(axis=-1)
-        return out
-
     counts = np.bincount(width(union))
     total = sum(int(c) << k for k, c in enumerate(counts) if c)
     return float(width(words & ~sl).max()), total << int(width(sl))
+
+
+def _label_lanes(tree, labels):
+    """The index words of ``tree`` that hold ``labels`` (uint32 [W])."""
+    from tnco_tpu_torch.bitset import Bitset
+
+    order = tree.inds_order
+    return Bitset([order.index(x) for x in labels], n=len(order)).lanes(
+        tree.inds_array.shape[1])
 
 
 def _exact_sliced(tree, lanes):
@@ -600,20 +634,15 @@ def _audit_fw_runner(runner, max_width, what):
 def phase_flagship(torch, card):
     import numpy as np
 
-    from tnco_tpu_torch.app.finite_width.sa import _build_run_paths
-    from tnco_tpu_torch.app.tn import Tensor, TensorNetwork
     from tnco_tpu_torch.ctree import ContractionTree
     from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tnco_tpu_torch.optimize.finite_width import SimpleCostModel
     from tnco_tpu_torch.parallel import ReplicaRunnerFW
-    from tnco_tpu_torch.testing.networks import sycamore_like_tn
 
-    ts, out, dims = sycamore_like_tn(20)
-    tn = TensorNetwork([Tensor(xs, tuple(dims[x] for x in xs)) for xs in ts],
-                       output_inds=out)
+    ts, out, dims, _ = _sycamore()
     seeds = list(range(B))
     t0 = time.perf_counter()
-    paths = _build_run_paths(tn, seeds, -1)
+    paths = _flagship_paths()
     ctrees = [ContractionTree(p[0], ts, dims, output_inds=out)
               for p in paths]
     cm = SimpleCostModel(max_width=30)
@@ -647,6 +676,16 @@ def phase_flagship(torch, card):
     log(f'flagship: {B} replicas audited; best log2 total {mins.min():.4f};'
         f' |device - exact| <= {worst:.2e}')
     return counts, ctrees, [p[0] for p in paths]
+
+
+@functools.lru_cache(maxsize=1)
+def _flagship_paths():
+    """The initial paths of the B flagship runs on the full network (seeds
+    0 to B - 1, one list per component), built once, in phase 4, for
+    phases 4, 6 and 8."""
+    from tnco_tpu_torch.app.finite_width.sa import _build_run_paths
+
+    return tuple(_build_run_paths(_sycamore()[3], list(range(B)), -1))
 
 
 def _sycamore():
@@ -890,15 +929,14 @@ def _audit_im_results(res, loaded, runner, what):
 def phase_flagship_im(torch, card):
     import numpy as np
 
-    from tnco_tpu_torch.app.finite_width.sa import _build_run_paths
     from tnco_tpu_torch.ctree import ContractionTree
     from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tnco_tpu_torch.parallel import ReplicaRunner
 
-    ts, out, dims, tn = _sycamore()
+    ts, out, dims, _ = _sycamore()
     seeds = list(range(B))
     t0 = time.perf_counter()
-    paths = _build_run_paths(tn, seeds, -1)
+    paths = _flagship_paths()
     ctrees = [ContractionTree(p[0], ts, dims, output_inds=out)
               for p in paths]
     runner = ReplicaRunner(ctrees, seeds)
@@ -1174,17 +1212,16 @@ def phase_app_fw_walker(torch):
 def phase_flagship_fw_walker(torch, card):
     import numpy as np
 
-    from tnco_tpu_torch.app.finite_width.sa import _build_run_paths
     from tnco_tpu_torch.ctree import ContractionTree
     from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tnco_tpu_torch.kernels import walker as kw
     from tnco_tpu_torch.optimize.finite_width import SimpleCostModel
     from tnco_tpu_torch.parallel import ReplicaRunnerFW
 
-    ts, out, dims, tn = _sycamore()
+    ts, out, dims, _ = _sycamore()
     seeds = list(range(B))
     t0 = time.perf_counter()
-    paths = _build_run_paths(tn, seeds, -1)
+    paths = _flagship_paths()
     ctrees = [ContractionTree(p[0], ts, dims, output_inds=out)
               for p in paths]
     t1 = time.perf_counter()
@@ -1333,8 +1370,9 @@ def _kernel_launches(torch, fn):
     kernel ms, wall ms)`` (copies and fills not counted as launches)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # The device's activity alone: the host ops' events (several a
+    # launch) would take the profiler tens of seconds to collect.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -1909,9 +1947,10 @@ def phase_exchange_kick_card_vs_cpu(torch, runner):
 # set-up); the sampler's checks on QAOA in its CX form.
 CIRCUIT_M, QAOA_N, QAOA_P = 20, 26, 4
 # Optimizer options of the sampler's prefix networks: the CLI's
-# `sample` defaults for the timed run; 8 sweeps for the checks, whose
-# amplitudes do not depend on the path's quality.
-SAMPLER_OPT = dict(betas=(0, 50), n_steps=50, n_runs=1)
+# `sample` defaults for the timed run but 16 sweeps (cut from its 50 for
+# the whole script's time); 8 sweeps for the checks, whose amplitudes do
+# not depend on the path's quality.
+SAMPLER_OPT = dict(betas=(0, 50), n_steps=16, n_runs=1)
 CHECK_OPT = dict(SAMPLER_OPT, n_steps=8)
 # Phase 21's timed run on QAOA-26: depth cut from QAOA_P to fit the
 # phase's budget (the only cut), and the samples it times one by one.
@@ -2252,12 +2291,31 @@ def _sparse_tn(circuit):
 
 
 def _sparse_cost(tree, cm, slices=frozenset()):
-    """Exact bigint total of ``tree`` under the sparse cost model ``cm``:
-    its ``contraction_cost`` summed over the tree's contractions."""
-    inds, dims = list(tree.inds), tree.dims
-    return sum(cm.contraction_cost(inds[n.children[0]], inds[n.children[1]],
-                                   inds[p], dims, slices)
-               for p, n in enumerate(tree.nodes) if not n.is_leaf())
+    """Exact bigint total of ``tree`` under the sparse cost model ``cm``
+    (``contraction_cost`` summed over the tree's contractions: the dense
+    dims' product times min(the sparse dims' product, n_projs) over
+    ``in1 | in2 | slices``), from integer widths of the index words
+    (``_int_widths``) where the dims allow it, else node by node."""
+    import numpy as np
+
+    width = _int_widths(tree)
+    if width is None:
+        inds, dims = list(tree.inds), tree.dims
+        return sum(cm.contraction_cost(inds[n.children[0]],
+                                       inds[n.children[1]], inds[p], dims,
+                                       slices)
+                   for p, n in enumerate(tree.nodes) if not n.is_leaf())
+    order = set(tree.inds_order)
+    sp = _label_lanes(tree, cm.sparse_inds & order)
+    words, nodes = tree.inds_array, tree.nodes_array
+    inner = nodes[nodes[:, 0] >= 0]
+    union = words[inner[:, 0]] | words[inner[:, 1]] | _label_lanes(tree,
+                                                                   slices)
+    pairs, counts = np.unique(
+        np.stack([width(union & ~sp), width(union & sp)], axis=1), axis=0,
+        return_counts=True)
+    return sum(int(c) * (1 << int(d)) * min(1 << int(e), cm.n_projs)
+               for (d, e), c in zip(pairs, counts))
 
 
 def _sparse_width(tree, cm, slices=frozenset()):
@@ -3254,7 +3312,8 @@ def _checkpoint_on_card(torch):
 def phase_sweep(torch, card):
     """Phase 24: the 'sweep' engine through ``Optimizer`` and as the
     flagships, the card against the CPU, the single optimizers and a
-    checkpoint on the card, and K1 (and K3) at every shape launched."""
+    checkpoint on the card, and K1 (and K3) at every shape launched.
+    Returns the launch counts and the two apps' runners (IM, FW)."""
     from tnco_tpu_torch.app import load_tn
     from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tnco_tpu_torch.testing.kernel_cases import recorded_cases
@@ -3296,7 +3355,7 @@ def phase_sweep(torch, card):
         f'{t_apps - t_phase:.1f}, flagships {t_flag - t_apps:.1f}, card vs '
         f'CPU {t_cpu - t_flag:.1f}, optimizers {t_opt - t_cpu:.1f}, '
         f'checkpoint {time.perf_counter() - t_opt:.1f} s)')
-    return counts
+    return counts, (im, fw)
 
 
 def _native_audit(runner, fw, what):
@@ -3608,6 +3667,174 @@ def phase_native_mesh(torch, card, ctrees, paths):
     log(f'phase 25: {time.perf_counter() - t0:.1f} s (native '
         f'{t1 - t0:.1f}, one rank {t2 - t1:.1f}, four ranks '
         f'{t3 - t2:.1f}, draws {time.perf_counter() - t3:.1f} s)')
+    return counts
+
+
+def _log2_sum_gap(tree):
+    """``|log2(sum 2**c) - log2(total_cost_exact())|`` over the tree's
+    ``contraction_log2_costs()`` ``c``, which must be -inf on exactly
+    the leaves."""
+    import numpy as np
+
+    c = tree.contraction_log2_costs()
+    leaves = tree.nodes_array[:, 0] < 0
+    if not (np.isneginf(c[leaves]).all() and np.isfinite(c[~leaves]).all()):
+        fail('contraction_log2_costs: -inf not on exactly the leaves')
+    top = c[~leaves].max()
+    got = top + math.log2(float(np.exp2(c[~leaves] - top).sum()))
+    return abs(got - math.log2(tree.total_cost_exact()))
+
+
+def _host_api_full_width(fw_trees, sweep_runners):
+    """Phase 26b: the host API on the full network (N=3241, W=64): an FW
+    min tree of phase 24's 'sweep' FW runner within its cap after its
+    slices (``max_width()`` of the tree with the slices' bits cleared,
+    the cost model's ``get_max_width``, the popcount recompute); the
+    log2-sum of ``contraction_log2_costs()`` against the exact bigint
+    total on that tree, the 'sweep' IM runner's best and four of phase
+    4's trees; ``swap_with_nn`` on a copy of a phase 4 tree: each swap's
+    structure builds a valid tree through ``path()`` and the swap back
+    restores the copy, which stays valid."""
+    import numpy as np
+
+    from tnco_tpu_torch.bitset import Bitset
+    from tnco_tpu_torch.ctree import ContractionTree
+    from tnco_tpu_torch.optimize.finite_width import SimpleCostModel
+    from tnco_tpu_torch.testing.networks import sycamore_like_tn
+
+    im, fw = sweep_runners
+    cm = SimpleCostModel(max_width=30)
+    r = int(np.argmin(fw.log2_min_totals()))
+    tree = fw.min_ctree(r)
+    lanes = np.asarray(fw.min_slices_lanes(r), dtype=np.uint32)
+    order = tree.inds_order
+    slices = frozenset(order[p] for p in Bitset.from_lanes(
+        lanes, len(order)).positions())
+    full = tree.max_width()
+    sliced = tree.replace_arrays(tree.nodes_array,
+                                 tree.inds_array & ~lanes).max_width()
+    by_model = cm.get_max_width([xs - slices for xs in tree.inds], tree.dims)
+    want, _ = _exact_total(tree, lanes)
+    if abs(full - cm.get_max_width(tree.inds, tree.dims)) > 1e-9 or \
+            abs(sliced - by_model) > 1e-9 or abs(sliced - want) > 1e-9:
+        fail(f'FW min tree widths disagree: max_width {full}, sliced '
+             f'{sliced}, get_max_width {by_model}, popcount {want}')
+    if sliced > cm.max_width + 1e-9:
+        fail(f'FW min tree: width {sliced} after its slices over the cap')
+    log(f'host API: FW min tree (phase 24, replica {r}): max_width() '
+        f'{full} unsliced, {sliced} after its {len(slices)} slices '
+        f'(cap {cm.max_width}); get_max_width and the popcount agree')
+    trees = [('FW min', tree), ('IM min', im.min_ctree(im.best()[0]))]
+    trees += [(f'phase 4 tree {i}', t) for i, t in enumerate(fw_trees[:4])]
+    gaps = {name: _log2_sum_gap(t) for name, t in trees}
+    if max(gaps.values()) > 1e-9:
+        fail(f'log2-sum of contraction_log2_costs() vs log2 of the exact '
+             f'total: {gaps}')
+    log(f'host API: log2-sum of contraction_log2_costs() == log2 '
+        f'total_cost_exact() within {max(gaps.values()):.3g} on '
+        f'{len(trees)} trees (N={len(tree)})')
+    ts, out, dims = sycamore_like_tn(20)
+    base = fw_trees[0]
+    copy = base.replace_arrays(base.nodes_array.copy(),
+                               base.inds_array.copy())
+    nodes = copy.nodes_array
+    rng = np.random.default_rng(26)
+    movable = [d for d in range(len(copy)) if nodes[d, 2] >= 0 and
+               nodes[nodes[d, 2], 2] >= 0]
+    for d in rng.choice(movable, size=4, replace=False):
+        b = nodes[d, 2]
+        a = nodes[b, 2]
+        c = nodes[a, 1] if nodes[a, 0] == b else nodes[a, 0]
+        copy.swap_with_nn(int(d))
+        if nodes[d, 2] != a or nodes[c, 2] != b:
+            fail(f'swap_with_nn({d}): parents not exchanged')
+        moved = ContractionTree(copy.path(), ts, dims, output_inds=out)
+        ok, msg = moved.is_valid(return_message=True)
+        if not ok or _log2_sum_gap(moved) > 1e-9:
+            fail(f'swap_with_nn({d}): the moved tree: {msg}')
+        copy.swap_with_nn(int(c))
+        if not np.array_equal(nodes, base.nodes_array) or \
+                not copy.is_valid():
+            fail(f'swap_with_nn({d}) then ({c}) did not restore the tree')
+    log('host API: 4 swap_with_nn moves on a copy of a phase 4 tree: each '
+        'moved structure valid, each swap back restored the tree')
+
+
+def phase_examples_host_api(torch, card, fw_trees, sweep_runners):
+    """Phase 26: (a) the three flows of ``examples/`` on the card
+    (``tnco_tpu_torch.testing.examples``), each audited; (b) the host API
+    at full width (``_host_api_full_width``); (c) the random networks of
+    the JAX package's tests through ``Optimizer(device='cuda')``, IM and
+    FW, every result audited; (d) K1 and K3 bitwise against their plain
+    versions at each shape the phase launched them.  Runs (a), (c), then
+    (b), which launches no kernel.  Returns the launch counts of (a) and
+    (c)."""
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tnco_tpu_torch.testing import examples as ex
+    from tnco_tpu_torch.testing.kernel_cases import recorded_cases
+
+    t_phase = time.perf_counter()
+    counts, seen_all, walls = {}, set(), {}
+
+    def base():
+        out = ex.base_optimization('cuda')
+        for name in ('opt', 'fw'):
+            if not out[name].prng_state.startswith('torchgen:cuda:'):
+                fail(f'base_optimization: the {name} optimizer is not on '
+                     'the card')
+        ex.audit_base_optimization(out)
+        return (f"max_width {out['max_width']}, cost {out['cost']}, IM min "
+                f"{out['opt'].min_total_cost}, FW min "
+                f"{out['fw'].min_total_cost} slices "
+                f"{sorted(out['fw'].min_slices)}")
+
+    def optimization():
+        tn, runs = ex.optimization('cuda')
+        ex.audit_optimization(tn, runs)
+        return ', '.join(f'{k} {v[1][0].cost}' for k, v in runs.items())
+
+    def sampling():
+        out = ex.sampling('cuda')
+        err = ex.audit_sampling(out)
+        return (f'{len(out["records"])} amplitudes within {err:.3g} of the '
+                f'statevector, {len(out["hits"])} and '
+                f'{len(out["hits_capped"])} bitstrings')
+
+    def random_networks():
+        runs = ex.random_networks('cuda')
+        return (f'{len(ex.RANDOM_SHAPES)} networks x IM/FW, '
+                f'{ex.audit_random_networks(runs)} results audited')
+
+    for key, flow in (('example_base', base),
+                      ('example_optimization', optimization),
+                      ('example_sampling', sampling),
+                      ('random_networks', random_networks)):
+        t0 = time.perf_counter()
+        with recorded_cases() as seen:
+            reset_launch_counts()
+            try:
+                said = flow()
+            except AssertionError as exc:
+                fail(f'{key}: audit failed: {exc}')
+            torch.cuda.synchronize()
+            counts[key] = launch_counts()
+        seen_all |= seen
+        walls[key] = round(time.perf_counter() - t0, 1)
+        log(f'{key}: {said}; {walls[key]} s; launches {counts[key]} '
+            f'({card})')
+        # The sampler's prefix networks (4 qubits) fuse (fuse=3) to two
+        # tensors, one contraction: their sweeps read rows (K1) but have
+        # no move to write (K3).
+        needs = ('gather_gbn',) if key == 'example_sampling' else \
+            BATCHED_KERNELS
+        if not all(counts[key][k] > 0 for k in needs):
+            fail(f'{key}: a kernel of the path was never launched')
+    t0 = time.perf_counter()
+    _host_api_full_width(fw_trees, sweep_runners)
+    walls['host_api'] = round(time.perf_counter() - t0, 1)
+    _check_recorded(torch, seen_all, 'examples and random networks '
+                    '(phase 26)')
+    log(f'phase 26: {time.perf_counter() - t_phase:.1f} s ({walls})')
     return counts
 
 
@@ -4249,10 +4476,14 @@ def main() -> int:
         lap('22 sparse')
         counts.update(phase_walk_variants_float64(torch, card, product))
         lap('23 walk variants and float64')
-        counts.update(phase_sweep(torch, card))
+        sweep_counts, sweep_runners = phase_sweep(torch, card)
+        counts.update(sweep_counts)
         lap('24 sweep')
         counts.update(phase_native_mesh(torch, card, fw_trees, fw_paths))
         lap('25 native and mesh')
+        counts.update(phase_examples_host_api(torch, card, fw_trees,
+                                              sweep_runners))
+        lap('26 examples and host API')
         rows = phase_times(torch, counts, im_runner, fw_runner)
         lap('10 kernel times')
         phase_batched_launches(torch, card, (fw_prof, im_prof))

@@ -14,6 +14,7 @@ from tnco_tpu.testing.utils import generate_random_tensors
 from tnco_tpu_torch.ctree import ContractionTree
 from tnco_tpu_torch.testing.accept_parity import measure_flip_rate
 from tnco_tpu_torch.utils.tn import get_random_contraction_path
+from torch_reference_native import reference_native  # noqa: F401
 
 
 def _network():

@@ -22,6 +22,7 @@ from tnco_tpu_torch.ctree import ContractionTree as TContractionTree
 from tnco_tpu_torch.optimize.finite_width import SimpleCostModel
 from tnco_tpu_torch.parallel import replicas as trep
 from tnco_tpu_torch.parallel.replicas import ReplicaRunnerFW
+from torch_reference_native import reference_native  # noqa: F401
 
 
 def _tn(cls_t, cls_tn, rows, cols):

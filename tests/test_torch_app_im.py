@@ -25,6 +25,7 @@ from tnco_tpu_torch.optimize.infinite_memory import SimpleCostModel
 from tnco_tpu_torch.parallel import ReplicaRunner
 from tnco_tpu_torch.parallel import replicas as trep
 import tnco_tpu_torch.utils.tn as ttn_utils
+from torch_reference_native import reference_native  # noqa: F401
 
 
 def _tn(cls_t, cls_tn, ts, out, dims):

@@ -35,6 +35,7 @@ from tnco_tpu.utils.tn import get_random_contraction_path
 from tnco_tpu_torch.convert import batch_from_numpy, batch_to_numpy
 from tnco_tpu_torch.kernels import sa_batched as tsb
 from tnco_tpu_torch.kernels.sa_infinite import SweepConfig as TConfig
+from torch_reference_native import reference_native  # noqa: F401
 
 TOTAL_ATOL = 1e-5
 B = 4

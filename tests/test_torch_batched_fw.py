@@ -36,6 +36,7 @@ from tnco_tpu_torch.kernels.sa_batched import max_walk_steps
 from tnco_tpu_torch.kernels.sa_finite import SweepConfigFW as TConfigFW
 from test_torch_batched import (B, TOTAL_ATOL, Margins, _t, compare,
                                       fields, min_ties, network, trees)
+from torch_reference_native import reference_native  # noqa: F401
 
 MAX_WIDTH = {'lattice': 4.0, 'mixed': 6.0, 'hyper': 4.0}
 

@@ -34,6 +34,7 @@ from tnco_tpu_torch.convert import batch_from_numpy, batch_to_numpy
 from tnco_tpu_torch.kernels import sa_multiwalk as tsmw
 from tnco_tpu_torch.testing.utils import (assert_batches_identical,
                                           assert_tensors_identical)
+from torch_reference_native import reference_native  # noqa: F401
 
 TOTAL_ATOL = 1e-5
 _TOTALS = ('log2_total', 'min_log2_total')

@@ -27,6 +27,7 @@ from tnco_tpu_torch.utils import circuit as tcircuit
 from tnco_tpu_torch.utils import qasm as tqasm
 from tnco_tpu_torch.utils import tensor as ttensor
 from tnco_tpu_torch.utils import tn as ttn
+from torch_reference_native import reference_native  # noqa: F401
 
 X = np.array([[0, 1], [1, 0]], dtype=complex)
 Y = np.array([[0, -1j], [1j, 0]])

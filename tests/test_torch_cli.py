@@ -17,6 +17,7 @@ from tnco_tpu_torch.app import load_tn
 from tnco_tpu_torch.app.cli import main as tmain
 from tnco_tpu_torch.ctree import ContractionTree
 from tnco_tpu_torch.testing.networks import sycamore_qasm
+from torch_reference_native import reference_native  # noqa: F401
 
 _ROOT = Path(__file__).resolve().parents[1]
 CHAIN = '[(2, "a", "b"), (2, "b", "c"), (2, "c", "d")]'

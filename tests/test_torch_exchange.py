@@ -31,6 +31,7 @@ from tnco_tpu_torch.convert import (batch_fw_from_numpy, batch_fw_to_numpy,
 from tnco_tpu_torch.ctree import ContractionTree as TContractionTree
 from tnco_tpu_torch.optimize.finite_width import SimpleCostModel as TFWModel
 from tnco_tpu_torch.parallel import replicas as trep
+from torch_reference_native import reference_native  # noqa: F401
 
 B = 8
 # Width caps: tight enough that every network holds slices.

@@ -59,6 +59,7 @@ from test_torch_walk_variants import B as WB
 from test_torch_walk_variants import (MAX_WIDTH, compare, fields, jax_draws,
                                       port_fields, setup)
 from test_torch_walks import reslice_ties
+from torch_reference_native import reference_native  # noqa: F401
 
 TOTAL_ATOL64 = 1e-12
 F64 = jnp.float64

@@ -56,6 +56,7 @@ from test_torch_batched import (B, TOTAL_ATOL, compare, fields, min_ties,
 from test_torch_batched_fw import MAX_WIDTH
 from test_torch_sparse import N_PROJS, sparse_labels
 from test_torch_walks import reslice_ties
+from torch_reference_native import reference_native  # noqa: F401
 
 TOTAL_ATOL64 = 1e-12
 

@@ -20,6 +20,7 @@ from tnco_tpu_torch.kernels import build, launch_counts, reset_launch_counts
 from tnco_tpu_torch.kernels import gather as kg
 from tnco_tpu_torch.kernels import scatter as ks
 from tnco_tpu_torch.testing import kernel_cases as kc
+from torch_reference_native import reference_native  # noqa: F401
 
 _SPECIALS = np.asarray([0x7FC00000, 0xFF800000, 0x7F800000, 0x80000000,
                         0x7F800001], dtype=np.uint32)  # NaN -inf inf -0 sNaN

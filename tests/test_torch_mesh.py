@@ -20,6 +20,7 @@ from tnco_tpu_torch.kernels.sa_finite_batched import SABatchFW as TSABatchFW
 from tnco_tpu_torch.parallel.dryrun import dryrun_multichip
 from tnco_tpu_torch.parallel.dryrun import main as dryrun_main
 from tnco_tpu_torch.testing import mesh_cases as mc
+from torch_reference_native import reference_native  # noqa: F401
 
 N_RANKS = 4
 B = 8

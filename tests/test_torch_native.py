@@ -5,10 +5,14 @@ with native on in both packages, and the validator fast path of
 ``ContractionTree.is_valid``.  The engine calls pass ``n_threads`` <= 2
 (xdist runs several workers; the results do not depend on it); the
 runners use every core, as the JAX runners do, one thread a replica at
-most."""
+most.  The JAX side loads a private build of its library
+(``torch_reference_native``), never the shared file that its workers
+build in place at once."""
 
 import json
 import math
+from pathlib import Path
+from random import Random
 
 import numpy as np
 import pytest
@@ -35,6 +39,8 @@ from tnco_tpu_torch.optimize.infinite_memory import \
     SimpleCostModel as TIMModel
 from tnco_tpu_torch.parallel import replicas as trep
 from tnco_tpu_torch.parallel.checkpoint import save_runner
+from torch_reference_native import (BUILD_TARGETS, SHARED_LIB,
+                                    reference_native)  # noqa: F401
 
 
 def _pair(rng, random_seed, **kwargs):
@@ -380,3 +386,40 @@ def test_cli_engine_native(capsys):
     assert tmain(argv) == 0
     got = json.loads(capsys.readouterr().out)
     assert [int(float(r['cost'])) for r in got['res']] == [10, 10]
+
+
+
+def test_reference_loader_private_build(monkeypatch, tmp_path,
+                                        reference_native):
+    """The fixture's private build of the reference library survives what
+    a worker that lost the shared build's race sees: a truncated library
+    (the private one's ELF header alone, under ``tmp_path``, as g++ has
+    begun to write it; a cut past the program headers would not fail to
+    load but kill the process with SIGBUS) does not load and leaves the
+    reference's entry points returning None, and the private build loads
+    again after it.  No build of the reference in this process wrote the
+    shared file."""
+    private = reference_native._LIB_PATH
+    assert private != SHARED_LIB and private.exists()
+    jt, _ = _pair(Random(0), 0)
+    want = reference_native.total_cost(jt.nodes_array, jt.inds_array,
+                                       jt.dims_array)
+    assert want is not None
+    cut = tmp_path / SHARED_LIB.name
+    cut.write_bytes(private.read_bytes()[:64])
+    monkeypatch.setattr(reference_native, '_LIB_PATH', cut)
+    monkeypatch.setattr(reference_native, '_LIB', None)
+    monkeypatch.setattr(reference_native, '_TRIED', False)
+    assert not reference_native.available()
+    assert reference_native.total_cost(jt.nodes_array, jt.inds_array,
+                                       jt.dims_array) is None
+    assert cut.stat().st_size == 64
+    monkeypatch.undo()
+    monkeypatch.setattr(reference_native, '_LIB', None)
+    monkeypatch.setattr(reference_native, '_TRIED', False)
+    assert reference_native._LIB_PATH == private
+    assert reference_native.available()
+    assert reference_native.total_cost(jt.nodes_array, jt.inds_array,
+                                       jt.dims_array) == want
+    assert BUILD_TARGETS and all(Path(t) != SHARED_LIB
+                                 for t in BUILD_TARGETS)

@@ -23,6 +23,7 @@ from tnco_tpu_torch.kernels import sa_finite_batched as tsfb
 from tnco_tpu_torch.kernels import sa_fullsweep as tsfs
 from tnco_tpu_torch.ops import bitops as tbit
 from tnco_tpu_torch.ops import costs as tcost
+from torch_reference_native import reference_native  # noqa: F401
 
 TOTAL_ATOL = 1e-5  # log2 units; the measured gap is <= 1 ulp
 

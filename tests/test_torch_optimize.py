@@ -29,6 +29,7 @@ from tnco_tpu_torch.optimize.infinite_memory import optimizer as imo
 from tnco_tpu_torch.optimize.prob import (BaseProbability, Greedy,
                                           MetropolisHastings)
 from tnco_tpu_torch.utils.tn import get_random_contraction_path
+from torch_reference_native import reference_native  # noqa: F401
 
 
 def _tree(rng, random_seed, **kw):

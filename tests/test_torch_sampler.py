@@ -23,6 +23,7 @@ from tnco_tpu_torch.app.circuit.sampling import is_classical_operation
 from tnco_tpu_torch.convert import sampling_state_from_numpy
 from tnco_tpu_torch.testing import sampling as tsampling
 from tnco_tpu_torch.testing.networks import qaoa_sampling_circuit
+from torch_reference_native import reference_native  # noqa: F401
 
 H = np.array([[1, 1], [1, -1]]) / math.sqrt(2)
 X = np.array([[0, 1], [1, 0]])

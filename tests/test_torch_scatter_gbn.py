@@ -20,6 +20,7 @@ import jax.numpy as jnp
 
 from tnco_tpu.kernels import pallas_scatter as ps
 from tnco_tpu_torch.kernels import scatter as ks
+from torch_reference_native import reference_native  # noqa: F401
 
 _SPECIALS = np.asarray([0x7FC12345, 0x7F800001, 0xFF800000, 0x80000000,
                         0x7FFFFFFF], dtype=np.uint32)  # NaNs, -inf, -0

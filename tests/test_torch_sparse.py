@@ -67,6 +67,7 @@ from test_torch_walker import _jax_draws as walker_draws
 from test_torch_walker_fw import _jax_draws as walker_fw_draws
 from test_torch_walks import _jax_draws as walks_draws
 from test_torch_walks import reslice_ties
+from torch_reference_native import reference_native  # noqa: F401
 
 MAX_WIDTH = {'lattice': 4.0, 'mixed': 6.0, 'hyper': 4.0}
 # n_projs: the cap binds on the unions of a few sparse indices; 6 gives

@@ -27,6 +27,7 @@ from tnco_tpu_torch.parallel import replicas as trep
 from tnco_tpu_torch.parallel import stall as tstall
 from tnco_tpu_torch.parallel.stall import IslandStallKicker
 from test_torch_exchange import B, MAX_WIDTH, fields, fw_runners, sync_fw
+from torch_reference_native import reference_native  # noqa: F401
 
 TOTAL_ATOL = 1e-5
 _TOTALS = ('log2_total', 'min_log2_total')

@@ -21,6 +21,7 @@ from tnco_tpu_torch.ctree import ContractionTree as TContractionTree
 from tnco_tpu_torch.kernels import sa_finite_batched as tsfb
 from tnco_tpu_torch.testing import networks as tnets
 import tnco_tpu_torch.utils.tn as ttn
+from torch_reference_native import reference_native  # noqa: F401
 
 
 def _trees(ts, out, dims, b, seed, cls=ContractionTree):

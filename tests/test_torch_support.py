@@ -26,6 +26,7 @@ from tnco_tpu_torch.parallel.checkpoint import (load_batch, load_runner,
 from tnco_tpu_torch.utils import compile_cache
 from tnco_tpu_torch.utils.profiling import ThroughputCounter, trace
 from tnco_tpu_torch.utils.tn import get_random_contraction_path
+from torch_reference_native import reference_native  # noqa: F401
 
 
 def test_host_parallel_basic():

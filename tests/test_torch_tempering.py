@@ -18,6 +18,7 @@ from tnco_tpu_torch.optimize.finite_width import SimpleCostModel as TFWModel
 from tnco_tpu_torch.parallel import replicas as trep
 from tnco_tpu_torch.parallel.tempering import TemperingLadder
 from test_torch_exchange import B, tree_pairs
+from torch_reference_native import reference_native  # noqa: F401
 
 
 @pytest.mark.parametrize('spacing, lo', [('linear', 0.0),

@@ -38,6 +38,7 @@ from test_torch_batched import (B, TOTAL_ATOL, Margins, compare, fields,
                                 min_ties, sweep_draws)
 from test_torch_batched_fw import fw_draws
 from test_torch_sparse import MAX_WIDTH, _log2d, _t, _ul_int, setup
+from torch_reference_native import reference_native  # noqa: F401
 
 _IM = ('nodes', 'inds', 'hyper', 'lcc', 'log2_total', 'min_log2_total',
        'min_nodes', 'min_inds', 'key')

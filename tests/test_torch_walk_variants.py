@@ -51,6 +51,7 @@ from tnco_tpu_torch.kernels.sa_infinite import SweepConfig as TConfig
 from tnco_tpu_torch.ops import costs as tcosts
 from test_torch_batched import min_ties
 from test_torch_walks import reslice_ties
+from torch_reference_native import reference_native  # noqa: F401
 
 TOTAL_ATOL = 1e-5
 B = 3

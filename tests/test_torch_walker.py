@@ -37,6 +37,7 @@ from tnco_tpu_torch.kernels import sa_multiwalk as tsmw
 from tnco_tpu_torch.kernels import walker as tw
 from tnco_tpu_torch.kernels.sa_infinite import SweepConfig as TConfig
 from tnco_tpu_torch.ops import costs as tcosts
+from torch_reference_native import reference_native  # noqa: F401
 
 TOTAL_ATOL = 1e-5
 B = 3

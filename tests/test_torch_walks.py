@@ -36,6 +36,7 @@ from tnco_tpu_torch.convert import batch_fw_from_numpy, batch_fw_to_numpy
 from tnco_tpu_torch.kernels import sa_finite_batched as tsfb
 from tnco_tpu_torch.kernels import sa_walks as tsw
 from tnco_tpu_torch.kernels.sa_finite import SweepConfigFW as TConfigFW
+from torch_reference_native import reference_native  # noqa: F401
 
 TOTAL_ATOL = 1e-5
 B, P = 4, 8

@@ -9,6 +9,7 @@ String codec matches the reference (bitset.hpp:40-46): character ``j`` of the
 string is bit ``j`` (``'01'`` means bit 1 set).
 """
 
+from collections.abc import Callable
 from typing import Any
 
 import numpy as np
@@ -102,6 +103,10 @@ class Bitset:
 
     # Factories -------------------------------------------------------------
     @classmethod
+    def from_mask(cls, mask: int, n: int) -> 'Bitset':
+        return cls(mask, n=n)
+
+    @classmethod
     def from_lanes(cls, lanes: np.ndarray, n: int) -> 'Bitset':
         mask = unpack_lanes(lanes) & ((1 << int(n)) - 1 if n else 0)
         return cls(mask, n=n)
@@ -122,6 +127,9 @@ class Bitset:
             raise IndexError("Index out of range.")
         return bool((self._mask >> pos) & 1)
 
+    def test(self, pos: int) -> bool:
+        return self[pos]
+
     def count(self) -> int:
         return self._mask.bit_count()
 
@@ -135,6 +143,10 @@ class Bitset:
             out.append(low.bit_length() - 1)
             mask ^= low
         return tuple(out)
+
+    def visit(self, callback: Callable[[int], None]) -> None:
+        for p in self.positions():
+            callback(p)
 
     # Mutation-free algebra ---------------------------------------------------
     def _check(self, other: 'Bitset') -> None:

@@ -29,7 +29,8 @@ import numpy as np
 from tnco_tpu_torch import native
 from tnco_tpu_torch.bitset import Bitset, n_lanes
 
-__all__ = ['ContractionTree', 'Node', 'traverse', 'get_contraction']
+__all__ = ['ContractionTree', 'Node', 'traverse', 'traverse_tree',
+           'get_contraction']
 
 NULL = -1
 
@@ -60,6 +61,9 @@ class Node:
 
     def is_leaf(self) -> bool:
         return self.children[0] is None
+
+    def is_root(self) -> bool:
+        return self.parent is None
 
     def __eq__(self, other: Any) -> bool:
         return (isinstance(other, Node) and self.children == other.children
@@ -159,6 +163,8 @@ class ContractionTree:
         ...                         {'i': 2, 'j': 2, 'k': 2})
         >>> ctree.path()
         [(0, 1)]
+        >>> ctree.max_width()
+        2.0
     """
 
     def __init__(self,
@@ -530,6 +536,33 @@ class ContractionTree:
             return False, "Contraction is not valid."
         return True, ""
 
+    # -- Tree move ------------------------------------------------------------
+
+    def swap_with_nn(self, pos_d: int) -> None:
+        """Swaps node ``pos_d`` with its uncle (the single tree move).
+
+        In-place rewiring only — index sets are the optimizer's job.
+        Reference: include/tnco/tree.hpp:141-192 (no-op on root/top nodes).
+        """
+        nodes = self._nodes
+        if pos_d >= len(nodes):
+            return
+        pos_b = nodes[pos_d, 2]
+        if pos_b == NULL:
+            return
+        pos_a = nodes[pos_b, 2]
+        if pos_a == NULL:
+            return
+        pos_c = (nodes[pos_a, 1]
+                 if nodes[pos_a, 0] == pos_b else nodes[pos_a, 0])
+        # A's child C -> D; B's child D -> C
+        slot_a = 0 if nodes[pos_a, 0] == pos_c else 1
+        slot_b = 0 if nodes[pos_b, 0] == pos_d else 1
+        nodes[pos_a, slot_a] = pos_d
+        nodes[pos_b, slot_b] = pos_c
+        nodes[pos_c, 2] = pos_b
+        nodes[pos_d, 2] = pos_a
+
     # -- Path round-trip ------------------------------------------------------
 
     def path(self) -> list[tuple[int, int]]:
@@ -557,7 +590,28 @@ class ContractionTree:
             all_pos.append(z_)
         return path
 
+    def max_width(self) -> float:
+        """Max over nodes of sum(log2 dims of its indices)."""
+        log2d = self.log2_dims_array.astype(np.float64)
+        bits = _expand_bits(self._inds, self._n_inds)
+        return float((bits @ log2d).max())
+
     # -- Exact costs (host, bigint) -------------------------------------------
+
+    def contraction_log2_costs(self) -> np.ndarray:
+        """``float64[N]`` log2 contraction cost per node (0-width for leaves).
+
+        Simple cost model: cost = prod(dims over in1 | in2)
+        (include/tnco/optimize/infinite_memory/cost_model/simple.hpp:65-83).
+        Leaves cost 0 (represented as -inf log2).
+        """
+        nodes, inds = self._nodes, self._inds
+        internal = nodes[:, 0] != NULL
+        out = np.full(len(nodes), -np.inf)
+        union = inds[nodes[internal, 0]] | inds[nodes[internal, 1]]
+        bits = _expand_bits(union, self._n_inds)
+        out[internal] = bits @ self.log2_dims_array
+        return out
 
     def total_cost_exact(self) -> int:
         """Exact total contraction cost as a Python bigint.
@@ -623,3 +677,23 @@ class ContractionTree:
         new._tensors_pos = self._tensors_pos
         return new
 
+
+def _expand_bits(lanes: np.ndarray, n_bits: int) -> np.ndarray:
+    """``uint32[..., W]`` lanes -> ``float64[..., n_bits]`` 0/1 matrix."""
+    lanes = np.asarray(lanes, dtype=np.uint32)
+    shifts = np.arange(32, dtype=np.uint32)
+    bits = (lanes[..., :, None] >> shifts) & 1  # [..., W, 32]
+    bits = bits.reshape(*lanes.shape[:-1], lanes.shape[-1] * 32)
+    return bits[..., :n_bits].astype(np.float64)
+
+
+def traverse_tree(ctree: ContractionTree,
+                  callback: Callable[[int], None],
+                  *,
+                  verbose: int = 0) -> None:
+    """Traverses ``ctree`` post-order calling ``callback(pos)`` per node.
+
+    Reference: tnco/ctree.py:407-434 (progress bar dropped; pure traversal).
+    """
+    del verbose
+    traverse(ctree, callback)

@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 __all__ = ['pad_log2_dims', 'device_dtype', 'pairwise_sum_last',
-           'popcount32', 'expand_bits', 'width', 'as_lanes', 'LANE_BITS',
+           'popcount32', 'expand_bits', 'width', 'any_bits', 'popcount',
+           'as_lanes', 'LANE_BITS',
            'enable_float64', 'set_float64', 'float64_enabled']
 
 LANE_BITS = 32
@@ -132,3 +133,24 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     x = x + (x >> 8)
     x = x + (x >> 16)
     return (x & 0x3F) + sign
+
+
+def _on_own_device(lanes) -> torch.Tensor:
+    """Lane words as int32 on the device they lie on (host for numpy),
+    in their own shape (0-d included)."""
+    if isinstance(lanes, torch.Tensor):
+        return as_lanes(lanes, lanes.device)
+    return as_lanes(lanes, 'cpu').reshape(np.shape(lanes))
+
+
+def any_bits(lanes) -> torch.Tensor:
+    """True if any bit is set (reduction over the lane axis; a 0-d word
+    is its own set), as ``tnco_tpu/ops/bitops.py:97-102``."""
+    lanes = _on_own_device(lanes)
+    return (lanes != 0).any(dim=-1) if lanes.ndim else lanes != 0
+
+
+def popcount(lanes) -> torch.Tensor:
+    """Number of set bits over the lane axis, ``int32[...]``, as
+    ``tnco_tpu/ops/bitops.py:105-108``."""
+    return popcount32(_on_own_device(lanes)).sum(dim=-1, dtype=torch.int32)

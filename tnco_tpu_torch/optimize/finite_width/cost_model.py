@@ -98,6 +98,10 @@ class SimpleCostModel(_IMCostModel):
         sparse = prod(union & self.sparse_inds)
         return dense * min(sparse, self.n_projs)
 
+    def get_max_width(self, ts_inds, dims) -> float:
+        """Maximum width over a list of index sets."""
+        return max(self.width(xs, dims) for xs in ts_inds)
+
     def __eq__(self, other: Any) -> bool:
         return (super().__eq__(other) and
                 self.max_width == other.max_width)
