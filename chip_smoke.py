@@ -19,7 +19,7 @@ Phases, each fatal on failure:
    against ``run_walker_plain`` on the same pre-drawn streams (a small
    mixed-dims lattice at B=4, P=8 and P=128, 'greedy', and the edge
    cases P=1 and B=1, then the Sycamore shapes at B=64, P=8, 'mh' and
-   'greedy'; two chunks of K=16 each; then a 7001-tensor hyper-index
+   'greedy', and at the walker apps' B=APP_RUNS, P=8, 'mh'; two chunks of K=16 each; then a 7001-tensor hyper-index
    chain on dims 2 and 3, whose topology exceeds shared memory, at B=2
    and K=8), then the
    finite-width walker K5-FW against ``run_walker_fw_plain`` the same
@@ -37,18 +37,21 @@ Phases, each fatal on failure:
    ``Optimizer(max_width=30).optimize`` on the Sycamore-like m=20
    network (N=3241, W=64) with every result audited (valid path, exact
    bigint cost, widths within the cap after slicing), with the kernels'
-   launch counts read around it;
+   launch counts read around it; then K1 and K3 bitwise against their
+   plain versions at each shape it launched them, and at B=64 (as in
+   phases 5, 7, 11-12, 19-20 and 22-24);
 4. the FW flagship: ``ReplicaRunnerFW`` at B=64 replicas, P=128 walks,
    reslice every 2 steps, with proposals/s and applied/s;
 5. the infinite-memory (IM) path through the user entry point:
    ``Optimizer().optimize`` (``max_width=None``) on the same network,
-   64 runs of 32 steps, 'auto' resolving to the walker; every result
+   APP_RUNS runs of 32 steps, 'auto' resolving to the walker; every result
    and every replica's best tree audited (valid path, exact bigint cost,
    device min total within 1e-3 in log2 of the exact one);
 6. the IM flagship: ``ReplicaRunner`` at B=64, P=8 in chunks of 128
    iterations, with ms per chunk, proposals/s and applied/s;
 7. the FW walker path through the user entry point:
-   ``Optimizer(max_width=30, engine='walker')``, 64 runs of 32 steps,
+   ``Optimizer(max_width=30, engine='walker')``, APP_RUNS runs of 32
+   steps,
    reslice every 10, every result and every replica's best state
    audited as in phases 3 and 5;
 8. the FW walker flagship: ``ReplicaRunnerFW(engine='walker')`` at B=64,
@@ -77,7 +80,8 @@ Phases, each fatal on failure:
 11. the FW app at its default fuse: ``Optimizer(max_width=30,
    seed=0).optimize`` with no ``fuse=`` argument, which fuses Sycamore
    m=20 to N=855, W=26, where 'auto' picks the lockstep 'batched'
-   engine; 64 runs x BATCHED_APP_STEPS sweeps, reslice every 10; K1 (the
+   engine; APP_RUNS runs x BATCHED_APP_STEPS sweeps, reslice every 10;
+   K1 (the
    row reads) and K3 (the row writes) must launch; every result and
    every replica's best state audited;
 12. the IM app the same way (``Optimizer(seed=0)``), audited as in
@@ -119,16 +123,19 @@ Phases, each fatal on failure:
    Sycamore-53 m=20 circuit as an fSim gate list (``Optimizer(max_width=
    30, seed=0)``) and as QASM text with cz couplers (``Optimizer(seed=
    0)``) at the default fuse, and QAOA-26 p=4 at fuse=3 (``Optimizer(
-   max_width=30, seed=0)``), 64 runs x BATCHED_APP_STEPS sweeps each:
+   max_width=30, seed=0)``), APP_RUNS runs x BATCHED_APP_STEPS sweeps
+   each:
    load seconds, N, W, tensors, hyper-indices and the engine 'auto'
    picks ('batched', whose K1 and K3 must launch); every result audited
    as in phases 3 and 5; then K1 and K3 bitwise against their plain
    versions, by every route, at each shape the ``optimize`` launched
    them (recorded by ``kernel_cases.recorded_cases``);
 20. the CLI as a subprocess: ``python3 -m tnco_tpu_torch.app.cli
-   optimize`` on the Sycamore QASM file (max_width 30, 64 runs x 32
-   sweeps), its network equal to ``load_tn``'s and its best result
-   audited, with its wall time; ``sample`` on a 3-qubit GHZ circuit,
+   optimize`` on the Sycamore QASM file (max_width 30, APP_RUNS runs x
+   32 sweeps), its network equal to ``load_tn``'s and its best result
+   audited, with its wall time, then the same command through
+   ``cli.main`` in this process, K1 and K3 held at the shapes it
+   launched (its output discarded); ``sample`` on a 3-qubit GHZ circuit,
    whose hits must lie in {000, 111};
 21. the BGL ``Sampler`` (QAOA with each ZZ written CX, Rz, CX; the
    checks' prefix networks optimized with 8 sweeps): every probability
@@ -138,7 +145,7 @@ Phases, each fatal on failure:
    slice (sliced amplitudes within 1e-10 relative of the unsliced
    ones); 1000 samples of QAOA-4 p=2 within 0.15 of the statevector's
    distribution in total variation; a timed run on QAOA-26 at depth
-   SAMPLER_P (cut from 4) with the CLI's ``sample`` betas, 16 sweeps a
+   SAMPLER_P (cut from 4) with the CLI's ``sample`` betas, 8 sweeps a
    prefix network (cut from its 50): seconds to build the state (one
    card optimization per non-classical gate; K1 and K3 must launch) and
    per sample, each of SAMPLER_SAMPLES samples timed alone (median, min,
@@ -148,16 +155,16 @@ Phases, each fatal on failure:
 22. sparse networks: the Sycamore-53 m=20 fSim circuit and QAOA-26 p=4
    through ``load_tn`` with open outputs, unfused, the outputs marked
    sparse (N=3135, W=64 and N=623, W=15): (a) ``Optimizer(seed=0)`` and
-   ``Optimizer(max_width=30, seed=0)`` with ``n_projs=2**20``, 64 runs x
-   BATCHED_APP_STEPS sweeps each, where 'auto' picks 'vmapped' (K1 and
+   ``Optimizer(max_width=30, seed=0)`` with ``n_projs=2**20``, APP_RUNS
+   runs x SPARSE_APP_STEPS sweeps each, where 'auto' picks 'vmapped' (K1 and
    K3 must launch): load seconds, N, W, ms a sweep; every result audited
    by the sparse exact bigint cost (the cost model's
    ``contraction_cost`` over the tree) and, finite width, its widths
    within the cap after slicing; (b) QAOA-26 FW (max_width 30,
    ``n_projs=2**10``), where 'auto' picks 'batched', audited the same
    way; (c) the sparse walks point: ``ReplicaRunnerFW(engine='walks')``
-   from (a)'s best trees at B=64, P=128, reslice every 2 (the reference
-   slicer), ms per iteration, proposals/s and applied/s over
+   from (a)'s best trees repeated to B=64, P=128, reslice every 2 (the
+   reference slicer), ms per iteration, proposals/s and applied/s over
    SPARSE_WALKS_ITERS iterations, every replica audited; (d) one
    'vmapped' IM sweep, one 'vmapped' FW sweep with a reslice and one
    walks-FW iteration on the card and on the CPU from one state and the
@@ -165,10 +172,11 @@ Phases, each fatal on failure:
    totals within 1e-5; (e) K1 and K3 bitwise against their plain
    versions at each shape the phase launched them;
 23. the walk variants and float64 state on the full network (N=3241,
-   W=64): (a) ``Optimizer(seed=0, engine='walks', n_walks=32)``, 64
-   runs x 32 steps at the IM walks runner's default P=32 (the app's own
-   default is 8 for every walk engine; ``fuse=0``), every result and
-   replica audited as in phase 5; (b) from copies of that runner's state, each
+   W=64): (a) ``Optimizer(seed=0, engine='walks', n_walks=32)``,
+   APP_RUNS runs x 32 steps at the IM walks runner's default P=32 (the
+   app's own default is 8 for every walk engine; ``fuse=0``), every result and
+   replica audited as in phase 5; (b) from copies of that runner's state
+   (repeated to B=64), each
    variant of the walks engine (the default, ``on_block`` 'restart' and
    'dedup', ``accept_rule='chained'``, ``prob_kind`` 'greedy', 'base'
    and 'mh_local', ``claim='pairwise'`` through ``run_walks``), and from
@@ -178,9 +186,9 @@ Phases, each fatal on failure:
    iteration, proposals/s and applied/s, every replica audited; (c)
    under the float64 mode (``bitops.enable_float64``):
    ``Optimizer(max_width=30, seed=0)`` on the full network ('auto':
-   'walks', float64; F64_FULL_RUNS runs x 16 steps, reslice every 2) and
+   'walks', float64; APP_RUNS runs x 16 steps, reslice every 2) and
    ``Optimizer(seed=0)``, ``Optimizer(max_width=30, seed=0)`` at the
-   default fuse ('batched', float64; 64 runs x BATCHED_APP_STEPS
+   default fuse ('batched', float64; APP_RUNS runs x BATCHED_APP_STEPS
    sweeps): the state's dtype float64, every result audited, every
    replica's device log2 total within F64_AUDIT of its exact bigint
    cost, the largest gap printed beside the float32 runs'; (d) at
@@ -195,8 +203,8 @@ Phases, each fatal on failure:
 24. the synchronous 'sweep' engine, the single optimizers and a
    checkpoint on the card (full network, N=3241, W=64): (a)
    ``Optimizer(seed=0, engine='sweep')`` and ``Optimizer(max_width=30,
-   seed=0, engine='sweep')`` (reslice every 10 rounds), SWEEP_APP_RUNS
-   runs x 32 rounds each ('mh_local', K1 must launch), every result and
+   seed=0, engine='sweep')`` (reslice every 10 rounds), APP_RUNS runs
+   x 32 rounds each ('mh_local', K1 must launch), every result and
    every replica's best state audited; (b) each app's runner, its
    replicas repeated to B=64, as the flagship: a warm-up round and
    SWEEP_TIMED timed rounds in
@@ -261,12 +269,36 @@ Phases, each fatal on failure:
    ``Optimizer(device='cuda')`` IM and FW (max_width 3), every result
    audited; (d) K1 and K3 bitwise against their plain versions at each
    shape the phase launched them.  The phase prints its wall seconds and
-   each flow's launch counts.
+   each flow's launch counts;
+27. the reference's batch stacking helpers on the card at full width
+   (phase 4's flagship trees, N=3241, W=64, B=64): (a) ``from_states``
+   of every replica's ``init_state(device='cuda')`` equals
+   ``init_batch`` bitwise in every field, and ``from_states_fw`` of
+   ``init_state_fw`` (max_width 30, the batch's initial slices) equals
+   ``init_batch_fw``; ``replica_state(_fw)`` of each batch equals every
+   replica's state; (b) from one stacked batch and the same draws,
+   STACK_SWEEPS sweeps over a beta ramp of the lockstep
+   ``run_sweeps_batched`` and the 'vmapped' ``run_sweeps_batch`` (FW:
+   ``run_sweeps_fw_batched`` and ``run_sweeps_fw_batch``, a reslice
+   after the first sweep): integer state and min trees bitwise, totals
+   within 1e-5, the moves equal, ``replica_state(_fw)(out, 0)`` equal to
+   the vmapped replica 0, every replica audited (valid, exact bigint
+   total within 1e-3 in log2, FW widths within the cap); (c) both batch
+   builders called without ``device`` put the batch on ``cuda:0``; (d)
+   ``Sampler(optimization_backend='numpy', device='cuda')`` and
+   ``Sampler(device='cuda')``, one seed, sample the same bitstrings of
+   QAOA-4 p=2 at phase 21's settings, every visited probability within
+   1e-10 of the statevector; (e) K1 and K3 bitwise against their plain
+   versions at each shape the phase launched them.  The phase prints its
+   wall seconds and launch counts.
 
-Phases 11-26 run between phases 9 and 10, whose kernel line carries
+Every app phase (3, 5, 7, 11-12, 19, 20, 22-24) runs APP_RUNS runs and
+holds K1 and K3 at the shapes it launched, and at B=64 replicas too;
+phase 2 holds K5-IM and K5-FW at the walker apps' B=APP_RUNS.
+Phases 11-27 run between phases 9 and 10, whose kernel line carries
 every phase's launch counts (K1's and K3's rows add phases 15-17's, 19's,
-21's, 22's, 23's, 24's, 25's and 26's, K5's 25's); phase 13's profiled
-sweeps run after 10.
+21's, 22's, 23's, 24's, 25's, 26's and 27's, K5's 25's); phase 13's
+profiled sweeps run after 10.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or
 without the package beside it, the script exits non-zero and prints no
@@ -332,16 +364,21 @@ MESH_PATHS = ('mesh_one_rank', 'mesh_four_ranks')
 # ``Optimizer`` (K1 and K3: the single optimizers' and the app's sweeps).
 PHASE26_PATHS = ('example_base', 'example_optimization', 'example_sampling',
                  'random_networks')
+# Phase 27: the stacking helpers' lockstep and 'vmapped' sweeps and the
+# sampler with optimization_backend (K1 and K3).
+PHASE27_PATHS = ('stacking',)
 MAIN_PATHS = {'gather_gbn': ('fw_app', 'batched_fw_app', 'batched_im_app',
                              'fw_product', 'fw_throughput', 'fw_tempering',
                              *CIRCUIT_PATHS, *SPARSE_PATHS, *PHASE23_PATHS,
-                             *PHASE24_PATHS, *MESH_PATHS, *PHASE26_PATHS),
+                             *PHASE24_PATHS, *MESH_PATHS, *PHASE26_PATHS,
+                             *PHASE27_PATHS),
               'scatter_rows_inplace': ('fw_app', 'batched_fw_app',
                                        'batched_im_app', 'fw_product',
                                        'fw_throughput', 'fw_tempering',
                                        *CIRCUIT_PATHS, *SPARSE_PATHS,
                                        *PHASE23_PATHS, *PHASE24_K3_PATHS,
-                                       *MESH_PATHS, *PHASE26_PATHS),
+                                       *MESH_PATHS, *PHASE26_PATHS,
+                                       *PHASE27_PATHS),
               'walker_im': ('im_app', *MESH_PATHS),
               'walker_fw': ('fw_walker_app', 'mesh_one_rank'),
               'inv_ids': ('bench',), 'scatter_rows_gbn': ('bench',),
@@ -364,6 +401,15 @@ UPDATE_SLICES = 10
 # FW sweep state has W + 5 planes.
 BATCHED_APP_STEPS = 32
 BATCHED_SWEEPS = 20
+# Runs of every app phase (``optimize(n_runs=...)``: phases 3, 5, 7,
+# 11-12, 19, 20, 22-24; cut from 64, and 32 in phases 23's float64 app on
+# the full network and 24, for the whole run's time limit: most of an
+# app phase is host work per run, its paths, set-up and audits).  The
+# flagships, the operating points and the runners built from an app's
+# trees keep B=64 (an app's runner is repeated to B where a later step
+# times it), and the K1/K3 shapes an app launched at APP_RUNS replicas
+# are held at B replicas as well.
+APP_RUNS = 16
 N_BATCHED, F_BATCHED = 855, 26 + 5
 # P1: the probe's Sycamore-sized state [3328, 128] and its default P=128
 # row ops per round over R=256 rounds.
@@ -492,6 +538,7 @@ def phase_app(torch):
     from tnco_tpu_torch.app.tn import Tensor, TensorNetwork
     from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tnco_tpu_torch.parallel.replicas import resolve_engine
+    from tnco_tpu_torch.testing.kernel_cases import recorded_cases
     from tnco_tpu_torch.testing.networks import sycamore_like_tn
 
     ts, out, dims = sycamore_like_tn(20)
@@ -512,23 +559,26 @@ def phase_app(torch):
         fail(f"'auto' resolved to {engine!r}, expected 'walks'")
 
     opt = Optimizer(max_width=30, seed=0)
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    _, res = opt.optimize(tn, betas=(0, 60), n_steps=16, n_runs=64,
-                          update_slices=2, fuse=0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = launch_counts()
-    log(f'app: 64 runs x 16 steps in {wall:.2f} s (runner set-up + '
+    with recorded_cases() as seen:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        _, res = opt.optimize(tn, betas=(0, 60), n_steps=16,
+                              n_runs=APP_RUNS, update_slices=2, fuse=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+    log(f'app: {APP_RUNS} runs x 16 steps in {wall:.2f} s (runner set-up + '
         f'anneal {res[0].runtime_s:.2f} s; the rest is paths and audits '
         f'on the host); launches {counts}')
     if not all(counts[k] > 0 for k in FW_KERNELS):
         fail(f'a kernel of the path was never launched: {counts}')
+    _check_recorded(torch, seen, 'app', widen=B)
     t0 = time.perf_counter()
     for r in res:
         _audit_result(r, loaded, 30)
     costs = np.asarray([math.log2(int(r.cost)) for r in res])
-    log(f'app: 64 results audited in {time.perf_counter() - t0:.1f} s; '
+    log(f'app: {len(res)} results audited in '
+        f'{time.perf_counter() - t0:.1f} s; '
         f'log2 cost best {costs.min():.4f} median {np.median(costs):.4f}')
     return counts
 
@@ -757,6 +807,8 @@ def _walker_cases(np):
             ('Sycamore m=20', syc, [0, 1, 2, 3] * 16, P_IM, 'mh', K_CHECK),
             ('Sycamore m=20', syc, [0, 1, 2, 3] * 16, P_IM, 'greedy',
              K_CHECK),
+            ('Sycamore m=20', syc, [0, 1, 2, 3] * (APP_RUNS // 4), P_IM,
+             'mh', K_CHECK),
             ('hyper-index chain', hyper_chain_tn(7001), [0, 1], P_IM, 'mh',
              K_BIG),
             ('hyper-index chain, dims 3', hyper_chain_tn(7001, 3), [0, 1],
@@ -859,6 +911,7 @@ def phase_app_im(torch):
     from tnco_tpu_torch.app.infinite_memory import sa as im_sa
     from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
     from tnco_tpu_torch.parallel.replicas import resolve_engine
+    from tnco_tpu_torch.testing.kernel_cases import recorded_cases
 
     _, _, _, tn = _sycamore()
     loaded = load_tn(tn, fuse=0, seed=0)
@@ -874,23 +927,26 @@ def phase_app_im(torch):
     runners, restore = _record_runners(im_sa, 'ReplicaRunner')
     try:
         opt = Optimizer(seed=0)
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        _, res = opt.optimize(tn, betas=(0, 60), n_steps=32, n_runs=64,
-                              fuse=0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = launch_counts()
+        with recorded_cases() as seen:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            _, res = opt.optimize(tn, betas=(0, 60), n_steps=32,
+                                  n_runs=APP_RUNS, fuse=0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
     finally:
         restore()
     (runner,) = runners
-    log(f'app IM: 64 runs x 32 steps in {wall:.2f} s (runner set-up + '
+    log(f'app IM: {APP_RUNS} runs x 32 steps in {wall:.2f} s (runner '
+        f'set-up + '
         f'anneal {res[0].runtime_s:.2f} s); engine {runner.engine!r}, '
         f'P={runner.n_walks}; launches {counts}')
     if runner.engine != 'walker':
         fail(f'app IM runner engine {runner.engine!r}')
     if not all(counts[k] > 0 for k in IM_KERNELS):
         fail(f'a kernel of the IM path was never launched: {counts}')
+    _check_recorded(torch, seen, 'app IM', widen=B)
     _audit_im_results(res, loaded, runner, 'app IM')
     return counts
 
@@ -1175,36 +1231,42 @@ def phase_app_fw_walker(torch):
     from tnco_tpu_torch.app import Optimizer, load_tn
     from tnco_tpu_torch.app.finite_width import sa as fw_sa
     from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tnco_tpu_torch.testing.kernel_cases import recorded_cases
 
     _, _, _, tn = _sycamore()
     loaded = load_tn(tn, fuse=0, seed=0)
     runners, restore = _record_runners(fw_sa, 'ReplicaRunnerFW')
     try:
         opt = Optimizer(max_width=30, engine='walker', seed=0)
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        _, res = opt.optimize(tn, betas=(0, 60), n_steps=32, n_runs=64,
-                              update_slices=UPDATE_SLICES, fuse=0)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = launch_counts()
+        with recorded_cases() as seen:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            _, res = opt.optimize(tn, betas=(0, 60), n_steps=32,
+                                  n_runs=APP_RUNS,
+                                  update_slices=UPDATE_SLICES, fuse=0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
     finally:
         restore()
     (runner,) = runners
-    log(f'app FW walker: 64 runs x 32 steps in {wall:.2f} s (runner set-up '
+    log(f'app FW walker: {APP_RUNS} runs x 32 steps in {wall:.2f} s (runner '
+        f'set-up '
         f'+ anneal {res[0].runtime_s:.2f} s); engine {runner.engine!r}, '
         f'P={runner.n_walks}; launches {counts}')
     if runner.engine != 'walker':
         fail(f'app FW walker runner engine {runner.engine!r}')
     if not all(counts[k] > 0 for k in FW_WALKER_KERNELS):
         fail(f'a kernel of the FW walker path was never launched: {counts}')
+    _check_recorded(torch, seen, 'app FW walker', widen=B)
     t0 = time.perf_counter()
     for r in res:
         _audit_result(r, loaded, 30)
     worst = _audit_fw_runner(runner, 30, 'app FW walker')
     costs = np.asarray([math.log2(int(r.cost)) for r in res])
-    log(f'app FW walker: 64 results audited in {time.perf_counter() - t0:.1f}'
-        f' s; log2 cost best {costs.min():.4f} median {np.median(costs):.4f};'
+    log(f'app FW walker: {len(res)} results audited in '
+        f'{time.perf_counter() - t0:.1f} s; log2 cost best '
+        f'{costs.min():.4f} median {np.median(costs):.4f};'
         f' |device - exact| <= {worst:.2e}')
     return counts
 
@@ -1317,11 +1379,13 @@ def _sycamore_fused(fw):
 
 def phase_app_batched(torch, fw):
     """The app at its default fuse: ``Optimizer(max_width=30, seed=0)``
-    (``fw``) or ``Optimizer(seed=0)``, 64 runs, no ``fuse=`` argument."""
+    (``fw``) or ``Optimizer(seed=0)``, APP_RUNS runs, no ``fuse=``
+    argument."""
     from tnco_tpu_torch.app import Optimizer
     from tnco_tpu_torch.app.finite_width import sa as fw_sa
     from tnco_tpu_torch.app.infinite_memory import sa as im_sa
     from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tnco_tpu_torch.testing.kernel_cases import recorded_cases
 
     what = f"app batched {'FW' if fw else 'IM'}"
     tn, loaded = _sycamore_fused(fw)
@@ -1329,23 +1393,27 @@ def phase_app_batched(torch, fw):
                         _record_runners(im_sa, 'ReplicaRunner'))
     try:
         opt = Optimizer(max_width=30, seed=0) if fw else Optimizer(seed=0)
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        tn_out, res = opt.optimize(tn, betas=(0, 60),
-                                   n_steps=BATCHED_APP_STEPS, n_runs=B)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = launch_counts()
+        with recorded_cases() as seen:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            tn_out, res = opt.optimize(tn, betas=(0, 60),
+                                       n_steps=BATCHED_APP_STEPS,
+                                       n_runs=APP_RUNS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
     finally:
         restore()
     (runner,) = runners
-    log(f'{what}: {B} runs x {BATCHED_APP_STEPS} sweeps in {wall:.2f} s '
-        f'(runner set-up + anneal {res[0].runtime_s:.2f} s); engine '
+    log(f'{what}: {APP_RUNS} runs x {BATCHED_APP_STEPS} sweeps in '
+        f'{wall:.2f} s (runner set-up + anneal {res[0].runtime_s:.2f} s); '
+        'engine '
         f'{runner.engine!r}; launches {counts}')
     if runner.engine != 'batched':
         fail(f'{what}: runner engine {runner.engine!r}')
     if not all(counts[k] > 0 for k in BATCHED_KERNELS):
         fail(f'{what}: a kernel of the path was never launched: {counts}')
+    _check_recorded(torch, seen, what, widen=B)
     if tn_out.n_tensors != loaded.n_tensors:
         fail(f'{what}: the app loaded {tn_out.n_tensors} tensors, expected '
              f'{loaded.n_tensors}')
@@ -1946,15 +2014,14 @@ def phase_exchange_kick_card_vs_cpu(torch, runner):
 # list and as QASM text (cz), QAOA-26 p=4 at fuse=3 (benchmarks/run.py's
 # set-up); the sampler's checks on QAOA in its CX form.
 CIRCUIT_M, QAOA_N, QAOA_P = 20, 26, 4
-# Optimizer options of the sampler's prefix networks: the CLI's
-# `sample` defaults for the timed run but 16 sweeps (cut from its 50 for
-# the whole script's time); 8 sweeps for the checks, whose amplitudes do
-# not depend on the path's quality.
-SAMPLER_OPT = dict(betas=(0, 50), n_steps=16, n_runs=1)
-CHECK_OPT = dict(SAMPLER_OPT, n_steps=8)
+# Optimizer options of the sampler's prefix networks, for the checks
+# (whose amplitudes do not depend on the path's quality) and the timed
+# run: the CLI's `sample` defaults but 8 sweeps (cut from its 50 for the
+# whole script's time).
+SAMPLER_OPT = dict(betas=(0, 50), n_steps=8, n_runs=1)
 # Phase 21's timed run on QAOA-26: depth cut from QAOA_P to fit the
-# phase's budget (the only cut), and the samples it times one by one.
-SAMPLER_P, SAMPLER_SAMPLES = 1, 20
+# phase's budget, and the samples it times one by one.
+SAMPLER_P, SAMPLER_SAMPLES = 1, 10
 
 
 def _hyper_count(tn):
@@ -1963,17 +2030,30 @@ def _hyper_count(tn):
     return sum(c > 1 for c in get_hyper_count(tn.ts_inds).values())
 
 
-def _check_recorded(torch, seen, what):
+def _check_recorded(torch, seen, what, widen=None):
     """K1 and K3 against their plain versions, bitwise, by every route,
     at each distinct shape ``seen`` recorded on the main path
-    (``kernel_cases.recorded_cases``), on fresh inputs."""
+    (``kernel_cases.recorded_cases``), on fresh inputs; with ``widen``,
+    each shape of fewer replicas also at ``widen`` replicas (the shapes
+    of an app's APP_RUNS replicas at the flagships' B)."""
     from tnco_tpu_torch.testing import kernel_cases as kc
 
     if not seen:
         fail(f'{what}: no K1 or K3 launch was recorded')
     dev = torch.device('cuda')
     t0 = time.perf_counter()
-    for case, dtype in sorted(seen, key=repr):
+    # A widened shape that was launched too, or that two smaller B widen
+    # to, is checked once (shapes compared without their names).
+    shapes = {(c._replace(name=''), dt) for c, dt in seen}
+    wide = {}
+    for c, dt in seen:
+        if widen is not None and c.b < widen:
+            key = (c._replace(b=widen, name=''), dt)
+            if key not in shapes:
+                wide.setdefault(key, (c._replace(
+                    b=widen, name=f'{c.name} at B={widen}'), dt))
+    wide = set(wide.values())
+    for case, dtype in sorted(set(seen) | wide, key=repr):
         check = kc.check_gather if isinstance(case, kc.GatherCase) else \
             kc.check_scatter
         bad = check(case, dtype, dev)
@@ -1983,9 +2063,11 @@ def _check_recorded(torch, seen, what):
                  f'plain by {bad}')
     n_k1 = sum(isinstance(c, kc.GatherCase) for c, _ in seen)
     ns = sorted({c.n for c, _ in seen})
+    widened = (f'; {len(wide)} of them widened to B={widen} as well'
+               if wide else '')
     log(f'{what}: K1 and K3 == plain bitwise at the {n_k1} K1 and '
         f'{len(seen) - n_k1} K3 shapes the path launched (N from {ns[0]} '
-        f'to {ns[-1]}; {time.perf_counter() - t0:.2f} s)')
+        f'to {ns[-1]}){widened}; {time.perf_counter() - t0:.2f} s')
 
 
 def phase_circuits(torch):
@@ -2026,22 +2108,22 @@ def phase_circuits(torch):
                 t0 = time.perf_counter()
                 tn_out, res = opt.optimize(circuit, betas=(0, 60),
                                            n_steps=BATCHED_APP_STEPS,
-                                           n_runs=B, **load_kw)
+                                           n_runs=APP_RUNS, **load_kw)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 counts[key] = launch_counts()
         finally:
             restore()
         (runner,) = runners
-        log(f'{what}: optimize {B} runs x {BATCHED_APP_STEPS} sweeps in '
-            f'{wall:.2f} s incl. load (runner set-up + anneal '
+        log(f'{what}: optimize {APP_RUNS} runs x {BATCHED_APP_STEPS} sweeps '
+            f'in {wall:.2f} s incl. load (runner set-up + anneal '
             f'{res[0].runtime_s:.2f} s); engine {runner.engine!r}; '
             f'launches {counts[key]}')
         if runner.engine != 'batched':
             fail(f"{what}: 'auto' picked {runner.engine!r}, not 'batched'")
         if not all(counts[key][k] > 0 for k in BATCHED_KERNELS):
             fail(f'{what}: a kernel of the path was never launched')
-        _check_recorded(torch, seen, what)
+        _check_recorded(torch, seen, what, widen=B)
         if tn_out.ts_inds != loaded.ts_inds:
             fail(f'{what}: optimize loaded another network')
         if fw:
@@ -2082,29 +2164,32 @@ def _run_cli(*args):
 
 def phase_cli(torch):
     """Phase 20: the CLI as a subprocess: ``optimize`` on the Sycamore
-    QASM file (FW, max_width 30) with its best result audited, and
-    ``sample`` on a 3-qubit GHZ circuit."""
+    QASM file (FW, max_width 30) with its best result audited, then the
+    same command in this process to hold K1 and K3 at the shapes it
+    launches, and ``sample`` on a 3-qubit GHZ circuit."""
+    import contextlib
+    import io
     import os
     from types import SimpleNamespace
 
-    from tnco_tpu_torch.app import load_tn
+    from tnco_tpu_torch.app import cli, load_tn
+    from tnco_tpu_torch.testing.kernel_cases import recorded_cases
     from tnco_tpu_torch.testing.networks import sycamore_qasm
 
-    del torch
     root = os.path.dirname(os.path.abspath(__file__))
     out_dir = os.path.join(root, 'build', 'smoke')
     os.makedirs(out_dir, exist_ok=True)
     qasm = os.path.join(out_dir, f'sycamore_m{CIRCUIT_M}.qasm')
     with open(qasm, 'w') as f:
         f.write(sycamore_qasm(CIRCUIT_M, 0))
-    out, wall = _run_cli('optimize', qasm, '--max-width', '30', '--betas',
-                         '(0, 60)', '--n-steps', '32', '--n-runs', str(B),
-                         '--seed', '0')
+    args = ('optimize', qasm, '--max-width', '30', '--betas', '(0, 60)',
+            '--n-steps', '32', '--n-runs', str(APP_RUNS), '--seed', '0')
+    out, wall = _run_cli(*args)
     tn = load_tn(qasm, seed=0)
     if out['tn'] != json.loads(tn.to_json()):
         fail('cli optimize: its network differs from load_tn of the file')
     best = out['res'][0]
-    if len(out['res']) != B or \
+    if len(out['res']) != APP_RUNS or \
             [Decimal(r['cost']) for r in out['res']] != sorted(
                 Decimal(r['cost']) for r in out['res']):
         fail('cli optimize: results missing or not sorted by cost')
@@ -2113,11 +2198,19 @@ def phase_cli(torch):
         slices=frozenset(_tuples(x) for x in best['slices']),
         cost=Decimal(best['cost']),
         disconnected_costs=[int(Decimal(best['cost']))]), tn, 30.0)
-    log(f'cli optimize (Sycamore m={CIRCUIT_M} QASM, max_width 30, {B} runs '
+    log(f'cli optimize (Sycamore m={CIRCUIT_M} QASM, max_width 30, '
+        f'{APP_RUNS} runs '
         f'x 32 sweeps): exit 0 in {wall:.2f} s wall incl. interpreter start '
         f'and kernel load; best log2 cost '
         f'{math.log2(int(Decimal(best["cost"]))):.4f}, '
         f'{len(best["slices"])} slices, audited')
+    with recorded_cases() as seen, \
+            contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(list(args))
+        torch.cuda.synchronize()
+    if rc != 0:
+        fail(f'cli optimize in process exited {rc}')
+    _check_recorded(torch, seen, 'cli optimize', widen=B)
     ghz = os.path.join(out_dir, 'ghz3.qasm')
     with open(ghz, 'w') as f:
         f.write('OPENQASM 2.0;\ninclude "qelib1.inc";\nqreg q[3];\n'
@@ -2164,10 +2257,10 @@ def _sampler_runs(torch):
     from tnco_tpu_torch.testing import sampling as ts
     from tnco_tpu_torch.testing.networks import qaoa_sampling_circuit
 
-    def state_of(sampler, gates, opt=CHECK_OPT):
+    def state_of(sampler, gates):
         t0 = time.perf_counter()
         state = sampler.sample(gates, return_intermediate_state_only=True,
-                               **opt)
+                               **SAMPLER_OPT)
         torch.cuda.synchronize()
         return state, time.perf_counter() - t0
 
@@ -2237,7 +2330,7 @@ def _sampler_runs(torch):
     gates = qaoa_sampling_circuit(QAOA_N, SAMPLER_P, 0)
     sampler = Sampler(seed=2)
     reset_launch_counts()
-    state, secs = state_of(sampler, gates, SAMPLER_OPT)
+    state, secs = state_of(sampler, gates)
     counts = launch_counts()
     # One sample a call, each timed: the spread of the per-sample time.
     secs_each, n_hits = [], 0
@@ -2540,7 +2633,7 @@ def phase_sparse(torch):
                 reset_launch_counts()
                 t0 = time.perf_counter()
                 tn_out, res = opt.optimize(tn, betas=(0, 60), n_steps=steps,
-                                           n_runs=B, n_projs=n_projs,
+                                           n_runs=APP_RUNS, n_projs=n_projs,
                                            fuse=False,
                                            decompose_hyper_inds=False)
                 torch.cuda.synchronize()
@@ -2551,7 +2644,8 @@ def phase_sparse(torch):
             restore()
         (runner,) = recorded
         runners[key] = runner
-        log(f'{what}: optimize {B} runs x {steps} sweeps in {wall:.2f} s '
+        log(f'{what}: optimize {APP_RUNS} runs x {steps} sweeps in '
+        f'{wall:.2f} s '
             f'(runner set-up {runner.setup_s:.2f} s, anneal '
             f'{runner.run_s:.2f} s: {1e3 * runner.run_s / steps:.1f} ms a '
             f'sweep); engine {runner.engine!r}; launches {counts[key]}')
@@ -2563,14 +2657,15 @@ def phase_sparse(torch):
                              sparse_inds=tn.sparse_inds, n_projs=n_projs)
         _audit_sparse(res, tn_out, cm, runner, what)
 
-    # The sparse walks point: the FW runner's best trees at B=64, P=128,
-    # reslice every SPARSE_US iterations ('auto' takes the reference
-    # slicer for sparse indices).
+    # The sparse walks point: the FW runner's best trees, each repeated to
+    # B=64, P=128, reslice every SPARSE_US iterations ('auto' takes the
+    # reference slicer for sparse indices).
     fw_app = runners['sparse_fw']
     cm = SimpleCostModel(max_width=30.0, sparse_inds=syc.sparse_inds,
                          n_projs=SPARSE_N_PROJS)
     t0 = time.perf_counter()
-    walks = ReplicaRunnerFW([fw_app.min_ctree(r) for r in range(B)],
+    best = [fw_app.min_ctree(r) for r in range(APP_RUNS)]
+    walks = ReplicaRunnerFW([best[r % APP_RUNS] for r in range(B)],
                             list(range(B)), cmodel=cm, engine='walks',
                             n_walks=P)
     set_up = time.perf_counter() - t0
@@ -2602,7 +2697,7 @@ def phase_sparse(torch):
         f'audited (|device - exact| <= {worst:.2e}); launches '
         f'{counts["sparse_walks"]}')
     _sparse_card_vs_cpu(torch, runners['sparse_im'], fw_app, walks)
-    _check_recorded(torch, seen_all, 'sparse (phase 22)')
+    _check_recorded(torch, seen_all, 'sparse (phase 22)', widen=B)
     return counts
 
 
@@ -2610,10 +2705,6 @@ def phase_sparse(torch):
 PRODUCT_US = 2         # the product point's reslice cadence (phase 15)
 VARIANT_WARM, VARIANT_ITERS = 1, 4
 VARIANT_CHECK_B = 16
-# The float64 FW app on the full network runs 32 runs, cut from 64 to
-# keep the phase under 90 s (92.0 s with 64 on an H100 80GB HBM3 card's
-# machine, most of it host set-up).
-F64_FULL_RUNS = 32
 F64_AUDIT = 1e-6       # float64 device totals against the exact bigint
 F64_CARD = 1e-12       # float64 totals, card against CPU
 # Each variant of the walks engines: the runners' options, and the claim
@@ -2911,8 +3002,8 @@ def phase_walk_variants_float64(torch, card, product=None):
     loaded = load_tn(tn, fuse=0, seed=0)
     counts, seen_all, t_phase = {}, set(), time.perf_counter()
 
-    # (a) The IM walks engine through the app: 64 runs x 32 steps at the
-    # runner's IM default P=32 (the app passes its own n_walks, 8 by
+    # (a) The IM walks engine through the app: APP_RUNS runs x 32 steps at
+    # the runner's IM default P=32 (the app passes its own n_walks, 8 by
     # default, to every walk engine, as the JAX app does).
     recorded, restore = _record_runners(im_sa, 'ReplicaRunner')
     try:
@@ -2920,7 +3011,7 @@ def phase_walk_variants_float64(torch, card, product=None):
             reset_launch_counts()
             t0 = time.perf_counter()
             _, res = Optimizer(seed=0, engine='walks', n_walks=32).optimize(
-                tn, betas=(0, 60), n_steps=32, n_runs=B, fuse=0)
+                tn, betas=(0, 60), n_steps=32, n_runs=APP_RUNS, fuse=0)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts['im_walks_app'] = launch_counts()
@@ -2928,7 +3019,7 @@ def phase_walk_variants_float64(torch, card, product=None):
     finally:
         restore()
     (im,) = recorded
-    log(f'IM walks app: {B} runs x 32 steps in {wall:.2f} s (set-up '
+    log(f'IM walks app: {APP_RUNS} runs x 32 steps in {wall:.2f} s (set-up '
         f'{im.setup_s:.2f} s, anneal {im.run_s:.2f} s: '
         f'{1e3 * im.run_s / 32:.2f} ms an iteration); engine '
         f'{im.engine!r}, P={im.n_walks}; launches {counts["im_walks_app"]}')
@@ -2939,8 +3030,9 @@ def phase_walk_variants_float64(torch, card, product=None):
     _audit_im_results(res, loaded, im, 'IM walks app')
     f32_gaps = {'IM walks app': _audit_im_runner(im, 'IM walks app')[1]}
 
-    # (b) Every variant from copies of the IM runner's and the FW product
-    # runner's states.
+    # (b) Every variant from copies of the IM runner's state, repeated to
+    # B=64, and of the FW product runner's.
+    _widen(torch, im, B)
     with recorded_cases() as seen:
         reset_launch_counts()
         _time_variants(torch, card, im, IM_VARIANTS, False, 'IM walks')
@@ -2956,7 +3048,7 @@ def phase_walk_variants_float64(torch, card, product=None):
     # (c) Float64 under the float64 mode.
     res, f64_walks, counts['f64_fw_walks'], seen = _f64_optimize(
         torch, tn, 'float64 FW full network', True, n_steps=16,
-        n_runs=F64_FULL_RUNS, update_slices=PRODUCT_US, fuse=0)
+        n_runs=APP_RUNS, update_slices=PRODUCT_US, fuse=0)
     seen_all |= seen
     if f64_walks.engine != 'walks':
         fail(f"float64 FW full network: 'auto' picked {f64_walks.engine!r}")
@@ -2967,14 +3059,15 @@ def phase_walk_variants_float64(torch, card, product=None):
     tn_f, loaded_f = _sycamore_fused(fw=False)
     res, f64_im, counts['f64_batched_im'], seen = _f64_optimize(
         torch, tn_f, 'float64 IM default fuse', False,
-        n_steps=BATCHED_APP_STEPS, n_runs=B)
+        n_steps=BATCHED_APP_STEPS, n_runs=APP_RUNS)
     seen_all |= seen
     _audit_im_results(res, loaded_f, f64_im, 'float64 IM default fuse')
     gaps['batched IM, default fuse'] = _audit_im_runner(
         f64_im, 'float64 IM default fuse')[1]
     res, f64_fw, counts['f64_batched_fw'], seen = _f64_optimize(
         torch, tn_f, 'float64 FW default fuse', True,
-        n_steps=BATCHED_APP_STEPS, n_runs=B, update_slices=UPDATE_SLICES)
+        n_steps=BATCHED_APP_STEPS, n_runs=APP_RUNS,
+        update_slices=UPDATE_SLICES)
     seen_all |= seen
     for r in res:
         _audit_result(r, loaded_f, 30)
@@ -2985,8 +3078,9 @@ def phase_walk_variants_float64(torch, card, product=None):
             fail(f"float64 {what}: 'auto' picked {r.engine!r}")
     if max(gaps.values()) > F64_AUDIT:
         fail(f'float64 audits: {gaps}')
+    _widen(torch, f64_im, B)
     _time_dtypes(torch, card, f64_im, False, 4,
-                 "'batched' IM sweep (default fuse, B=64)")
+                 f"'batched' IM sweep (default fuse, B={B})")
     _time_dtypes(torch, card, product, True, VARIANT_ITERS,
                  f'walks-FW iteration (P={product.n_walks}, reslice every '
                  f'{PRODUCT_US})')
@@ -2998,17 +3092,14 @@ def phase_walk_variants_float64(torch, card, product=None):
 
     # (d) The card against the CPU; (e) K1 and K3 at every shape.
     _phase23_card_vs_cpu(torch, im, product, f64_walks, f64_im, f64_fw)
-    _check_recorded(torch, seen_all, 'walk variants and float64 (phase 23)')
+    _check_recorded(torch, seen_all, 'walk variants and float64 (phase 23)',
+                    widen=B)
     log(f'phase 23: {time.perf_counter() - t_phase:.1f} s')
     return counts
 
 
 # Phase 24: the 'sweep' engine (IM and FW) through the app and as the
 # flagships, the single optimizers and a checkpoint, on the card.
-# The app runs are cut from 64 to 32: with 64, phase 24 took 101.4 s
-# (apps 82.9 s, most of it host set-up) on an H100 80GB HBM3 card's
-# machine, against a budget of 60 s.
-SWEEP_APP_RUNS = 32
 SWEEP_TIMED = 16       # timed rounds of each flagship, after 1 warm-up
 SWEEP_CHUNK = 64       # rounds a chunk (benchmarks/quality.py:345)
 SWEEP_CHECK_B = 16     # replicas of the card-vs-CPU rounds
@@ -3018,7 +3109,7 @@ CKPT_K = 4             # sweeps before and after the checkpoint
 
 def _sweep_app(torch, tn, loaded, fw):
     """Phase 24a: ``Optimizer(seed=0, engine='sweep')`` (``max_width=30``,
-    reslice every UPDATE_SLICES rounds, if ``fw``), SWEEP_APP_RUNS runs x
+    reslice every UPDATE_SLICES rounds, if ``fw``), APP_RUNS runs x
     32 rounds on the full network, every result and every replica's best
     state audited: ``(runner, launch counts, seen K1 shapes)``."""
     from tnco_tpu_torch.app import Optimizer
@@ -3038,14 +3129,14 @@ def _sweep_app(torch, tn, loaded, fw):
             reset_launch_counts()
             t0 = time.perf_counter()
             _, res = opt.optimize(tn, betas=(0, 60), n_steps=32,
-                                  n_runs=SWEEP_APP_RUNS, fuse=0, **kw)
+                                  n_runs=APP_RUNS, fuse=0, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = launch_counts()
     finally:
         restore()
     (runner,) = recorded
-    log(f'{what}: {SWEEP_APP_RUNS} runs x 32 rounds in {wall:.2f} s (set-up '
+    log(f'{what}: {APP_RUNS} runs x 32 rounds in {wall:.2f} s (set-up '
         f'{runner.setup_s:.2f} s, anneal {runner.run_s:.2f} s: '
         f'{1e3 * runner.run_s / 32:.2f} ms a round); engine '
         f'{runner.engine!r}, prob_kind {runner.cfg.prob_kind!r}; launches '
@@ -3348,7 +3439,7 @@ def phase_sweep(torch, card):
         if not all(counts[name][k] > 0 for k in BATCHED_KERNELS):
             fail(f'{name}: a kernel of the path was never launched')
     _check_recorded(torch, seen_all, "'sweep', optimizers and checkpoint "
-                    '(phase 24)')
+                    '(phase 24)', widen=B)
     planes = sorted({c.g for c, dt in seen_all})
     log(f'phase 24 K1/K3 plane counts seen: {planes}')
     log(f'phase 24: {time.perf_counter() - t_phase:.1f} s (apps '
@@ -3836,6 +3927,276 @@ def phase_examples_host_api(torch, card, fw_trees, sweep_runners):
                     '(phase 26)')
     log(f'phase 26: {time.perf_counter() - t_phase:.1f} s ({walls})')
     return counts
+
+
+# Phase 27: the reference's batch stacking helpers on the card at full
+# width, on phase 4's flagship trees (N=3241, W=64, B=64): the batch
+# builders against the stacked states, STACK_SWEEPS lockstep and
+# 'vmapped' sweeps from one stacked batch, and the sampler's
+# optimization_backend on QAOA-4 p=2 at phase 21's settings,
+# STACK_SAMPLES samples a sampler.
+STACK_SWEEPS, STACK_SAMPLES = 2, 100
+STACK_CAP = 30.0       # the FW states' max_width
+
+
+def _same_fields(torch, got, want, what, atol=None):
+    """Every field of two states or batches equal: shape, dtype, device
+    and every word; with ``atol``, the totals within it instead.  Returns
+    the largest total difference."""
+    worst = 0.0
+    for k in type(want).field_names():
+        a, b = getattr(got, k), getattr(want, k)
+        if (a.shape, a.dtype, a.device) != (b.shape, b.dtype, b.device):
+            fail(f'{what}: {k} is {tuple(a.shape)} {a.dtype} on {a.device},'
+                 f' expected {tuple(b.shape)} {b.dtype} on {b.device}')
+        if atol is not None and k in ('log2_total', 'min_log2_total'):
+            worst = max(worst, float((a - b).abs().max()))
+        elif not torch.equal(a, b):
+            fail(f'{what}: {k} differs in {int((a != b).sum())} entries')
+    if atol is not None and worst > atol:
+        fail(f'{what}: totals differ by {worst}')
+    return worst
+
+
+def _audit_batch(torch, batch, template, what, max_width=None):
+    """Every replica's best tree in a lane-major batch is valid, fits
+    ``max_width`` after its min slices (FW), and its exact bigint total
+    (sliced) is within 1e-3 in log2 of the batch's min total; returns the
+    largest difference."""
+    import numpy as np
+
+    def host(x):
+        return x.cpu().numpy()
+
+    nodes = np.stack([host(batch.min_c0), host(batch.min_c1),
+                      host(batch.min_par)], axis=1)            # [N, 3, B]
+    inds = host(batch.min_inds).view(np.uint32)                # [N, W, B]
+    slices = (host(batch.min_slices).view(np.uint32) if max_width else
+              None)
+    mins = host(batch.min_log2_total)
+    worst = 0.0
+    for r in range(mins.shape[0]):
+        tree = template.replace_arrays(np.ascontiguousarray(nodes[..., r]),
+                                       np.ascontiguousarray(inds[..., r]))
+        ok, msg = tree.is_valid(return_message=True)
+        if not ok:
+            fail(f'{what}: replica {r}: invalid min tree: {msg}')
+        width, exact = _exact_sliced(tree, None if slices is None else
+                                     slices[:, r])
+        if max_width is not None and width > max_width + 1e-9:
+            fail(f'{what}: replica {r}: width {width} over the cap after '
+                 'slicing')
+        worst = max(worst, abs(exact - float(mins[r])))
+    if worst > 1e-3:
+        fail(f'{what}: min totals differ from the exact recompute by '
+             f'{worst}')
+    return worst
+
+
+def _stacking_builders(torch, trees, device='cuda'):
+    """Phase 27a and c: ``init_batch`` and ``init_batch_fw`` called
+    without ``device`` (the card, ``cuda:0``) equal ``from_states(_fw)``
+    of every replica's ``init_state(_fw)`` on ``device`` (FW: with the
+    batch's own initial slices), field by field, and ``replica_state(_fw)``
+    of the batch equals each replica's state.  Returns the IM and FW
+    states and the padded log2 dims (host)."""
+    from tnco_tpu_torch.kernels import sa_batched as sb
+    from tnco_tpu_torch.kernels import sa_finite as saf
+    from tnco_tpu_torch.kernels import sa_finite_batched as sfb
+    from tnco_tpu_torch.kernels import sa_infinite as sa
+    from tnco_tpu_torch.ops import bitops
+
+    card0 = torch.empty(0, device=device).device
+    t = trees[0]
+    log2d = bitops.pad_log2_dims(t.log2_dims_array, t.inds_array.shape[1])
+    seeds = list(range(len(trees)))
+    out = []
+    for what, build, make, join, pick in (
+            ('IM', lambda: sb.init_batch(trees, seeds, log2d.numpy()),
+             lambda tr, s, i, b: sa.init_state(tr, s, log2d, device=device),
+             sb.from_states, sb.replica_state),
+            ('FW', lambda: sfb.init_batch_fw(trees, seeds, STACK_CAP,
+                                             log2d.numpy()),
+             lambda tr, s, i, b: saf.init_state_fw(
+                 tr, s, STACK_CAP, log2d, slices=b.slices[:, i].clone(),
+                 device=device),
+             sfb.from_states_fw, sfb.replica_state_fw)):
+        t0 = time.perf_counter()
+        batch = build()
+        t1 = time.perf_counter()
+        devs = {getattr(batch, k).device for k in type(batch).field_names()}
+        if devs != {card0}:
+            fail(f'phase 27 {what}: the batch built without device= lies '
+                 f'on {devs}, not on {card0}')
+        states = [make(tr, s, i, batch)
+                  for i, (tr, s) in enumerate(zip(trees, seeds))]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        _same_fields(torch, join(states), batch, f'phase 27 {what} '
+                     'from_states against the batch builder')
+        for i, st in enumerate(states):
+            _same_fields(torch, pick(batch, i), st,
+                         f'phase 27 {what} replica_state({i})')
+        torch.cuda.synchronize()
+        log(f'phase 27 {what}: the batch builder without device= put '
+            f'B={len(trees)} on {card0} in {t1 - t0:.2f} s; '
+            f'{len(states)} init_state on {card0} in {t2 - t1:.2f} s; '
+            f'from_states equal to it and replica_state equal to every '
+            f'state, bitwise in every field ({time.perf_counter() - t2:.2f}'
+            f' s; N={len(t)}, W={t.inds_array.shape[1]})')
+        out.append(states)
+    return out[0], out[1], log2d
+
+
+def _stacking_sweeps(torch, card, trees, states, states_fw, log2d,
+                     device='cuda'):
+    """Phase 27b: from one stacked batch and the same draws, the lockstep
+    ``run_sweeps_batched`` (``run_sweeps_fw_batched``, a reslice after
+    the first sweep) and the 'vmapped' ``run_sweeps_batch``
+    (``run_sweeps_fw_batch``): integer state and min trees bitwise,
+    totals within 1e-5, the moves equal, ``replica_state(_fw)(out, 0)``
+    equal to the vmapped state's replica 0; every replica audited.
+    Returns the audits' largest differences."""
+    import numpy as np
+
+    from tnco_tpu_torch.kernels import sa_batched as sb
+    from tnco_tpu_torch.kernels import sa_finite as saf
+    from tnco_tpu_torch.kernels import sa_finite_batched as sfb
+    from tnco_tpu_torch.kernels import sa_infinite as sa
+    from tnco_tpu_torch.kernels.sa_fullsweep import uniform_log2_dim
+
+    dev = torch.device(device)
+    t = trees[0]
+    w, b, k = t.inds_array.shape[1], len(states), STACK_SWEEPS
+    ul = uniform_log2_dim(t.log2_dims_array)
+    log2d = log2d.to(dev)
+    log2d_w32 = log2d.reshape(w, 32)
+    skip = torch.zeros(w, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(27)
+
+    def stacked(draws):
+        return {key: torch.stack([d[key] for d in draws])
+                for key in draws[0]}
+
+    dr = stacked([sb.draw_sweep(gen, t.n_leaves, b) for _ in range(k)])
+    dr_fw = stacked([sfb.draw_sweep_fw(gen, t.n_leaves, b, 32 * w, True,
+                                       False) for _ in range(k)])
+    betas = np.linspace(10.0, 60.0, k).tolist()
+    mask = [i == 0 for i in range(k)]
+    cfg = sa.SweepConfig(n_leaves=t.n_leaves, n_lanes=w)
+    cfg_fw = saf.SweepConfigFW(n_leaves=t.n_leaves, n_lanes=w)
+    runs = (
+        ('IM', lambda: sb.run_sweeps_batched(
+            sb.from_states(states), betas, log2d_w32, cfg, uniform_log2=ul,
+            draws=dr),
+         lambda: sa.run_sweeps_batch(
+             sa.stack(states), betas, log2d, cfg, uniform_log2=ul,
+             draws=dr), sa.to_batch, sb.replica_state, None),
+        ('FW', lambda: sfb.run_sweeps_fw_batched(
+            sfb.from_states_fw(states_fw), betas, mask, STACK_CAP,
+            log2d_w32, skip, cfg_fw, uniform_log2=ul, draws=dr_fw),
+         lambda: saf.run_sweeps_fw_batch(
+             sa.stack(states_fw), betas, mask, STACK_CAP, log2d, skip,
+             cfg_fw, uniform_log2=ul, draws=dr_fw), saf.to_batch_fw,
+         sfb.replica_state_fw, STACK_CAP))
+    gaps = {}
+    for what, lockstep, vmapped, to_batch, pick, cap in runs:
+        t0 = time.perf_counter()
+        lock, lm = lockstep()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        vm, vmm = vmapped()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        name = f'phase 27 {what} lockstep against vmapped'
+        worst = _same_fields(torch, to_batch(vm), lock, name, atol=1e-5)
+        moves, vmoves = int(lm['moves'].sum()), int(vmm['moves'].sum())
+        if moves != vmoves or not moves:
+            fail(f'{name}: moves {moves} and {vmoves}')
+        _same_fields(torch, pick(lock, 0), sa.unstack(vm, 0),
+                     f'phase 27 {what} replica_state(out, 0)', atol=1e-5)
+        gaps[what] = _audit_batch(torch, lock, t, f'phase 27 {what}', cap)
+        log(f'phase 27 {what}: {k} sweeps at B={b} (betas {betas}'
+            f"{', a reslice after the first' if cap else ''}): lockstep "
+            f'{1e3 * (t1 - t0):.1f} ms, vmapped {1e3 * (t2 - t1):.1f} ms '
+            f'incl. stacking ({card}); integer state and min trees bitwise '
+            f'equal, totals within {worst:.2e}, {moves} moves on both; '
+            f'replica_state(out, 0) == the vmapped replica 0; every '
+            f'replica audited (|device - exact| <= {gaps[what]:.2e})')
+    return gaps
+
+
+def _stacking_sampler(torch, card, device='cuda'):
+    """Phase 27d: ``Sampler(optimization_backend='numpy', device=device)``
+    and ``Sampler(device=device)`` with one seed on QAOA-4 p=2 at phase
+    21's settings sample the same bitstrings; every amplitude each
+    contracts is within 1e-10 of the statevector."""
+    from tnco_tpu_torch.app.circuit import Sampler
+    from tnco_tpu_torch.testing import sampling as ts
+    from tnco_tpu_torch.testing.networks import qaoa_sampling_circuit
+
+    gates = qaoa_sampling_circuit(4, 2, 0)
+    order = tuple(range(4))
+    hits, secs, err = [], [], 0.0
+    for kw in ({'optimization_backend': 'numpy'}, {}):
+        t0 = time.perf_counter()
+        sampler = Sampler(seed=1, device=device, **kw)
+        if sampler._optimizer.backend != kw.get('optimization_backend'):
+            fail(f'phase 27 sampler {kw}: the optimizer has backend '
+                 f'{sampler._optimizer.backend!r}')
+        state = sampler.sample(gates, return_intermediate_state_only=True,
+                               **SAMPLER_OPT)
+        with ts.recorded_amplitudes(state) as seen:
+            got, _ = sampler.sample(state, n_samples=STACK_SAMPLES,
+                                    qubit_order=order, normalize=False)
+        torch.cuda.synchronize()
+        err = max(err, ts.visited_probability_error(seen, gates, order))
+        hits.append(got)
+        secs.append(time.perf_counter() - t0)
+    if hits[0] != hits[1] or sum(hits[0].values()) != STACK_SAMPLES:
+        fail(f'phase 27 sampler: optimization_backend changed the samples: '
+             f'{hits}')
+    if err > 1e-10:
+        fail(f'phase 27 sampler: visited probabilities differ by {err}')
+    log(f"phase 27 sampler QAOA-4 p=2: Sampler(optimization_backend='numpy',"
+        f' device={device!r}) and Sampler(device={device!r}), seed 1: the '
+        'same '
+        f'{len(hits[0])} bitstrings over {STACK_SAMPLES} samples each, '
+        f'every visited probability within {err:.2e} of the statevector '
+        f'({secs[0]:.2f} and {secs[1]:.2f} s with the state; {card})')
+
+
+def phase_stacking(torch, card, fw_trees):
+    """Phase 27: the batch stacking helpers and the batch builders'
+    device rule at full width (``_stacking_builders``), the lockstep and
+    'vmapped' engines from one stacked batch (``_stacking_sweeps``), the
+    sampler's ``optimization_backend`` (``_stacking_sampler``), then K1
+    and K3 bitwise against their plain versions at each shape the phase
+    launched them.  Returns ``{'stacking': launch counts}``."""
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from tnco_tpu_torch.testing.kernel_cases import recorded_cases
+
+    t_phase = time.perf_counter()
+    walls = {}
+    with recorded_cases() as seen:
+        reset_launch_counts()
+        states, states_fw, log2d = _stacking_builders(torch, fw_trees)
+        walls['builders'] = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        _stacking_sweeps(torch, card, fw_trees, states, states_fw, log2d)
+        walls['sweeps'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _stacking_sampler(torch, card)
+        walls['sampler'] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    if not all(counts[k] > 0 for k in BATCHED_KERNELS):
+        fail(f'phase 27: a kernel of the path was never launched: {counts}')
+    _check_recorded(torch, seen, 'stacking (phase 27)')
+    log(f'phase 27: {time.perf_counter() - t_phase:.1f} s (' + ', '.join(
+        f'{k} {v:.1f}' for k, v in walls.items()) + f' s; {card}); '
+        f'launches {counts}')
+    return {'stacking': counts}
 
 
 def _time_ms(torch, fn, reps=50, rounds=11):
@@ -4484,6 +4845,8 @@ def main() -> int:
         counts.update(phase_examples_host_api(torch, card, fw_trees,
                                               sweep_runners))
         lap('26 examples and host API')
+        counts.update(phase_stacking(torch, card, fw_trees))
+        lap('27 stacking')
         rows = phase_times(torch, counts, im_runner, fw_runner)
         lap('10 kernel times')
         phase_batched_launches(torch, card, (fw_prof, im_prof))

@@ -47,9 +47,11 @@ def main() -> int:
     w = trees[0].inds_array.shape[1]
     log2d = bitops.pad_log2_dims(trees[0].log2_dims_array, w).numpy()
     for name, fn in (
-            ('init_batch', lambda: sb.init_batch(trees, seeds, log2d)),
+            ('init_batch', lambda: sb.init_batch(trees, seeds, log2d,
+                                                 device='cpu')),
             ('init_batch_fw', lambda: sfb.init_batch_fw(trees, seeds, 30.0,
-                                                        log2d)),
+                                                        log2d,
+                                                        device='cpu')),
             ('total_cost_exact', lambda: [t.total_cost_exact()
                                           for t in trees])):
         t0 = time.perf_counter()

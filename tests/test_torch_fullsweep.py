@@ -355,9 +355,10 @@ def _port_batch(ctrees, fw=False, max_width=None, prob_kind='mh'):
     seeds = list(range(len(ctrees)))
     flags = dict(n_leaves=t.n_leaves, n_lanes=w, prob_kind=prob_kind)
     if fw:
-        batch = tsfb.init_batch_fw(ctrees, seeds, max_width, log2d.numpy())
+        batch = tsfb.init_batch_fw(ctrees, seeds, max_width, log2d.numpy(),
+                                   device='cpu')
         return batch, TConfigFW(**flags), log2d
-    batch = tsb.init_batch(ctrees, seeds, log2d.numpy())
+    batch = tsb.init_batch(ctrees, seeds, log2d.numpy(), device='cpu')
     return batch, TConfig(**flags), log2d
 
 

@@ -165,10 +165,18 @@ def test_mesh_rules():
     """'ici' exchange groups do not mix (the JAX test
     ``test_exchange_best_sharded_2d_mesh``), a mesh-wide exchange crosses
     'dcn', two of three axes form one group, and the runners refuse
-    'sweep', a replica count that does not divide, and a non-mesh."""
+    'sweep', a replica count that does not divide, and a non-mesh.  Each
+    rank's replica block follows ``replica_sharding(mesh, axis_name)``:
+    split over the axes named (row-major in their order), repeated along
+    the others."""
     net = _net(3, 4, 16)
     ranks = tmesh.spawn(mc.mesh_rules, N_RANKS,
                         (dict(net=net, seeds=list(range(16))),), timeout=180)
+    for k, rank in enumerate(ranks):
+        dcn, ici = divmod(k, 2)
+        assert rank.pop('blocks') == {
+            'None': (k, 4), 'ici': (ici, 2), 'dcn': (dcn, 2),
+            "('ici', 'dcn')": (2 * ici + dcn, 4)}, k
     r = ranks[0]
     before = r['before']
     g0, g1 = before[:8].min(), before[8:].min()

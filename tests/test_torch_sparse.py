@@ -175,13 +175,13 @@ def test_widths_costs_and_slicers_match_jax(random_seed, kind):
     jb = jsfb.init_batch_fw(jt, seeds, mw, log2d, sparse_lanes=lanes_np,
                             log2_n_projs=jp[1])
     tb = tsfb.init_batch_fw(tt, seeds, mw, log2d, sparse_lanes=lanes_np,
-                            log2_n_projs=tp[1])
+                            log2_n_projs=tp[1], device='cpu')
     compare(jb, batch_fw_to_numpy(tb), 'init_batch_fw', skip=('keys',))
     assert np.asarray(jb.slices).any()
     jbi = jsb.init_batch(jt, seeds, log2d, sparse_lanes=lanes_np,
                          log2_n_projs=jp[1])
     tbi = tsb.init_batch(tt, seeds, log2d, sparse_lanes=lanes_np,
-                         log2_n_projs=tp[1])
+                         log2_n_projs=tp[1], device='cpu')
     compare(jbi, batch_to_numpy(tbi), 'init_batch', skip=())
     # The cap binds: some costs are below their dense values.
     dense = np.asarray(jsb.init_batch(jt, seeds, log2d).lcc)

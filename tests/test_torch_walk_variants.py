@@ -255,7 +255,8 @@ def test_chained_single_walk_equals_round(random_seed):
     the port's engine too."""
     _, _, tcfg, log2d_w32, ul, ttrees = setup('dim2', random_seed % 1000)
     from tnco_tpu_torch.kernels import sa_batched as tsb
-    batch = tsb.init_batch(ttrees, [1, 2, 3], log2d_w32.reshape(-1))
+    batch = tsb.init_batch(ttrees, [1, 2, 3], log2d_w32.reshape(-1),
+                           device='cpu')
     outs = []
     for rule in ('round', 'chained'):
         gen = torch.Generator().manual_seed(random_seed)

@@ -133,7 +133,8 @@ def _compare(ref, mref, got, mgot, what, margins):
 def test_init_batch_matches_jax(random_seed, net):
     batch, ttrees, _, _, log2d, _ = _setup(net, random_seed % 1000)
     seeds = [random_seed % 1000 + r for r in range(B)]
-    got = batch_to_numpy(tsb.init_batch(ttrees, seeds, log2d))
+    got = batch_to_numpy(tsb.init_batch(ttrees, seeds, log2d,
+                                        device='cpu'))
     for k, v in _fields(batch).items():
         np.testing.assert_array_equal(got[k], v, err_msg=k)
 
@@ -186,7 +187,7 @@ def test_continuation_is_bitwise(random_seed):
         'rand_bit': torch.from_numpy(r.integers(0, 2, (20, p, B)) > 0),
         'u': torch.from_numpy(r.random((20, p, B)).astype(np.float32))}
     betas = torch.linspace(0.0, 8.0, 20)
-    batch = tsb.init_batch(ttrees, [1, 2, 3], log2d)
+    batch = tsb.init_batch(ttrees, [1, 2, 3], log2d, device='cpu')
     log2d_w32 = torch.from_numpy(log2d).reshape(-1, 32)
     pos = torch.full((p, B), -1, dtype=torch.int32)
     whole, mw = tw.run_walker(batch, betas, log2d_w32, tcfg, p, pos,
@@ -207,7 +208,7 @@ def test_continuation_is_bitwise(random_seed):
 
 def test_generator_draws_are_reproducible(random_seed):
     _, ttrees, _, tcfg, log2d, _ = _setup('dim2', random_seed % 1000)
-    batch = tsb.init_batch(ttrees, [0, 1, 2], log2d)
+    batch = tsb.init_batch(ttrees, [0, 1, 2], log2d, device='cpu')
     log2d_w32 = torch.from_numpy(log2d).reshape(-1, 32)
     pos = torch.full((8, B), -1, dtype=torch.int32)
     outs = []
@@ -271,7 +272,7 @@ def test_rows_roundtrip_and_kernel_inputs(random_seed):
 
 def test_unsupported_and_unported_raise():
     _, ttrees, _, tcfg, log2d, _ = _setup('dim2', 5)
-    batch = tsb.init_batch(ttrees, [0, 1, 2], log2d)
+    batch = tsb.init_batch(ttrees, [0, 1, 2], log2d, device='cpu')
     log2d_w32 = torch.from_numpy(log2d).reshape(-1, 32)
     pos = torch.full((4, B), -1, dtype=torch.int32)
     gen = torch.Generator()
@@ -294,7 +295,8 @@ def test_unsupported_and_unported_raise():
         tw.run_walker(*args, generator=gen, **sparse)
     # Float64 state runs on the multi-walk engine; the walker, whose
     # kernel holds one 32-bit lcc lane, refuses it naming float32.
-    b64 = tsb.init_batch(ttrees, [0, 1, 2], log2d, dtype=np.float64)
+    b64 = tsb.init_batch(ttrees, [0, 1, 2], log2d, dtype=np.float64,
+                         device='cpu')
     out, _ = tsmw.run_multiwalk(b64, [1.0], log2d_w32.double(), *args[3:],
                                 generator=torch.Generator().manual_seed(5))
     assert out.lcc.dtype == out.min_log2_total.dtype == torch.float64

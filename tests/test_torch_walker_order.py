@@ -135,14 +135,16 @@ def _state(fw, seed, b=3):
     w = t.inds_array.shape[1]
     log2d = bitops.pad_log2_dims(t.log2_dims_array, w)
     if fw:
-        batch = sfb.init_batch_fw(trees, list(range(b)), 6.0, log2d.numpy())
+        batch = sfb.init_batch_fw(trees, list(range(b)), 6.0, log2d.numpy(),
+                                  device='cpu')
         st = smw.padded_state(batch.c0, batch.c1, batch.par, batch.inds,
                               batch.lcc, batch.width)
         st['slices'] = batch.slices
         cfg = SweepConfigFW(n_leaves=t.n_leaves, n_lanes=w,
                             prob_kind='base')
     else:
-        batch = sb.init_batch(trees, list(range(b)), log2d.numpy())
+        batch = sb.init_batch(trees, list(range(b)), log2d.numpy(),
+                              device='cpu')
         st = smw.padded_state(batch.c0, batch.c1, batch.par, batch.inds,
                               batch.lcc)
         cfg = SweepConfig(n_leaves=t.n_leaves, n_lanes=w, prob_kind='base')

@@ -99,6 +99,7 @@ def sample(circuit,
            normalize: bool = True,
            return_intermediate_state_only: bool = False,
            dtype: Any | None = None,
+           optimization_backend: str | None = None,
            contraction_backend: str | None = None,
            seed: int | None = None,
            verbose: int = 0,
@@ -107,7 +108,10 @@ def sample(circuit,
 
     ``optimizer`` optimizes the prefix networks on its own device (unused,
     and may be None, when ``circuit`` is an intermediate state: the
-    sampling loop runs on the host).  ``contraction_backend`` is the amplitudes' array backend (None or
+    sampling loop runs on the host).  ``optimization_backend`` is taken
+    for the reference's signature and not used here: the optimizer
+    carries its own ``backend`` (:class:`Sampler` passes it there).
+    ``contraction_backend`` is the amplitudes' array backend (None or
     'numpy', or 'torch' on the CPU).
 
     Returns ``(hits_by_bitstring, qubit_order)``, or the intermediate state
@@ -271,8 +275,10 @@ def sample(circuit,
 class Sampler:
     """Front-end for BGL bitstring sampling (reference sampling.py:422-553).
 
-    Args mirror :func:`tnco_tpu_torch.app.Optimizer`; ``device`` (None
-    means the card) is where the prefix networks are optimized.  Finite
+    Args mirror :func:`tnco_tpu_torch.app.Optimizer`
+    (``optimization_backend`` is its ``backend``, the arrays' backend of
+    the networks it loads); ``device`` (None means the card) is where the
+    prefix networks are optimized.  Finite
     ``max_width`` IS supported (the reference raises NotImplementedError,
     sampling.py:479-481): the width-capped optimizer's sliced amplitude
     networks are executed one projected pass per slice assignment and
@@ -285,6 +291,7 @@ class Sampler:
     cost_type: str = 'float64'
     atol: float = 1e-5
     dtype: Any | None = None
+    optimization_backend: str | None = None
     device: Any | None = None
     seed: int | None = None
     verbose: int = 0
@@ -297,6 +304,7 @@ class Sampler:
                               cost_type=self.cost_type,
                               atol=self.atol,
                               dtype=self.dtype,
+                              backend=self.optimization_backend,
                               seed=self._rng.randrange(2**32),
                               verbose=self.verbose - 5,
                               device=self.device)
@@ -332,6 +340,7 @@ class Sampler:
             normalize=normalize,
             return_intermediate_state_only=return_intermediate_state_only,
             dtype=self.dtype,
+            optimization_backend=self.optimization_backend,
             contraction_backend=contraction_backend,
             seed=self._rng.randrange(2**32),
             verbose=self.verbose,

@@ -64,35 +64,38 @@ def _check(vals, ids):
         raise ValueError(f"Unsupported device: {vals.device}.")
 
 
-def gather_plain(vals, ids, planes=None):
+def gather_plain(vals_gbn, ids_bq, planes=None):
     """Plain PyTorch version (CPU tests, and the kernel's yardstick)."""
-    lo, hi = _plane_range(planes, vals.shape[0])
-    n = vals.shape[2]
-    v = vals[lo:hi].view(torch.int32)
-    g, (b, q) = hi - lo, ids.shape
+    lo, hi = _plane_range(planes, vals_gbn.shape[0])
+    n = vals_gbn.shape[2]
+    v = vals_gbn[lo:hi].view(torch.int32)
+    g, (b, q) = hi - lo, ids_bq.shape
     if n == 0:
-        return torch.zeros((g, b, q), dtype=vals.dtype, device=vals.device)
-    safe = ids.clamp(0, n - 1).long()
+        return torch.zeros((g, b, q), dtype=vals_gbn.dtype,
+                           device=vals_gbn.device)
+    safe = ids_bq.clamp(0, n - 1).long()
     out = torch.gather(v, 2, safe[None].expand(g, b, q))
-    ok = (ids >= 0) & (ids < n)
+    ok = (ids_bq >= 0) & (ids_bq < n)
     out = torch.where(ok[None], out, torch.zeros((), dtype=torch.int32,
-                                                 device=vals.device))
-    return out.view(vals.dtype)
+                                                 device=vals_gbn.device))
+    return out.view(vals_gbn.dtype)
 
 
-def gather_gbn(vals, ids, *, planes=None):
-    """``[G, B, N]`` planes x ``[B, Q]`` ids -> ``[hi - lo, B, Q]``."""
+def gather_gbn(vals_gbn, ids_bq, *, planes=None):
+    """``vals_gbn [G, B, N]`` planes x ``ids_bq [B, Q]`` -> ``[hi - lo,
+    B, Q]``."""
     global launches
-    _check(vals, ids)
-    lo, hi = _plane_range(planes, vals.shape[0])
-    if vals.device.type == 'cpu':
-        return gather_plain(vals, ids, (lo, hi))
-    _, b, n = vals.shape
-    q = ids.shape[1]
-    out = torch.empty((hi - lo, b, q), dtype=vals.dtype, device=vals.device)
+    _check(vals_gbn, ids_bq)
+    lo, hi = _plane_range(planes, vals_gbn.shape[0])
+    if vals_gbn.device.type == 'cpu':
+        return gather_plain(vals_gbn, ids_bq, (lo, hi))
+    _, b, n = vals_gbn.shape
+    q = ids_bq.shape[1]
+    out = torch.empty((hi - lo, b, q), dtype=vals_gbn.dtype,
+                      device=vals_gbn.device)
     if out.numel() == 0:
         return out
-    _launch(vals, ids, out, lo, gather_route(n, q))
+    _launch(vals_gbn, ids_bq, out, lo, gather_route(n, q))
     launches += 1
     return out
 
@@ -110,6 +113,7 @@ def _launch(vals, ids, out, lo, route):
     build.check(rc, 'gather_gbn')
 
 
-def gather_bn(vals_bn, ids):
-    """``[B, N]`` x ``[B, Q]`` -> ``[B, Q]`` (single-plane wrapper)."""
-    return gather_gbn(vals_bn[None], ids)[0]
+def gather_bn(vals_bn, ids_bq):
+    """``vals_bn [B, N]`` x ``ids_bq [B, Q]`` -> ``[B, Q]`` (single-plane
+    wrapper)."""
+    return gather_gbn(vals_bn[None], ids_bq)[0]

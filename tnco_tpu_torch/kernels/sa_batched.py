@@ -27,6 +27,7 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
+from tnco_tpu_torch.device import resolve_device
 from tnco_tpu_torch.kernels.gather import gather_gbn
 from tnco_tpu_torch.kernels.scatter import scatter_rows_inplace
 from tnco_tpu_torch.kernels.sa_fullsweep import (_join_f, _nk, _split_f,
@@ -34,9 +35,10 @@ from tnco_tpu_torch.kernels.sa_fullsweep import (_join_f, _nk, _split_f,
 from tnco_tpu_torch.ops import costs as costs_ops
 from tnco_tpu_torch.ops import rng
 
-__all__ = ['SABatch', 'init_batch', 'compute_hyper_b', 'run_sweeps_batched',
-           'run_sweeps_per_replica', 'run_stream_batched', 'draw_sweep',
-           'draw_stream', 'max_walk_steps', 'sparse_args', 'NULL']
+__all__ = ['SABatch', 'init_batch', 'from_states', 'replica_state',
+           'compute_hyper_b', 'run_sweeps_batched', 'run_sweeps_per_replica',
+           'run_stream_batched', 'draw_sweep', 'draw_stream',
+           'max_walk_steps', 'sparse_args', 'NULL']
 
 NULL = -1
 _PROB_KINDS = ('mh', 'greedy', 'base')
@@ -75,9 +77,10 @@ class SABatch:
 
 
 def init_batch(ctrees, seeds, log2_dims_padded, *, sparse_lanes=None,
-               log2_n_projs=None, dtype=np.float32, device='cpu') -> SABatch:
+               log2_n_projs=None, dtype=np.float32, device=None) -> SABatch:
     """Builds a replica-minor batch on the host (numpy) and uploads it
-    once to ``device``.
+    once to ``device`` (None means the card; without CUDA that raises,
+    and a host run passes ``device='cpu'``).
 
     Same arithmetic as the JAX package's ``init_batch`` (float64 word by
     word, then cast), so every field equals it bitwise.  The reference
@@ -86,6 +89,7 @@ def init_batch(ctrees, seeds, log2_dims_padded, *, sparse_lanes=None,
     (``uint32 [W]``) and ``log2_n_projs``: the sparse cost model's cap
     on the sparse part of every cost.
     """
+    dev = resolve_device(device)
     n = len(ctrees[0])
     n_leaves = ctrees[0].n_leaves
     b = len(ctrees)
@@ -147,11 +151,40 @@ def init_batch(ctrees, seeds, log2_dims_padded, *, sparse_lanes=None,
         x = np.ascontiguousarray(x)
         if x.dtype == np.uint32:
             x = x.view(np.int32)
-        return torch.from_numpy(x).to(device)
+        return torch.from_numpy(x).to(dev)
 
     return SABatch(up(c0), up(c1), up(par), up(inds), up(hyper), up(lcc),
                    up(lt), up(lt), up(c0), up(c1), up(par), up(inds),
                    up(keys))
+
+
+def from_states(states) -> SABatch:
+    """Stacks single-replica ``SAStateIM`` (all on one device) into a
+    replica-minor batch on that device (``sa_batched.py:179-191``)."""
+    from tnco_tpu_torch.kernels import sa_infinite as sa
+
+    return sa.to_batch(sa.stack(_one_device(states)))
+
+
+def replica_state(batch: SABatch, i: int):
+    """Replica ``i`` of ``batch`` as an ``SAStateIM``, its fields the
+    batch's column ``i`` (``sa_batched.py:194-205``)."""
+    from tnco_tpu_torch.kernels import sa_infinite as sa
+
+    return sa.unstack(sa.from_batch(batch), i)
+
+
+def _one_device(states):
+    """``states`` as a list; raises unless it holds at least one state
+    and every state lies on one device."""
+    states = list(states)
+    if not states:
+        raise ValueError('Pass at least one state.')
+    devs = {str(s.nodes.device) for s in states}
+    if len(devs) > 1:
+        raise ValueError(
+            f'The states lie on several devices: {sorted(devs)}.')
+    return states
 
 
 def _width_b(lanes_wb, log2d_w32, *, sparse_wb=None, log2_n_projs=None,

@@ -25,7 +25,10 @@ from random import Random
 import numpy as np
 import torch
 
+from tnco_tpu_torch.device import resolve_device
 from tnco_tpu_torch.kernels import sa_batched as sb
+from tnco_tpu_torch.kernels import sa_finite as saf
+from tnco_tpu_torch.kernels import sa_infinite as sa
 from tnco_tpu_torch.kernels.gather import gather_bn, gather_gbn
 from tnco_tpu_torch.kernels.sa_batched import NULL, _log2_total_b, _width_b
 from tnco_tpu_torch.kernels.sa_finite import (_WIDTH_EPS, _cumsum_blocked,
@@ -36,7 +39,8 @@ from tnco_tpu_torch.ops import costs as costs_ops
 from tnco_tpu_torch.ops import rng
 from tnco_tpu_torch.ops.bitops import popcount32
 
-__all__ = ['SABatchFW', 'init_batch_fw', 'run_sweeps_fw_batched',
+__all__ = ['SABatchFW', 'init_batch_fw', 'from_states_fw',
+           'replica_state_fw', 'run_sweeps_fw_batched',
            'run_sweeps_fw_per_replica', 'draw_sweep_fw']
 
 
@@ -379,9 +383,10 @@ def _width_nodes(lanes_nwb, log2d_w32, sp, chunk=64):
 
 def init_batch_fw(ctrees, seeds, max_width, log2_dims_padded, *,
                   skip_lanes=None, sparse_lanes=None, log2_n_projs=None,
-                  dtype=np.float32, device='cpu'):
+                  dtype=np.float32, device=None):
     """Builds a replica-minor finite-width batch on the host (numpy) and
-    uploads it once to ``device``.
+    uploads it once to ``device`` (None means the card; without CUDA that
+    raises, and a host run passes ``device='cpu'``).
 
     Initial slices come from the host greedy slicer with per-replica
     ``random.Random(seed)`` jitter, as in the JAX package, so ``c0, c1,
@@ -391,6 +396,7 @@ def init_batch_fw(ctrees, seeds, max_width, log2_dims_padded, *,
     ``sparse_lanes`` (``uint32 [W]``) and ``log2_n_projs``: the sparse
     cost model's cap, on the slicer's widths and every cost and width.
     """
+    dev = resolve_device(device)
     n = len(ctrees[0])
     b = len(ctrees)
     w = ctrees[0].inds_array.shape[1]
@@ -468,11 +474,23 @@ def init_batch_fw(ctrees, seeds, max_width, log2_dims_padded, *,
         x = np.ascontiguousarray(x)
         if x.dtype == np.uint32:
             x = x.view(np.int32)
-        return torch.from_numpy(x).to(device)
+        return torch.from_numpy(x).to(dev)
 
     return SABatchFW(up(c0), up(c1), up(par), up(inds), up(hyper), up(lcc),
                      up(width), up(slices), up(lt), up(lt), up(c0), up(c1),
                      up(par), up(inds), up(slices), up(keys))
+
+
+def from_states_fw(states) -> SABatchFW:
+    """Stacks single-replica ``SAStateFW`` (all on one device) into a
+    replica-minor batch on that device (``sa_finite_batched.py:72-83``)."""
+    return saf.to_batch_fw(sa.stack(sb._one_device(states)))
+
+
+def replica_state_fw(batch: SABatchFW, i: int):
+    """Replica ``i`` of ``batch`` as an ``SAStateFW``, its fields the
+    batch's column ``i`` (``sa_finite_batched.py:86-99``)."""
+    return sa.unstack(saf.from_batch_fw(batch), i)
 
 
 def draw_sweep_fw(generator: torch.Generator, n_leaves: int, b: int,

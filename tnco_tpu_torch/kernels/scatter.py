@@ -69,27 +69,28 @@ def _check_ids(ids):
         raise ValueError(f"Unsupported device: {ids.device}.")
 
 
-def inv_ids_plain(ids, n: int):
+def inv_ids_plain(ids_bq, n: int):
     """Plain PyTorch version: a deterministic ``amax`` scatter of q."""
-    b, q = ids.shape
-    ok = (ids >= 0) & (ids < n)
-    safe = torch.where(ok, ids, n).long()
-    qi = torch.arange(q, dtype=torch.int32, device=ids.device)
-    inv = torch.full((b, n + 1), -1, dtype=torch.int32, device=ids.device)
+    b, q = ids_bq.shape
+    ok = (ids_bq >= 0) & (ids_bq < n)
+    safe = torch.where(ok, ids_bq, n).long()
+    qi = torch.arange(q, dtype=torch.int32, device=ids_bq.device)
+    inv = torch.full((b, n + 1), -1, dtype=torch.int32, device=ids_bq.device)
     inv.scatter_reduce_(1, safe, qi.expand(b, q), reduce='amax')
     return inv[:, :n].contiguous()
 
 
-def inv_ids(ids, n: int):
-    """``[B, Q]`` ids -> ``[B, n]`` inverse map (-1 where no id)."""
+def inv_ids(ids_bq, n: int):
+    """``ids_bq [B, Q]`` -> ``[B, n]`` inverse map (-1 where no id)."""
     global inv_launches
-    _check_ids(ids)
-    if ids.device.type == 'cpu':
-        return inv_ids_plain(ids, n)
-    inv = torch.empty((ids.shape[0], n), dtype=torch.int32, device=ids.device)
+    _check_ids(ids_bq)
+    if ids_bq.device.type == 'cpu':
+        return inv_ids_plain(ids_bq, n)
+    inv = torch.empty((ids_bq.shape[0], n), dtype=torch.int32,
+                      device=ids_bq.device)
     if inv.numel() == 0:
         return inv
-    _launch_inv(ids, inv, INV_SLICE)
+    _launch_inv(ids_bq, inv, INV_SLICE)
     inv_launches += 1
     return inv
 
@@ -115,45 +116,49 @@ def _check_upd(vals, ids, upd, lo, hi):
         raise ValueError(f"upd shape {tuple(upd.shape)} != {want}.")
 
 
-def scatter_rows_gbn_plain(vals, ids, upd, planes=None):
+def scatter_rows_gbn_plain(vals_gbn, ids_bq, upd_gbq, planes=None):
     """Plain PyTorch version of :func:`scatter_rows_gbn` (a new tensor)."""
-    lo, hi = _plane_range(planes, vals.shape[0])
-    n, q = vals.shape[2], ids.shape[1]
-    region = vals.view(torch.int32)[lo:hi]
+    lo, hi = _plane_range(planes, vals_gbn.shape[0])
+    n, q = vals_gbn.shape[2], ids_bq.shape[1]
+    region = vals_gbn.view(torch.int32)[lo:hi]
     if q == 0:
-        return region.clone().view(vals.dtype)
-    inv = inv_ids_plain(ids, n)
+        return region.clone().view(vals_gbn.dtype)
+    inv = inv_ids_plain(ids_bq, n)
     safe = inv.clamp(0, q - 1).long()
-    got = torch.gather(upd.view(torch.int32), 2,
+    got = torch.gather(upd_gbq.view(torch.int32), 2,
                        safe[None].expand(hi - lo, -1, -1))
-    return torch.where((inv >= 0)[None], got, region).view(vals.dtype)
+    return torch.where((inv >= 0)[None], got, region).view(vals_gbn.dtype)
 
 
-def scatter_rows_inplace_plain(vals, ids, upd, planes=None):
-    """Plain PyTorch version; writes ``vals`` in place and returns it."""
-    lo, hi = _plane_range(planes, vals.shape[0])
-    vals.view(torch.int32)[lo:hi] = scatter_rows_gbn_plain(
-        vals, ids, upd, (lo, hi)).view(torch.int32)
-    return vals
+def scatter_rows_inplace_plain(vals_gbn, ids_bq, upd_gbq, planes=None):
+    """Plain PyTorch version; writes ``vals_gbn`` in place and returns
+    it."""
+    lo, hi = _plane_range(planes, vals_gbn.shape[0])
+    vals_gbn.view(torch.int32)[lo:hi] = scatter_rows_gbn_plain(
+        vals_gbn, ids_bq, upd_gbq, (lo, hi)).view(torch.int32)
+    return vals_gbn
 
 
-def scatter_rows_inplace(vals, ids, upd, *, planes=None):
-    """Row scatter into a plane range of ``vals``, in place.
+def scatter_rows_inplace(vals_gbn, ids_bq, upd_gbq, *, planes=None):
+    """Row scatter into a plane range of ``vals_gbn``, in place.
 
-    ``vals[lo + g, b, ids[b, q]] = upd[g, b, q]`` for the ``planes=(lo,
-    hi)`` range (default: all planes); returns ``vals`` itself.
+    ``vals_gbn[lo + g, b, ids_bq[b, q]] = upd_gbq[g, b, q]`` for the
+    ``planes=(lo, hi)`` range (default: all planes); returns ``vals_gbn``
+    itself.
     """
     global scatter_launches
-    _check(vals, ids)
-    lo, hi = _plane_range(planes, vals.shape[0])
-    _check_upd(vals, ids, upd, lo, hi)
-    if vals.device.type == 'cpu':
-        return scatter_rows_inplace_plain(vals, ids, upd, (lo, hi))
-    n, q = vals.shape[2], ids.shape[1]
-    if upd.numel() and n:
-        _launch_scatter(vals, ids, upd, lo, hi, scatter_route(n, q))
+    _check(vals_gbn, ids_bq)
+    lo, hi = _plane_range(planes, vals_gbn.shape[0])
+    _check_upd(vals_gbn, ids_bq, upd_gbq, lo, hi)
+    if vals_gbn.device.type == 'cpu':
+        return scatter_rows_inplace_plain(vals_gbn, ids_bq, upd_gbq,
+                                          (lo, hi))
+    n, q = vals_gbn.shape[2], ids_bq.shape[1]
+    if upd_gbq.numel() and n:
+        _launch_scatter(vals_gbn, ids_bq, upd_gbq, lo, hi,
+                        scatter_route(n, q))
         scatter_launches += 1
-    return vals
+    return vals_gbn
 
 
 def _launch_scatter(vals, ids, upd, lo, hi, route):
@@ -174,26 +179,27 @@ def _launch_scatter(vals, ids, upd, lo, hi, route):
     build.check(rc, 'scatter_rows_inplace')
 
 
-def scatter_rows_gbn(vals, ids, upd, *, planes=None):
-    """Row scatter into a plane range of ``vals``, out of place.
+def scatter_rows_gbn(vals_gbn, ids_bq, upd_gbq, *, planes=None):
+    """Row scatter into a plane range of ``vals_gbn``, out of place.
 
-    ``out[g, b, n] = upd[g, b, inv[b, n]]`` where ``ids[b, inv[b, n]] ==
-    n``, else ``vals[lo + g, b, n]``, for the ``planes=(lo, hi)`` range
-    (default: all planes); returns a new ``[hi - lo, B, N]`` tensor of
-    ``vals``' dtype.  ``vals`` is never modified.  -1 and out-of-range
-    ids write nothing; duplicates keep the last q (the inversion, K2).
+    ``out[g, b, n] = upd_gbq[g, b, inv[b, n]]`` where ``ids_bq[b, inv[b,
+    n]] == n``, else ``vals_gbn[lo + g, b, n]``, for the ``planes=(lo,
+    hi)`` range (default: all planes); returns a new ``[hi - lo, B, N]``
+    tensor of ``vals_gbn``' dtype.  ``vals_gbn`` is never modified.  -1
+    and out-of-range ids write nothing; duplicates keep the last q (the
+    inversion, K2).
     """
     global gbn_launches
-    _check(vals, ids)
-    lo, hi = _plane_range(planes, vals.shape[0])
-    _check_upd(vals, ids, upd, lo, hi)
-    if vals.device.type == 'cpu':
-        return scatter_rows_gbn_plain(vals, ids, upd, (lo, hi))
-    inv = inv_ids(ids, vals.shape[2])
-    out = torch.empty((hi - lo,) + tuple(vals.shape[1:]), dtype=vals.dtype,
-                      device=vals.device)
+    _check(vals_gbn, ids_bq)
+    lo, hi = _plane_range(planes, vals_gbn.shape[0])
+    _check_upd(vals_gbn, ids_bq, upd_gbq, lo, hi)
+    if vals_gbn.device.type == 'cpu':
+        return scatter_rows_gbn_plain(vals_gbn, ids_bq, upd_gbq, (lo, hi))
+    inv = inv_ids(ids_bq, vals_gbn.shape[2])
+    out = torch.empty((hi - lo,) + tuple(vals_gbn.shape[1:]),
+                      dtype=vals_gbn.dtype, device=vals_gbn.device)
     if out.numel():
-        _launch_scatter_gbn(vals, inv, upd, out, lo)
+        _launch_scatter_gbn(vals_gbn, inv, upd_gbq, out, lo)
         gbn_launches += 1
     return out
 

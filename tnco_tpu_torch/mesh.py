@@ -127,11 +127,13 @@ def _linear(mesh, axes) -> tuple[int, int]:
     return index, size
 
 
-def replica_sharding(mesh) -> ReplicaBlock:
+def replica_sharding(mesh, axis_name=None) -> ReplicaBlock:
     """This rank's block of the replica axis, split over ALL mesh axes in
-    row-major order."""
+    row-major order, or over ``axis_name`` (one axis name or several, in
+    the order given) and repeated along the others, as
+    ``PartitionSpec(axis_name)`` splits it."""
     check_mesh(mesh)
-    return ReplicaBlock(*_linear(mesh, tuple(mesh.mesh_dim_names)))
+    return ReplicaBlock(*_linear(mesh, _axes(mesh, axis_name)))
 
 
 def rank_device(device=None) -> torch.device:

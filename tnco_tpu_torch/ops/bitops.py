@@ -63,7 +63,12 @@ def device_dtype(cost_type: str = 'float64') -> torch.dtype:
 
 def pad_log2_dims(log2_dims, n_lanes: int, dtype=torch.float32,
                   device='cpu') -> torch.Tensor:
-    """Pads a ``log2_dims[n_inds]`` table to ``[n_lanes * 32]`` with zeros."""
+    """Pads a ``log2_dims[n_inds]`` table to ``[n_lanes * 32]`` with zeros.
+
+    A host table builder, so ``device`` defaults to the CPU, unlike the
+    port's entry points: it runs no engine, and most callers turn the
+    table into numpy for a batch builder or move it to their engine's
+    device themselves."""
     log2_dims = np.asarray(log2_dims, dtype=np.float64)
     out = np.zeros(n_lanes * LANE_BITS, dtype=np.float64)
     out[:log2_dims.shape[0]] = log2_dims

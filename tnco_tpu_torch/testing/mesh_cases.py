@@ -214,9 +214,11 @@ def mesh_rules(spec: dict) -> dict:
     """Rank body of the mesh's rules on a ``(2, 2)`` ('dcn', 'ici') mesh
     of four ranks: 'ici' exchange groups do not mix, a mesh-wide exchange
     crosses 'dcn', an exchange over two axes of a ``(1, 2, 2)`` mesh
-    equals the one over both axes of the ``(2, 2)`` mesh, and the
-    runners refuse 'sweep', a replica count that does not split, and what
-    is not a mesh."""
+    equals the one over both axes of the ``(2, 2)`` mesh, the rank's
+    replica block split over every axis, over 'ici', 'dcn' and ('ici',
+    'dcn') (``replica_sharding``'s ``axis_name``), and the runners refuse
+    'sweep', a replica count that does not split, and what is not a
+    mesh."""
     mesh = tmesh.make_mesh(shape=(2, 2), axis_names=('dcn', 'ici'))
     ctrees = trees(spec['net'])
     seeds = spec['seeds']
@@ -238,6 +240,10 @@ def mesh_rules(spec: dict) -> dict:
     both = trep.exchange_best_sharded(start, mesh, ('dcn', 'ici'), 0.5)
     same = all(torch.equal(getattr(two, f), getattr(both, f))
                for f in type(two).field_names())
+    blocks = {}
+    for axes in (None, 'ici', 'dcn', ('ici', 'dcn')):
+        block = tmesh.replica_sharding(mesh, axes)
+        blocks[str(axes)] = (block.index, block.count)
     runner.run(np.linspace(5, 10, 8, dtype=np.float32), chunk_size=2,
                exchange_every=1, exchange_axes=('ici',))
     valid = all(runner.ctree(i).is_valid(check_shared_inds=True)
@@ -262,7 +268,7 @@ def mesh_rules(spec: dict) -> dict:
             errors[name] = f'{type(e).__name__}: {e}'
     return {'before': before, 'after_ici': after_ici,
             'after_all': after_all, 'two_of_three': same, 'valid': valid,
-            'errors': errors}
+            'errors': errors, 'blocks': blocks}
 
 
 def probe_collectives(device) -> dict:
