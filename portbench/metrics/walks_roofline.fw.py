@@ -1,0 +1,17 @@
+"""walks_roofline: the least time of the traced finite-width chunks'
+work, their bytes (:func:`portbench.roofline.fw_chunk_bytes`) over the
+card's bandwidth, as a share of the device time of every operation they
+ran, in %."""
+
+from portbench import roofline
+
+
+def read(ctx):
+    peak = roofline.hbm_bytes_per_s(ctx.device_name)
+    if ctx.trace is None or peak is None or ctx.trace.device_s <= 0:
+        return None
+    b, n, w, p, k = ctx.sizes
+    t = ctx.traced
+    need = roofline.fw_chunk_bytes(b, n, w, p, t['iterations'],
+                                   t['applied'], t['reslices'])
+    return 100.0 * need / peak / ctx.trace.device_s
