@@ -20,6 +20,7 @@ import jax.numpy as jnp
 
 from benchmarks import pallas_gather_probe as jprobe
 from tnco_tpu_torch.benchmarks import gather_probe as gp
+from tnco_tpu_torch.kernels import launch_counts
 from tnco_tpu_torch.testing import kernel_cases as kc
 
 
@@ -171,7 +172,8 @@ def test_probe_main_on_cpu(capsys):
         assert line.startswith(f'{impl}: ') and line.endswith(' ns/row')
     assert res['loop']['row_ops'] == 2 * 6 * 2
     assert res['take']['row_ops'] == 6 * 2
-    assert gp.loop_launches == gp.take_launches == 0  # plain route
+    counts = launch_counts()
+    assert counts['probe_loop'] == counts['probe_take'] == 0  # plain route
 
 
 @pytest.mark.cuda

@@ -40,10 +40,10 @@ import torch
 from tnco_tpu_torch.device import card_info, resolve_device
 from tnco_tpu_torch.kernels import build
 from tnco_tpu_torch.kernels.scatter import inv_ids_plain
+from tnco_tpu_torch.utils.profiling import count
 
 __all__ = ['probe', 'probe_plain', 'main', 'IMPLS', 'loop_route',
-           'loop_threads', 'loop_stage_rounds', 'loop_launches',
-           'take_launches']
+           'loop_threads', 'loop_stage_rounds']
 
 IMPLS = ('loop', 'take')
 COLS = 128
@@ -58,10 +58,6 @@ MAX_LOOP_P = SMEM_BYTES // (COLS * 4)
 # at most STAGE_WORDS words each) in a block's shared memory.  This module
 # picks the launch (route, threads, rounds a stage) and passes it.
 STAGE_WORDS = 2048
-
-# Kernel launches since the last reset (the bench path's proof of route).
-loop_launches = 0
-take_launches = 0
 
 
 def _check(state, ids, impl):
@@ -126,7 +122,6 @@ def probe_plain(state, ids, impl: str):
 def probe(state, ids, impl: str):
     """``state int32 [N, 128]``, ``ids int32 [R, P]`` -> ``int32 [P,
     128]`` (see the module docstring for ``impl``)."""
-    global loop_launches, take_launches
     _check(state, ids, impl)
     if state.device.type == 'cpu':
         return probe_plain(state, ids, impl)
@@ -134,7 +129,7 @@ def probe(state, ids, impl: str):
     out = torch.empty((p, COLS), dtype=torch.int32, device=state.device)
     if impl == 'loop':
         _launch_loop(state, ids, out, loop_route(n, p))
-        loop_launches += 1
+        count('launches.probe_loop')
     else:
         if state.data_ptr() % 16:
             raise ValueError("'take' reads 16-byte rows: the state's data "
@@ -144,7 +139,7 @@ def probe(state, ids, impl: str):
         rc = lib.tnco_probe_take(ids.data_ptr(), state.data_ptr(),
                                  out.data_ptr(), n, p, rounds, stream)
         build.check(rc, 'probe_take')
-        take_launches += 1
+        count('launches.probe_take')
     return out
 
 

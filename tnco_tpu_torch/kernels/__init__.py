@@ -6,34 +6,26 @@ and K4 out-of-place row scatter (:mod:`.scatter`), K5 the multi-walk
 walker (:mod:`.walker`), infinite memory (K5-IM) and finite width
 (K5-FW), and P1 the row-read probe, ``loop`` and ``take``
 (:mod:`tnco_tpu_torch.benchmarks.gather_probe`).  Each wrapper counts
-its launches; :func:`launch_counts` reads them and
-:func:`reset_launch_counts` sets them to 0.
+its launches in the counter registry of
+:mod:`tnco_tpu_torch.utils.profiling` (``launches.<kernel>``);
+:func:`launch_counts` reads them and :func:`reset_launch_counts` sets
+them to 0.
 """
 
 __all__ = ['launch_counts', 'reset_launch_counts']
 
+# The kernel wrappers' launch counters, by the name launch_counts gives.
+_LAUNCHES = ('gather_gbn', 'inv_ids', 'scatter_rows_inplace',
+             'scatter_rows_gbn', 'walker_im', 'walker_fw', 'probe_loop',
+             'probe_take')
+
 
 def launch_counts() -> dict:
-    from tnco_tpu_torch.benchmarks import gather_probe
-    from tnco_tpu_torch.kernels import gather, scatter, walker
-    return {'gather_gbn': gather.launches,
-            'inv_ids': scatter.inv_launches,
-            'scatter_rows_inplace': scatter.scatter_launches,
-            'scatter_rows_gbn': scatter.gbn_launches,
-            'walker_im': walker.launches,
-            'walker_fw': walker.launches_fw,
-            'probe_loop': gather_probe.loop_launches,
-            'probe_take': gather_probe.take_launches}
+    from tnco_tpu_torch.utils import profiling
+    c = profiling.counts()
+    return {k: c.get('launches.' + k, 0) for k in _LAUNCHES}
 
 
 def reset_launch_counts() -> None:
-    from tnco_tpu_torch.benchmarks import gather_probe
-    from tnco_tpu_torch.kernels import gather, scatter, walker
-    gather.launches = 0
-    scatter.inv_launches = 0
-    scatter.scatter_launches = 0
-    scatter.gbn_launches = 0
-    walker.launches = 0
-    walker.launches_fw = 0
-    gather_probe.loop_launches = 0
-    gather_probe.take_launches = 0
+    from tnco_tpu_torch.utils import profiling
+    profiling.reset_counts(['launches.' + k for k in _LAUNCHES])

@@ -16,12 +16,9 @@ a CUDA call launches the kernel or raises.
 import torch
 
 from tnco_tpu_torch.kernels import build
+from tnco_tpu_torch.utils.profiling import count
 
-__all__ = ['gather_gbn', 'gather_bn', 'gather_plain', 'gather_route',
-           'launches']
-
-# Kernel launches since the last reset (the main path's proof of route).
-launches = 0
+__all__ = ['gather_gbn', 'gather_bn', 'gather_plain', 'gather_route']
 
 # The kernel's routes (``csrc/gather.cu``).
 _ROUTES = {'sparse': 0, 'row': 1}
@@ -84,7 +81,6 @@ def gather_plain(vals_gbn, ids_bq, planes=None):
 def gather_gbn(vals_gbn, ids_bq, *, planes=None):
     """``vals_gbn [G, B, N]`` planes x ``ids_bq [B, Q]`` -> ``[hi - lo,
     B, Q]``."""
-    global launches
     _check(vals_gbn, ids_bq)
     lo, hi = _plane_range(planes, vals_gbn.shape[0])
     if vals_gbn.device.type == 'cpu':
@@ -96,7 +92,7 @@ def gather_gbn(vals_gbn, ids_bq, *, planes=None):
     if out.numel() == 0:
         return out
     _launch(vals_gbn, ids_bq, out, lo, gather_route(n, q))
-    launches += 1
+    count('launches.gather_gbn')
     return out
 
 

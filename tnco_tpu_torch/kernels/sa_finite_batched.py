@@ -38,6 +38,7 @@ from tnco_tpu_torch.kernels.sa_fullsweep import _join_f, _nk, _split_f
 from tnco_tpu_torch.ops import costs as costs_ops
 from tnco_tpu_torch.ops import rng
 from tnco_tpu_torch.ops.bitops import popcount32
+from tnco_tpu_torch.utils.profiling import host_read
 
 __all__ = ['SABatchFW', 'init_batch_fw', 'from_states_fw',
            'replica_state_fw', 'run_sweeps_fw_batched',
@@ -146,7 +147,7 @@ def _greedy_slices_fast(vals, vals_planes, width, jitter, max_width,
         torch.where(over0, iota_n[:, None], n), dim=0).values
     ids_sorted = torch.nn.functional.pad(
         ids_sorted, (0, 0, 0, -n % window), value=n)
-    max_count = int(over0.sum(dim=0).max()) if b else 0
+    max_count = host_read(over0.sum(dim=0).max(), int) if b else 0
 
     def gather_rows(ids_bk):
         return gather_gbn(vals, ids_bk, planes=vals_planes)
@@ -347,7 +348,7 @@ def _greedy_slices_b(c0, inds, width, jitter, max_width, log2d_w32,
     k_batch = 8 if uniform_log2 is not None else 1
     w_cur = all_sw(slices)
     r = 0
-    while r < n and bool(((~processed) & (w_cur > thr)).any()):
+    while r < n and host_read(((~processed) & (w_cur > thr)).any(), bool):
         for _ in range(k_batch):
             over = (~processed) & (w_cur > thr)
             any_over = over.any(dim=0)

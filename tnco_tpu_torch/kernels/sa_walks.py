@@ -62,6 +62,7 @@ from tnco_tpu_torch.kernels.sa_multiwalk import \
     _claim_disjoint as _claim_sequential
 from tnco_tpu_torch.kernels.scatter import scatter_rows_inplace
 from tnco_tpu_torch.ops import costs as costs_ops
+from tnco_tpu_torch.utils.profiling import host_read, span
 
 __all__ = ['run_walks', 'run_walks_fw']
 
@@ -383,16 +384,19 @@ def _iter_walks(st, beta, log2d_w32, cfg: SweepConfig, uniform_log2, dr,
     S = st['S']
     w = cfg.n_lanes
     dtype = log2d_w32.dtype
-    pos, ev = _propose_walks(S, st['pos'], dr['leaf'], dr['rand_bit'], cfg,
-                             log2d_w32, uniform_log2, dtype, sp=sp)
-    accept, keep = _claims(cfg, ev, st['lt'], dr['u'], beta, opts['claim'],
-                           opts['accept_rule'])
-    _apply_walks(S, ev, keep, cfg, dtype)
-
-    st['pos'] = smw._advance_walks(ev['a'], accept, keep, opts['on_block'])
-    st['moves'] += pos.numel()
-    st['applied'] = st['applied'] + keep.sum(dtype=torch.int64)
-    st['lt'] = _lt_from_S(S, w, _nk(dtype), cfg.n_leaves, dtype)
+    with span('tnco.walks.propose'):
+        pos, ev = _propose_walks(S, st['pos'], dr['leaf'], dr['rand_bit'],
+                                 cfg, log2d_w32, uniform_log2, dtype, sp=sp)
+    with span('tnco.walks.claim'):
+        accept, keep = _claims(cfg, ev, st['lt'], dr['u'], beta,
+                               opts['claim'], opts['accept_rule'])
+    with span('tnco.walks.apply'):
+        _apply_walks(S, ev, keep, cfg, dtype)
+        st['pos'] = smw._advance_walks(ev['a'], accept, keep,
+                                       opts['on_block'])
+        st['moves'] += pos.numel()
+        st['applied'] = st['applied'] + keep.sum(dtype=torch.int64)
+        st['lt'] = _lt_from_S(S, w, _nk(dtype), cfg.n_leaves, dtype)
     _snapshot(st, st['lt'])
 
 
@@ -408,30 +412,36 @@ def _iter_walks_fw(st, beta, update_slices, max_width, log2d_w32, skip_w,
     nk = _nk(dtype)
     slices = st['slices']
 
-    pos, ev = _propose_walks(S, st['pos'], dr['leaf'], dr['rand_bit'], cfg,
-                             log2d_w32, uniform_log2, dtype,
-                             slices_wb=slices, with_width=True, u=up, sp=sp)
-    ev['new_width_b'] = _width_bn(ev['new_inds_b'], log2d_w32,
-                                  uniform_log2, dtype, **sp)
-    new_sliced_width = _width_bn(ev['new_inds_b'] & ~slices[:, :, None],
-                                 log2d_w32, uniform_log2, dtype, **sp)
-    fits = new_sliced_width <= max_width + _WIDTH_EPS
-    accept, keep = _claims(cfg, ev, st['lt'], dr['u'], beta, opts['claim'],
-                           opts['accept_rule'], fits)
-    _apply_walks(S, ev, keep, cfg, dtype, with_width=True, u=up)
-
-    st['pos'] = smw._advance_walks(ev['a'], accept, keep, opts['on_block'])
-    st['moves'] += pos.numel()
-    st['applied'] = st['applied'] + keep.sum(dtype=torch.int64)
-
-    lt_new = _lt_from_S(S, w, nk, cfg.n_leaves, dtype, u=up)
-    if update_slices and bool((slices != 0).any()):
-        slices, lt_new = _reslice(S, slices, lt_new, dr['jitter'],
-                                  max_width, log2d_w32, skip_w, cfg,
-                                  uniform_log2, dtype, up, sp)
-    st['slices'] = slices
-    st['lt'] = lt_new
-    _snapshot(st, lt_new, slices)
+    with span('tnco.walks.propose'):
+        pos, ev = _propose_walks(S, st['pos'], dr['leaf'], dr['rand_bit'],
+                                 cfg, log2d_w32, uniform_log2, dtype,
+                                 slices_wb=slices, with_width=True, u=up,
+                                 sp=sp)
+        ev['new_width_b'] = _width_bn(ev['new_inds_b'], log2d_w32,
+                                      uniform_log2, dtype, **sp)
+        new_sliced_width = _width_bn(ev['new_inds_b'] & ~slices[:, :, None],
+                                     log2d_w32, uniform_log2, dtype, **sp)
+        fits = new_sliced_width <= max_width + _WIDTH_EPS
+    with span('tnco.walks.claim'):
+        accept, keep = _claims(cfg, ev, st['lt'], dr['u'], beta,
+                               opts['claim'], opts['accept_rule'], fits)
+    with span('tnco.walks.apply'):
+        _apply_walks(S, ev, keep, cfg, dtype, with_width=True, u=up)
+        st['pos'] = smw._advance_walks(ev['a'], accept, keep,
+                                       opts['on_block'])
+        st['moves'] += pos.numel()
+        st['applied'] = st['applied'] + keep.sum(dtype=torch.int64)
+        lt_new = _lt_from_S(S, w, nk, cfg.n_leaves, dtype, u=up)
+    if update_slices:
+        with span('tnco.walks.reslice'):
+            if host_read((slices != 0).any(), bool):
+                slices, lt_new = _reslice(S, slices, lt_new, dr['jitter'],
+                                          max_width, log2d_w32, skip_w, cfg,
+                                          uniform_log2, dtype, up, sp)
+    with span('tnco.walks.snapshot'):
+        st['slices'] = slices
+        st['lt'] = lt_new
+        _snapshot(st, lt_new, slices)
 
 
 def _check_options(cfg, claim, on_block, accept_rule):
@@ -602,44 +612,47 @@ def run_walks_fw(batch: SABatchFW, betas, update_slices_mask, max_width,
     skip_w = skip_wb.reshape(-1)
     opts = dict(claim=claim, on_block=on_block, accept_rule=accept_rule)
 
-    S = _pack_w(batch.c0, batch.c1, batch.par, batch.inds, batch.lcc,
-                width=batch.width)
-    S_min = _pack_w(batch.min_c0, batch.min_c1, batch.min_par,
-                    batch.min_inds, batch.lcc, width=batch.width)
-    if up:
-        # Union planes U = inds[c0] | inds[c1], between the index planes
-        # and c0 so the merged {B, A} apply scatter covers them in one
-        # range.
-        c0_pad = S[w].contiguous()
-        c1_pad = S[w + 1].contiguous()
-        U = (gather_gbn(S, c0_pad, planes=(0, w)) |
-             gather_gbn(S, c1_pad, planes=(0, w)))
-        S = torch.cat([S[:w], U, S[w:]], dim=0).contiguous()
-        # S_min's union planes are never read; they keep the snap shapes
-        # equal.
-        S_min = torch.cat([S_min[:w], U, S_min[w:]], dim=0).contiguous()
+    with span('tnco.walks.pack'):
+        S = _pack_w(batch.c0, batch.c1, batch.par, batch.inds, batch.lcc,
+                    width=batch.width)
+        S_min = _pack_w(batch.min_c0, batch.min_c1, batch.min_par,
+                        batch.min_inds, batch.lcc, width=batch.width)
+        if up:
+            # Union planes U = inds[c0] | inds[c1], between the index
+            # planes and c0 so the merged {B, A} apply scatter covers them
+            # in one range.
+            c0_pad = S[w].contiguous()
+            c1_pad = S[w + 1].contiguous()
+            U = (gather_gbn(S, c0_pad, planes=(0, w)) |
+                 gather_gbn(S, c1_pad, planes=(0, w)))
+            S = torch.cat([S[:w], U, S[w:]], dim=0).contiguous()
+            # S_min's union planes are never read; they keep the snap
+            # shapes equal.
+            S_min = torch.cat([S_min[:w], U, S_min[w:]], dim=0).contiguous()
 
-    st = dict(S=S, lt=_lt_from_S(S, w, nk, nl, dtype, u=up),
-              slices=batch.slices.clone(), S_min=S_min,
-              min_slices=batch.min_slices.clone(),
-              min_lt=batch.min_log2_total.clone(),
-              pos=pos.T.contiguous(), moves=0,
-              applied=torch.zeros((), dtype=torch.int64, device=dev))
+        st = dict(S=S, lt=_lt_from_S(S, w, nk, nl, dtype, u=up),
+                  slices=batch.slices.clone(), S_min=S_min,
+                  min_slices=batch.min_slices.clone(),
+                  min_lt=batch.min_log2_total.clone(),
+                  pos=pos.T.contiguous(), moves=0,
+                  applied=torch.zeros((), dtype=torch.int64, device=dev))
     p = st['pos'].shape[1]
     for t in range(len(betas)):
-        dr = _walk_draws(draws, generator, t, nl, b, p, w * 32, dtype)
+        with span('tnco.walks.draws'):
+            dr = _walk_draws(draws, generator, t, nl, b, p, w * 32, dtype)
         _iter_walks_fw(st, betas[t], bool(mask[t]), max_width, log2d_w32,
                        skip_w, cfg, uniform_log2, dr, up, sp, opts)
 
-    S, lt = st['S'], st['lt']
-    _snapshot(st, lt, st['slices'])
-    c0, c1, par, inds, lcc, width = _unpack_w(S, w, dtype, n, fw=True,
-                                              u=up)
-    mc0, mc1, mpar, minds, _ml, _mw = _unpack_w(st['S_min'], w, dtype, n,
-                                                fw=True, u=up)
-    hyper = compute_hyper_b(c0, c1, inds)
-    out = SABatchFW(c0, c1, par, inds, hyper, lcc, width, st['slices'], lt,
-                    st['min_lt'], mc0, mc1, mpar, minds, st['min_slices'],
-                    batch.keys.clone())
+    with span('tnco.walks.unpack'):
+        S, lt = st['S'], st['lt']
+        _snapshot(st, lt, st['slices'])
+        c0, c1, par, inds, lcc, width = _unpack_w(S, w, dtype, n, fw=True,
+                                                  u=up)
+        mc0, mc1, mpar, minds, _ml, _mw = _unpack_w(st['S_min'], w, dtype,
+                                                    n, fw=True, u=up)
+        hyper = compute_hyper_b(c0, c1, inds)
+        out = SABatchFW(c0, c1, par, inds, hyper, lcc, width, st['slices'],
+                        lt, st['min_lt'], mc0, mc1, mpar, minds,
+                        st['min_slices'], batch.keys.clone())
     return out, {'moves': st['moves'], 'applied': st['applied'],
                  'pos': st['pos'].T.contiguous()}

@@ -25,16 +25,11 @@ import torch
 
 from tnco_tpu_torch.kernels import build
 from tnco_tpu_torch.kernels.gather import _check, _plane_range
+from tnco_tpu_torch.utils.profiling import count
 
 __all__ = ['inv_ids', 'scatter_rows_inplace', 'scatter_rows_gbn',
            'inv_ids_plain', 'scatter_rows_inplace_plain',
-           'scatter_rows_gbn_plain', 'scatter_route', 'inv_slices',
-           'inv_launches', 'scatter_launches', 'gbn_launches']
-
-# Kernel launches since the last reset (the main path's proof of route).
-inv_launches = 0
-scatter_launches = 0
-gbn_launches = 0
+           'scatter_rows_gbn_plain', 'scatter_route', 'inv_slices']
 
 
 # K3 keeps its [N] winner map and its winner list (2 min(Q, N) words) in
@@ -82,7 +77,6 @@ def inv_ids_plain(ids_bq, n: int):
 
 def inv_ids(ids_bq, n: int):
     """``ids_bq [B, Q]`` -> ``[B, n]`` inverse map (-1 where no id)."""
-    global inv_launches
     _check_ids(ids_bq)
     if ids_bq.device.type == 'cpu':
         return inv_ids_plain(ids_bq, n)
@@ -91,7 +85,7 @@ def inv_ids(ids_bq, n: int):
     if inv.numel() == 0:
         return inv
     _launch_inv(ids_bq, inv, INV_SLICE)
-    inv_launches += 1
+    count('launches.inv_ids')
     return inv
 
 
@@ -146,7 +140,6 @@ def scatter_rows_inplace(vals_gbn, ids_bq, upd_gbq, *, planes=None):
     ``planes=(lo, hi)`` range (default: all planes); returns ``vals_gbn``
     itself.
     """
-    global scatter_launches
     _check(vals_gbn, ids_bq)
     lo, hi = _plane_range(planes, vals_gbn.shape[0])
     _check_upd(vals_gbn, ids_bq, upd_gbq, lo, hi)
@@ -157,7 +150,7 @@ def scatter_rows_inplace(vals_gbn, ids_bq, upd_gbq, *, planes=None):
     if upd_gbq.numel() and n:
         _launch_scatter(vals_gbn, ids_bq, upd_gbq, lo, hi,
                         scatter_route(n, q))
-        scatter_launches += 1
+        count('launches.scatter_rows_inplace')
     return vals_gbn
 
 
@@ -189,7 +182,6 @@ def scatter_rows_gbn(vals_gbn, ids_bq, upd_gbq, *, planes=None):
     and out-of-range ids write nothing; duplicates keep the last q (the
     inversion, K2).
     """
-    global gbn_launches
     _check(vals_gbn, ids_bq)
     lo, hi = _plane_range(planes, vals_gbn.shape[0])
     _check_upd(vals_gbn, ids_bq, upd_gbq, lo, hi)
@@ -200,7 +192,7 @@ def scatter_rows_gbn(vals_gbn, ids_bq, upd_gbq, *, planes=None):
                       dtype=vals_gbn.dtype, device=vals_gbn.device)
     if out.numel():
         _launch_scatter_gbn(vals_gbn, inv, upd_gbq, out, lo)
-        gbn_launches += 1
+        count('launches.scatter_rows_gbn')
     return out
 
 

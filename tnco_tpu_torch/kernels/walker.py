@@ -32,15 +32,10 @@ import torch
 from tnco_tpu_torch.kernels import build
 from tnco_tpu_torch.kernels import sa_multiwalk as smw
 from tnco_tpu_torch.kernels.sa_batched import _log2_total_b
+from tnco_tpu_torch.utils.profiling import count, host_read, span
 
 __all__ = ['walker_supported', 'walker_supported_fw', 'run_walker',
-           'run_walker_plain', 'run_walker_fw', 'run_walker_fw_plain',
-           'launches', 'launches_fw']
-
-# Kernel launches since the last reset (the main path's proof of route):
-# K5-IM and K5-FW.
-launches = 0
-launches_fw = 0
+           'run_walker_plain', 'run_walker_fw', 'run_walker_fw_plain']
 
 MAX_WALKS = 128           # the TPU kernel's 128 walk lanes
 _HDR = 4                  # row header: c0, c1, par, lcc bits
@@ -232,7 +227,6 @@ def run_walker(batch, betas, log2d_w32, cfg, n_walks: int, pos,
 
     Returns ``(batch, {'moves', 'applied', 'pos'})``.
     """
-    global launches
     del log2_n_projs
     dense_only(sparse_wb)
     _one_beta_per_iteration(betas)
@@ -248,17 +242,23 @@ def run_walker(batch, betas, log2d_w32, cfg, n_walks: int, pos,
     if draws is None:
         if generator is None:
             raise ValueError("Pass draws= or generator=.")
-        draws = smw.draw_chunk(generator, cfg.n_leaves, betas.shape[0],
-                               n_walks, b, log2d_w32.dtype)
-    ops = kernel_inputs(batch, betas, log2d_w32, pos, draws)
-    launch_walker(ops['rows'], ops['min_rows'], ops['pos_bp'],
-                  ops['min_lt'], ops['applied'], ops['draws'], ops['betas'],
-                  ops['log2d'], cfg, n, w)
-    launches += 1
-    c0, c1, par, lcc, inds = unpack_rows(ops['rows'], w)
-    mc0, mc1, mpar, _, minds = unpack_rows(ops['min_rows'], w)
-    out = smw.finish_batch(c0, c1, par, inds, lcc, ops['min_lt'], mc0, mc1,
-                           mpar, minds, batch.keys.clone(), cfg.n_leaves)
+        with span('tnco.walker.draws'):
+            draws = smw.draw_chunk(generator, cfg.n_leaves, betas.shape[0],
+                                   n_walks, b, log2d_w32.dtype)
+    with span('tnco.walker.pack'):
+        ops = kernel_inputs(batch, betas, log2d_w32, pos, draws)
+    with span('tnco.walker.k5'):
+        launch_walker(ops['rows'], ops['min_rows'], ops['pos_bp'],
+                      ops['min_lt'], ops['applied'], ops['draws'],
+                      ops['betas'], ops['log2d'], cfg, n, w)
+    count('launches.walker_im')
+    with span('tnco.walker.unpack'):
+        c0, c1, par, lcc, inds = unpack_rows(ops['rows'], w)
+        mc0, mc1, mpar, _, minds = unpack_rows(ops['min_rows'], w)
+    with span('tnco.walker.finish'):
+        out = smw.finish_batch(c0, c1, par, inds, lcc, ops['min_lt'], mc0,
+                               mc1, mpar, minds, batch.keys.clone(),
+                               cfg.n_leaves)
     return out, {'moves': n_walks * b * betas.shape[0],
                  'applied': ops['applied'].sum(dtype=torch.int64),
                  'pos': ops['pos_bp'].T.contiguous()}
@@ -396,14 +396,13 @@ def walker_fw_segment(seg, draws, betas, log2d_w32, cfg, max_width: float,
     on ``seg``'s packed buffers, in place: a K5-FW launch for CUDA
     buffers, :func:`walker_fw_segment_plain` for CPU buffers.
     ``max_width`` is a host float (a float32 value)."""
-    global launches_fw
     if seg['rows'].device.type == 'cpu':
         walker_fw_segment_plain(seg, draws, betas, log2d_w32, cfg, max_width,
                                 defer_last_min, uniform_log2)
         return
     launch_walker_fw(seg, draws, betas, log2d_w32, cfg, max_width,
                      defer_last_min)
-    launches_fw += 1
+    count('launches.walker_fw')
 
 
 def walker_fw_reslice(seg, jitter, max_width, log2d_w32, skip_wb, cfg,
@@ -420,7 +419,7 @@ def walker_fw_reslice(seg, jitter, max_width, log2d_w32, skip_wb, cfg,
     n = rows.shape[1] - 1
     lcc = rows[:, :n, _LCC].T.contiguous().view(torch.float32)
     slices = rows[:, n, _HDR_FW:_HDR_FW + w].T
-    if bool((slices != 0).any()):
+    if host_read((slices != 0).any(), bool):
         width = rows[:, :n, _WPRE].T.contiguous().view(torch.float32)
         new_slices, lcc = smw.reslice_if_better(
             rows[:, :n, _C0].T, rows[:, :n, _C1].T,

@@ -51,6 +51,7 @@ from tnco_tpu_torch.mesh import make_mesh, replica_sharding
 from tnco_tpu_torch.ops import bitops
 from tnco_tpu_torch.ops import costs as costs_ops
 from tnco_tpu_torch.ops import rng
+from tnco_tpu_torch.utils.profiling import host_read, span
 
 __all__ = ['ReplicaRunner', 'ReplicaRunnerFW', 'exchange_best',
            'exchange_best_fw', 'exchange_best_sharded',
@@ -407,45 +408,46 @@ class ReplicaRunner:
         while pos < n:
             if _out_of_time(self, start, timeout):
                 break
-            chunk = betas[pos:pos + chunk_size]
-            if len(chunk) < chunk_size:
-                chunk = np.concatenate(
-                    [chunk,
-                     np.repeat(chunk[-1:], chunk_size - len(chunk), axis=0)])
-            chunk = torch.from_numpy(chunk).to(self.device)
-            sp = (self.sparse_wb, self.log2_n_projs)
-            gen = self._draws
-            if self.engine == 'batched':
-                self.states, metrics = sb.run_sweeps_batched(
-                    self.states, chunk, self.log2d_w32, self.cfg, *sp,
-                    uniform_log2=self.uniform_log2, generator=gen)
-            elif self.engine == 'vmapped':
-                self.states, metrics = sa.run_sweeps_batch(
-                    self.states, chunk, self.log2d, self.cfg,
-                    self.sparse_lanes, self.log2_n_projs,
-                    uniform_log2=self.uniform_log2, generator=gen)
-            elif self.engine == 'walker':
-                self.states, metrics = kwalker.run_walker(
-                    self.states, chunk, self.log2d_w32, self.cfg,
-                    self.n_walks, self._mw_pos, generator=gen)
-            elif self.engine == 'sweep':
-                self.states, metrics = sfs.run_fullsweep(
-                    self.states, chunk, self.log2d_w32, self.cfg, *sp,
-                    uniform_log2=self.uniform_log2, generator=gen)
-            elif self.engine == 'walks':
-                self.states, metrics = swk.run_walks(
-                    self.states, chunk, self.log2d_w32, self.cfg,
-                    self._mw_pos, *sp, uniform_log2=self.uniform_log2,
-                    on_block=self.on_block, accept_rule=self.accept_rule,
-                    generator=gen, device=self.device)
-            else:
-                self.states, metrics = smw.run_multiwalk(
-                    self.states, chunk, self.log2d_w32, self.cfg,
-                    self.n_walks, self._mw_pos, *sp,
-                    uniform_log2=self.uniform_log2, on_block=self.on_block,
-                    accept_rule=self.accept_rule, walk_chunk=self.walk_chunk,
-                    generator=gen)
-            self._count(metrics, chunk_size)
+            with span('tnco.runner.chunk', n_chunks):
+                chunk = betas[pos:pos + chunk_size]
+                if len(chunk) < chunk_size:
+                    chunk = np.concatenate(
+                        [chunk, np.repeat(chunk[-1:], chunk_size - len(chunk),
+                                          axis=0)])
+                chunk = torch.from_numpy(chunk).to(self.device)
+                sp = (self.sparse_wb, self.log2_n_projs)
+                gen = self._draws
+                if self.engine == 'batched':
+                    self.states, metrics = sb.run_sweeps_batched(
+                        self.states, chunk, self.log2d_w32, self.cfg, *sp,
+                        uniform_log2=self.uniform_log2, generator=gen)
+                elif self.engine == 'vmapped':
+                    self.states, metrics = sa.run_sweeps_batch(
+                        self.states, chunk, self.log2d, self.cfg,
+                        self.sparse_lanes, self.log2_n_projs,
+                        uniform_log2=self.uniform_log2, generator=gen)
+                elif self.engine == 'walker':
+                    self.states, metrics = kwalker.run_walker(
+                        self.states, chunk, self.log2d_w32, self.cfg,
+                        self.n_walks, self._mw_pos, generator=gen)
+                elif self.engine == 'sweep':
+                    self.states, metrics = sfs.run_fullsweep(
+                        self.states, chunk, self.log2d_w32, self.cfg, *sp,
+                        uniform_log2=self.uniform_log2, generator=gen)
+                elif self.engine == 'walks':
+                    self.states, metrics = swk.run_walks(
+                        self.states, chunk, self.log2d_w32, self.cfg,
+                        self._mw_pos, *sp, uniform_log2=self.uniform_log2,
+                        on_block=self.on_block, accept_rule=self.accept_rule,
+                        generator=gen, device=self.device)
+                else:
+                    self.states, metrics = smw.run_multiwalk(
+                        self.states, chunk, self.log2d_w32, self.cfg,
+                        self.n_walks, self._mw_pos, *sp,
+                        uniform_log2=self.uniform_log2,
+                        on_block=self.on_block, accept_rule=self.accept_rule,
+                        walk_chunk=self.walk_chunk, generator=gen)
+                self._count(metrics, chunk_size)
             pos += chunk_size
             n_chunks += 1
             if (exchange_every and self.engine in _LANE_MAJOR and pos < n
@@ -473,14 +475,15 @@ class ReplicaRunner:
     def _count(self, metrics, chunk_size):
         """Adds a chunk's counts, the mesh's on a mesh (and keeps the walk
         engines' positions)."""
-        if self.mesh is not None:
-            metrics = tmesh.sum_counts(metrics, self.device)
-        self._mw_pos = metrics.get('pos', self._mw_pos)
-        self.sweeps_done += chunk_size
-        self.moves_done += int(torch.as_tensor(metrics['moves']).sum())
-        if 'applied' in metrics:
-            self.applied_done = ((self.applied_done or 0) +
-                                 int(metrics['applied']))
+        with span('tnco.runner.count'):
+            if self.mesh is not None:
+                metrics = tmesh.sum_counts(metrics, self.device)
+            self._mw_pos = metrics.get('pos', self._mw_pos)
+            self.sweeps_done += chunk_size
+            self.moves_done += int(torch.as_tensor(metrics['moves']).sum())
+            if 'applied' in metrics:
+                self.applied_done = ((self.applied_done or 0) +
+                                     host_read(metrics['applied'], int))
 
     def best(self) -> tuple[int, float]:
         """(replica index, log2 cost) of the best replica (a collective
@@ -634,32 +637,33 @@ def _run_native(runner, betas, chunk_size, timeout, callback,
     while pos < n:
         if _out_of_time(runner, start, timeout):
             break
-        chunk = betas[pos:pos + chunk_size]
-        seeds = runner._nat_seeds + np.uint64(
-            1000003 * (runner._nat_chunk + 1))
-        if fw:
-            (best, moves, runner._nat_nodes, runner._nat_inds,
-             runner._nat_slices, bn, bi, bs) = native.sa_run_fw(
-                 runner._nat_nodes, runner._nat_inds, runner._nat_slices,
-                 log2d, runner.skip_lanes.cpu().numpy().view(np.uint32),
-                 float(runner.max_width), chunk, seeds,
-                 reslice_every=update_slices, n_threads=0,
-                 max_new_slices=runner.cfg.max_new_slices,
-                 return_final=True)
-        else:
-            (best, moves, runner._nat_nodes, runner._nat_inds, bn,
-             bi) = native.sa_run(runner._nat_nodes, runner._nat_inds, log2d,
-                                 chunk, seeds, n_threads=0,
-                                 return_final=True)
-        improved = best < runner._nat_best
-        runner._nat_best = np.where(improved, best, runner._nat_best)
-        runner._nat_best_nodes[improved] = bn[improved]
-        runner._nat_best_inds[improved] = bi[improved]
-        if fw:
-            runner._nat_best_slices[improved] = bs[improved]
-        runner._nat_chunk += 1
-        runner.sweeps_done += len(chunk)
-        runner.moves_done += moves
+        with span('tnco.runner.chunk', pos // chunk_size):
+            chunk = betas[pos:pos + chunk_size]
+            seeds = runner._nat_seeds + np.uint64(
+                1000003 * (runner._nat_chunk + 1))
+            if fw:
+                (best, moves, runner._nat_nodes, runner._nat_inds,
+                 runner._nat_slices, bn, bi, bs) = native.sa_run_fw(
+                     runner._nat_nodes, runner._nat_inds, runner._nat_slices,
+                     log2d, runner.skip_lanes.cpu().numpy().view(np.uint32),
+                     float(runner.max_width), chunk, seeds,
+                     reslice_every=update_slices, n_threads=0,
+                     max_new_slices=runner.cfg.max_new_slices,
+                     return_final=True)
+            else:
+                (best, moves, runner._nat_nodes, runner._nat_inds, bn,
+                 bi) = native.sa_run(runner._nat_nodes, runner._nat_inds,
+                                     log2d, chunk, seeds, n_threads=0,
+                                     return_final=True)
+            improved = best < runner._nat_best
+            runner._nat_best = np.where(improved, best, runner._nat_best)
+            runner._nat_best_nodes[improved] = bn[improved]
+            runner._nat_best_inds[improved] = bi[improved]
+            if fw:
+                runner._nat_best_slices[improved] = bs[improved]
+            runner._nat_chunk += 1
+            runner.sweeps_done += len(chunk)
+            runner.moves_done += moves
         pos += chunk_size
         if callback is not None:
             callback({'progress': min(pos, n) / n,
@@ -863,52 +867,56 @@ class ReplicaRunnerFW:
         while pos < n:
             if _out_of_time(self, start, timeout):
                 break
-            chunk = betas[pos:pos + chunk_size]
-            mchunk = mask[pos:pos + chunk_size]
-            if len(chunk) < chunk_size:
-                pad = chunk_size - len(chunk)
-                chunk = np.concatenate(
-                    [chunk, np.repeat(chunk[-1:], pad, axis=0)])
-                mchunk = np.concatenate([mchunk, np.zeros(pad, dtype=bool)])
-            sp = (self.sparse_wb, self.log2_n_projs)
-            gen = self._draws
-            if self.engine == 'batched':
-                self.states, metrics = sfb.run_sweeps_fw_batched(
-                    self.states, chunk, mchunk, self.max_width,
-                    self.log2d_w32, self.skip_lanes, self.cfg, *sp,
-                    uniform_log2=self.uniform_log2, generator=gen)
-            elif self.engine == 'vmapped':
-                self.states, metrics = saf.run_sweeps_fw_batch(
-                    self.states, chunk, mchunk, self.max_width, self.log2d,
-                    self.skip_lanes, self.cfg, self.sparse_lanes,
-                    self.log2_n_projs, uniform_log2=self.uniform_log2,
-                    generator=gen)
-            elif self.engine == 'walks':
-                self.states, metrics = swk.run_walks_fw(
-                    self.states, chunk, mchunk, self.max_width,
-                    self.log2d_w32, self.skip_lanes, self.cfg, self._mw_pos,
-                    *sp, uniform_log2=self.uniform_log2,
-                    on_block=self.on_block, accept_rule=self.accept_rule,
-                    slicer=self.fw_slicer, generator=gen, device=self.device)
-            elif self.engine == 'sweep':
-                self.states, metrics = sfs.run_fullsweep_fw(
-                    self.states, chunk, mchunk, self.max_width,
-                    self.log2d_w32, self.skip_lanes, self.cfg, *sp,
-                    uniform_log2=self.uniform_log2, generator=gen)
-            elif self.engine == 'walker':
-                self.states, metrics = kwalker.run_walker_fw(
-                    self.states, chunk, mchunk, self.max_width,
-                    self.log2d_w32, self.skip_lanes, self.cfg, self.n_walks,
-                    self._mw_pos, uniform_log2=self.uniform_log2,
-                    generator=gen)
-            else:
-                self.states, metrics = smw.run_multiwalk_fw(
-                    self.states, chunk, mchunk, self.max_width,
-                    self.log2d_w32, self.skip_lanes, self.cfg, self.n_walks,
-                    self._mw_pos, *sp, uniform_log2=self.uniform_log2,
-                    on_block=self.on_block, accept_rule=self.accept_rule,
-                    walk_chunk=self.walk_chunk, generator=gen)
-            self._count(metrics, chunk_size)
+            with span('tnco.runner.chunk', n_chunks):
+                chunk = betas[pos:pos + chunk_size]
+                mchunk = mask[pos:pos + chunk_size]
+                if len(chunk) < chunk_size:
+                    pad = chunk_size - len(chunk)
+                    chunk = np.concatenate(
+                        [chunk, np.repeat(chunk[-1:], pad, axis=0)])
+                    mchunk = np.concatenate(
+                        [mchunk, np.zeros(pad, dtype=bool)])
+                sp = (self.sparse_wb, self.log2_n_projs)
+                gen = self._draws
+                if self.engine == 'batched':
+                    self.states, metrics = sfb.run_sweeps_fw_batched(
+                        self.states, chunk, mchunk, self.max_width,
+                        self.log2d_w32, self.skip_lanes, self.cfg, *sp,
+                        uniform_log2=self.uniform_log2, generator=gen)
+                elif self.engine == 'vmapped':
+                    self.states, metrics = saf.run_sweeps_fw_batch(
+                        self.states, chunk, mchunk, self.max_width,
+                        self.log2d, self.skip_lanes, self.cfg,
+                        self.sparse_lanes, self.log2_n_projs,
+                        uniform_log2=self.uniform_log2, generator=gen)
+                elif self.engine == 'walks':
+                    self.states, metrics = swk.run_walks_fw(
+                        self.states, chunk, mchunk, self.max_width,
+                        self.log2d_w32, self.skip_lanes, self.cfg,
+                        self._mw_pos, *sp, uniform_log2=self.uniform_log2,
+                        on_block=self.on_block, accept_rule=self.accept_rule,
+                        slicer=self.fw_slicer, generator=gen,
+                        device=self.device)
+                elif self.engine == 'sweep':
+                    self.states, metrics = sfs.run_fullsweep_fw(
+                        self.states, chunk, mchunk, self.max_width,
+                        self.log2d_w32, self.skip_lanes, self.cfg, *sp,
+                        uniform_log2=self.uniform_log2, generator=gen)
+                elif self.engine == 'walker':
+                    self.states, metrics = kwalker.run_walker_fw(
+                        self.states, chunk, mchunk, self.max_width,
+                        self.log2d_w32, self.skip_lanes, self.cfg,
+                        self.n_walks, self._mw_pos,
+                        uniform_log2=self.uniform_log2, generator=gen)
+                else:
+                    self.states, metrics = smw.run_multiwalk_fw(
+                        self.states, chunk, mchunk, self.max_width,
+                        self.log2d_w32, self.skip_lanes, self.cfg,
+                        self.n_walks, self._mw_pos, *sp,
+                        uniform_log2=self.uniform_log2,
+                        on_block=self.on_block, accept_rule=self.accept_rule,
+                        walk_chunk=self.walk_chunk, generator=gen)
+                self._count(metrics, chunk_size)
             pos += chunk_size
             n_chunks += 1
             if (exchange_every and self.engine in _LANE_MAJOR and pos < n
