@@ -32,7 +32,11 @@ Phases, each fatal on failure:
    N = 3328, 3241 and 40, and (8, 3) on N = 40; rounds of 128 ids from 4
    rows; N = 60000, the global route), every route of the loop kernel
    and both impls through the wrapper, the caller's state unchanged
-   after every call;
+   after every call; then the claim kernel against
+   ``claim_disjoint_plain`` at ``CLAIM_SHAPES`` (the FW walks cell's
+   B=2048, P=128; P=32 and the multi-walk P=8) and edge cases (dense
+   conflicts, all and none accepted, NULLs, [P, B] views, P=130, 320, 1,
+   B=1), one launch a call;
 3. the finite-width (FW) path through the user entry point:
    ``Optimizer(max_width=30).optimize`` on the Sycamore-like m=20
    network (N=3241, W=64) with every result audited (valid path, exact
@@ -76,7 +80,9 @@ Phases, each fatal on failure:
    barriers with no memory work, the take's row bytes at the card's L2
    read rate after an empty kernel on its grid, an empty kernel on K2's
    grid; kernels of
-   ``scripts/probe_inv_first_design.cu``);
+   ``scripts/probe_inv_first_design.cu``); the claim kernel's row holds
+   its times at ``CLAIM_SHAPES`` (the plain version's also eager, between
+   events) against 22 B a walk;
 11. the FW app at its default fuse: ``Optimizer(max_width=30,
    seed=0).optimize`` with no ``fuse=`` argument, which fuses Sycamore
    m=20 to N=855, W=26, where 'auto' picks the lockstep 'batched'
@@ -325,6 +331,8 @@ REPLACES = {
     'scatter_rows_gbn': 'tnco_tpu/kernels/pallas_scatter.py:228,248',
     'probe_loop': 'benchmarks/pallas_gather_probe.py:70',
     'probe_take': 'benchmarks/pallas_gather_probe.py:82',
+    'claim_disjoint': 'tnco_tpu/kernels/sa_multiwalk.py:282-302 (a '
+                      'fori_loop; no pallas_call)',
 }
 SOURCES = {
     'gather_gbn': 'tnco_tpu_torch/csrc/gather.cu',
@@ -335,9 +343,10 @@ SOURCES = {
     'scatter_rows_gbn': 'tnco_tpu_torch/csrc/scatter.cu',
     'probe_loop': 'tnco_tpu_torch/csrc/probe.cu',
     'probe_take': 'tnco_tpu_torch/csrc/probe.cu',
+    'claim_disjoint': 'tnco_tpu_torch/csrc/claim.cu',
 }
 # The kernels each path runs (every one must launch in its phase).
-FW_KERNELS = ('gather_gbn', 'scatter_rows_inplace')
+FW_KERNELS = ('gather_gbn', 'scatter_rows_inplace', 'claim_disjoint')
 IM_KERNELS = ('gather_gbn', 'walker_im')
 FW_WALKER_KERNELS = ('gather_gbn', 'walker_fw')
 BENCH_KERNELS = ('gather_gbn', 'inv_ids', 'scatter_rows_gbn', 'walker_im',
@@ -382,7 +391,9 @@ MAIN_PATHS = {'gather_gbn': ('fw_app', 'batched_fw_app', 'batched_im_app',
               'walker_im': ('im_app', *MESH_PATHS),
               'walker_fw': ('fw_walker_app', 'mesh_one_rank'),
               'inv_ids': ('bench',), 'scatter_rows_gbn': ('bench',),
-              'probe_loop': ('bench',), 'probe_take': ('bench',)}
+              'probe_loop': ('bench',), 'probe_take': ('bench',),
+              'claim_disjoint': ('fw_app', 'fw_product', 'fw_throughput',
+                                 'fw_tempering', *PHASE23_PATHS[:2])}
 
 # Main-path shapes (Sycamore m=20 at B=64, P=128: W=64 index planes,
 # N padded to 3328, 132 planes below par in the FW state).
@@ -1199,6 +1210,71 @@ def phase_k4_p1_checks(torch):
                  f'{case.name!r}: {bad}')
     log(f'kernels: probe loop (every route) and take == '
         f'plain bitwise in {len(kc.PROBE_CASES)} cases, the state unchanged')
+
+
+# The claim kernel's shapes: the FW walks cell (B=2048, P=128 on the
+# published Sycamore-53 m=20 map, N=3297), the FW flagship, the walks IM
+# runner's default P=32 and the multi-walk runners' P=8 (the IM cell's
+# B=1024); node ids drawn from [0, n).
+CLAIM_SHAPES = (('walks FW cell', 2048, 128, 3297),
+                ('walks FW flagship', B, 128, 3241),
+                ('walks IM', B, 32, 3241), ('multiwalk', 1024, 8, 3297))
+
+
+def _claim_case(torch, gen, b, p, n, frac_null=0.1, frac_accept=0.5):
+    """``(accept, ev)`` on the card: ids in ``[0, n)`` with ``frac_null``
+    of each plane NULL, on accepted and rejected walks alike."""
+    dev = gen.device
+    ev = {}
+    for k in 'abcde':
+        ids = torch.randint(0, n, (b, p), generator=gen, device=dev,
+                            dtype=torch.int32)
+        r = torch.rand((b, p), generator=gen, device=dev)
+        ev[k] = torch.where(r < frac_null, -1, ids).contiguous()
+    accept = torch.rand((b, p), generator=gen, device=dev) < frac_accept
+    return accept, ev
+
+
+def phase_claim_checks(torch):
+    """The claim kernel against its plain version on the card, bitwise,
+    at CLAIM_SHAPES and the edge cases, and the launch count."""
+    from tnco_tpu_torch.kernels import claim as kc
+    from tnco_tpu_torch.kernels import launch_counts, reset_launch_counts
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    # (what, B, P, n, NULL share, accept share, layout)
+    cases = [(what, b, p, n, 0.1, 0.5, 'rows')
+             for what, b, p, n in CLAIM_SHAPES]
+    cases += [('dense conflicts', 2048, 128, 129, 0.1, 0.5, 'rows'),
+              ('all accepted', 64, 128, 3241, 0.05, 1.0, 'rows'),
+              ('none accepted', 64, 128, 3241, 0.1, 0.0, 'rows'),
+              ('many NULLs', 64, 32, 3241, 0.5, 0.9, 'rows'),
+              ('multiwalk [P, B] views', 1024, 8, 3297, 0.1, 0.5, 'cols'),
+              ('P=130', 64, 130, 400, 0.1, 0.6, 'rows'),
+              ('throughput P=320', B, 320, 3241, 0.1, 0.5, 'rows'),
+              ('P=1', 8, 1, 4, 0.3, 0.5, 'rows'),
+              ('B=1', 1, 128, 300, 0.1, 0.5, 'rows')]
+    reset_launch_counts()
+    for what, b, p, n, frac_null, frac_accept, layout in cases:
+        accept, ev = _claim_case(torch, gen, b, p, n, frac_null,
+                                 frac_accept)
+        if layout == 'cols':
+            accept = accept.T.contiguous().T
+            ev = {k: v.T.contiguous().T for k, v in ev.items()}
+        got = kc.claim_disjoint(accept, ev)
+        want = kc.claim_disjoint_plain(accept, ev)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f'claim_disjoint != plain ({what}, B={b} P={p}): '
+                 f'{int((got != want).sum())} walks differ')
+        if frac_accept == 0.0 and got.any():
+            fail(f'claim_disjoint kept a rejected walk ({what})')
+    if launch_counts()['claim_disjoint'] != len(cases):
+        fail(f"claim_disjoint launches {launch_counts()['claim_disjoint']} "
+             f'!= {len(cases)} calls')
+    log(f'kernels: claim_disjoint == plain bitwise in {len(cases)} cases, '
+        'one launch a call')
 
 
 def phase_bench(torch):
@@ -4476,6 +4552,41 @@ def _time_walker_fw(torch, gen, fw_runner, log2d_w32, ul, width_route):
     return ms, plain, bound, by, float(err)
 
 
+def claim_times(torch):
+    """The claim kernel at CLAIM_SHAPES: device ms a launch (CUDA graph,
+    median), the plain version's (graph, and eager between events: the
+    host's issue time of its ~5 launches a walk is what the engines paid),
+    and the bound, 22 B a walk (five int32 ids and the accept byte in, the
+    keep byte out) over the HBM rate.  No single PyTorch call computes the
+    scan, so no library time."""
+    from tnco_tpu_torch.kernels import claim as kc
+    dev = torch.device('cuda')
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    out = []
+    for what, b, p, n in CLAIM_SHAPES:
+        accept, ev = _claim_case(torch, gen, b, p, n)
+        ids = [ev[k] for k in 'abcde']
+        keep = torch.empty((b, p), dtype=torch.bool, device=dev)
+        want = kc.claim_disjoint_plain(accept, ev)
+        kc._launch(accept, ids, keep)
+        err = _max_abs_err(torch, keep.int(), want.int())
+        ms = _time_ms(torch, lambda: kc._launch(accept, ids, keep))
+        plain = _time_ms(torch, lambda: kc.claim_disjoint_plain(accept, ev),
+                         reps=2, rounds=5)
+        eager, _ = _eager_ms(torch, lambda: kc.claim_disjoint_plain(
+            accept, ev), calls=5)
+        out.append(dict(shape=what, dims=f'B={b} P={p} n={n}',
+                        max_abs_err=err, ms=ms, plain_ms=plain,
+                        plain_eager_ms=eager,
+                        bound_ms=1e3 * 22 * b * p / HBM_BYTES_PER_S,
+                        bound_by='bytes', library_ms=None))
+        log(f'time claim_disjoint ({what}, B={b} P={p}): kernel {ms:.4f} '
+            f'ms, plain {plain:.4f} ms (graph), {eager:.4f} ms (eager), '
+            f"bound {out[-1]['bound_ms']:.4f} ms")
+    return out
+
+
 def phase_times(torch, counts, im_runner, fw_runner):
     """Kernel, plain, library and bound times at the main-path shapes;
     ``counts`` maps each path's phase to its launch counts."""
@@ -4734,6 +4845,14 @@ def phase_times(torch, counts, im_runner, fw_runner):
         rows[-1].update(width_route='popcount', tree_route=dict(
             launches=0, max_abs_err=err, ms=ms, plain_ms=plain,
             bound_ms=bound, bound_by=by, library_ms=None))
+    claim = claim_times(torch)
+    main = claim[0]
+    row('claim_disjoint', main['ms'], main['plain_ms'], None,
+        main['bound_ms'], 'bytes', main['max_abs_err'])
+    rows[-1].update(shape=main['shape'], dims=main['dims'],
+                    plain_eager_ms=main['plain_eager_ms'], shapes=claim[1:],
+                    library_note='none: no single PyTorch call computes '
+                    'the priority scan')
     log(f'time walker_fw: launches per app phase '
         f'{counts["fw_walker_app"]["walker_fw"]}, per flagship chunk '
         f'{counts["fw_walker_flagship"]["walker_fw"] / 2}')
@@ -4790,6 +4909,7 @@ def main() -> int:
         phase_walker_checks(torch)
         phase_walker_fw_checks(torch)
         phase_k4_p1_checks(torch)
+        phase_claim_checks(torch)
         lap('2 kernel checks')
         counts = {'fw_app': phase_app(torch)}
         lap('3 FW app')

@@ -9,9 +9,11 @@ and one FW iteration (P=128, max_width 30, a reslice) under the same
 three, inside a ``TorchDispatchMode`` that counts every aten op but the
 views.  It prints the ops of the claim step alone (the accept rule and
 the scan: elementwise ops only, so on the card each is one kernel
-launch) and of the whole iteration (on the CPU each K1 and K3 call is
-several ops of its plain version where the card launches once), and
-the claim's ops per walk.  A count, not a time.
+launch, except the 'sequential' scan, which the card runs as one launch
+of the claim kernel, ``kernels/claim.py``) and of the whole iteration
+(on the CPU each K1 and K3 call is several ops of its plain version
+where the card launches once), and the claim's ops per walk.  A count,
+not a time.
 
 Run from the repository root:
 

@@ -172,7 +172,7 @@ def test_plain_versions_do_not_count_launches():
                                'scatter_rows_inplace': 0,
                                'scatter_rows_gbn': 0, 'walker_im': 0,
                                'walker_fw': 0, 'probe_loop': 0,
-                               'probe_take': 0}
+                               'probe_take': 0, 'claim_disjoint': 0}
 
 
 def test_recorded_cases(monkeypatch):

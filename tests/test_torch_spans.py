@@ -158,7 +158,7 @@ def test_counters_add_copy_and_reset(no_counts):
 def test_launch_counts_read_the_registry(no_counts):
     keys = {'gather_gbn', 'inv_ids', 'scatter_rows_inplace',
             'scatter_rows_gbn', 'walker_im', 'walker_fw', 'probe_loop',
-            'probe_take'}
+            'probe_take', 'claim_disjoint'}
     assert launch_counts() == dict.fromkeys(keys, 0)
     profiling.count('launches.walker_im', 3)
     profiling.count('host_reads')

@@ -4,7 +4,8 @@ Kernels (CUDA C++ under ``csrc/``, each beside its plain PyTorch
 version): K1 row gather (:mod:`.gather`), K2 id inversion, K3 in-place
 and K4 out-of-place row scatter (:mod:`.scatter`), K5 the multi-walk
 walker (:mod:`.walker`), infinite memory (K5-IM) and finite width
-(K5-FW), and P1 the row-read probe, ``loop`` and ``take``
+(K5-FW), K6 the walk engines' sequential claim (:mod:`.claim`), and P1
+the row-read probe, ``loop`` and ``take``
 (:mod:`tnco_tpu_torch.benchmarks.gather_probe`).  Each wrapper counts
 its launches in the counter registry of
 :mod:`tnco_tpu_torch.utils.profiling` (``launches.<kernel>``);
@@ -17,7 +18,7 @@ __all__ = ['launch_counts', 'reset_launch_counts']
 # The kernel wrappers' launch counters, by the name launch_counts gives.
 _LAUNCHES = ('gather_gbn', 'inv_ids', 'scatter_rows_inplace',
              'scatter_rows_gbn', 'walker_im', 'walker_fw', 'probe_loop',
-             'probe_take')
+             'probe_take', 'claim_disjoint')
 
 
 def launch_counts() -> dict:

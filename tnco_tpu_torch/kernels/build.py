@@ -20,7 +20,7 @@ __all__ = ['load', 'load_walker', 'build', 'up_to_date', 'nvcc_path',
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG.parent / 'build' / 'kernels'
-SOURCES = ('gather.cu', 'scatter.cu', 'walker.cu', 'probe.cu')
+SOURCES = ('gather.cu', 'scatter.cu', 'walker.cu', 'probe.cu', 'claim.cu')
 _LIB_NAME = 'libtnco_torch_kernels.so'
 # The walker's profiling build (per-phase clock64 sums, read back with
 # tnco_walker_prof): libraries of their own, built only by the profiling
@@ -42,6 +42,7 @@ build_log = ''
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     'tnco_gather_gbn': (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     'tnco_inv_ids': (_P, _P, _I, _I, _I, _I, _P),
@@ -51,6 +52,7 @@ _SIGNATURES = {
     'tnco_probe_take': (_P, _P, _P, _I, _I, _I, _P),
     'tnco_walker_im': (_P,) * 10 + (_I,) * 10 + (_P,),
     'tnco_walker_fw': (_P,) * 10 + (_I,) * 10 + (_F, _I, _P),
+    'tnco_claim_disjoint': (_P, _P, _P, _P, _L, _L, _P, _I, _I, _P),
 }
 _PROFILE_SIGNATURES = {
     'tnco_walker_im': _SIGNATURES['tnco_walker_im'],

@@ -39,6 +39,10 @@ waits on the host (the reslice does: its slicer loops on the host).
 import numpy as np
 import torch
 
+# The sequential claim (one kernel launch on the card) and the conflict
+# matrix of the 'pairwise' and 'chained' claims.
+from tnco_tpu_torch.kernels.claim import claim_disjoint as _claim_disjoint
+from tnco_tpu_torch.kernels.claim import conflicts as _conflicts
 from tnco_tpu_torch.kernels.sa_batched import (SABatch, _log2_total_b,
                                                _width_b, compute_hyper_b,
                                                sparse_args)
@@ -205,35 +209,6 @@ def _accept(cfg, u, beta, l_new, lt, ev):
     else:
         acc = torch.ones_like(l_new, dtype=torch.bool)
     return acc & (ev['b'] != NULL) & (ev['a'] != NULL)
-
-
-def _claim_disjoint(accept, ev):
-    """Conflict filter: walk i is kept iff accepted and none of its 5
-    nodes {A, B, C, D, E} meets a node of a KEPT walk of lower index
-    (``sa_multiwalk.py:282-302``).  ``accept`` and the ids are ``[B, P]``.
-
-    The symmetric conflict matrix is built once; the scan then runs walk
-    by walk, the same boolean decisions as the JAX scan.
-    """
-    confl = _conflicts(ev)
-    keep = torch.zeros_like(accept)
-    for i in range(accept.shape[1]):
-        blocked = (keep & confl[:, i, :]).any(dim=1)
-        keep[:, i] = accept[:, i] & ~blocked
-    return keep
-
-
-def _conflicts(ev):
-    """The symmetric conflict matrix ``M[b, p, q]``: walks ``p`` and
-    ``q`` share a node of {A, B, C, D, E}."""
-    nodes5 = [ev[k] for k in ('a', 'b', 'c', 'd', 'e')]
-    b, p = nodes5[0].shape
-    confl = torch.zeros((b, p, p), dtype=torch.bool,
-                        device=nodes5[0].device)
-    for x in nodes5:
-        for y in nodes5:
-            confl |= x[:, :, None] == y[:, None, :]
-    return confl
 
 
 def _chained_accept_step(cfg, lt_run, beta, u_i, l_a, l_b, ln_a, ln_b):
