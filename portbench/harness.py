@@ -5,16 +5,19 @@ the check, and the result line.
 command line (:mod:`portbench.run`) adds the look for a card and prints.
 The order of a run:
 
-1. the cell's network from its generator, its distinct starting paths
-   (loaded from the mix's starts file, :mod:`portbench.paths`, the same
-   for every seed; built on the host where the mix names none), the
-   replicas' seeds from the seed, and the runner built on the paths and widened to
-   the cell's replicas (:mod:`portbench.runners`);
+1. the cell's network (:mod:`portbench.networks`), its distinct
+   starting paths (loaded from the mix's starts file,
+   :mod:`portbench.paths`, the same for every seed; built on the host
+   where the mix names none), the replicas' seeds from the seed, and the
+   runner built on the paths and widened to the cell's replicas
+   (:mod:`portbench.runners`);
 2. one warm-up chunk, the first of the anneal; set-up ends here;
 3. the window: chunks back to back, each a ``run`` call that ends in a
    synchronize, until ``seconds`` have passed;
-4. with ``trace``, a few more chunks under the profiler
-   (:mod:`portbench.trace`) with the counters the rooflines need;
+4. with ``trace``, a few more chunks under the profiler, read by
+   :mod:`portbench.trace` (device time and gaps) and
+   :mod:`portbench.spans` (the program's stage spans), with the counts
+   the rooflines need and the program's counters over these chunks alone;
 5. the peak device memory, the program's answers for a sample of the
    replicas drawn from the seed and the best one, the program's state
    freed, and the reference's judgement (:mod:`portbench.check`).
@@ -32,7 +35,8 @@ import time
 
 import numpy as np
 
-from portbench import check, networks, paths, reference, runners, spec
+from portbench import (check, networks, paths, reference, runners, spans,
+                       spec)
 from portbench import trace as ptrace
 
 __all__ = ['execute', 'Context', 'FORBIDDEN', 'forbidden_modules']
@@ -51,15 +55,20 @@ def forbidden_modules() -> list:
 class Context:
     """What a metric's reader reads: ``config``, ``traffic``, ``sizes``
     (``b, n, w, p, k``), ``setup_s``, ``chunk_s`` (each window chunk's
-    host seconds), ``window_s``, ``proposals`` (in the window),
-    ``best_log2`` (the reference's exact log2 cost of the best tree),
-    ``trace`` (a :class:`portbench.trace.Trace`, or None),
-    ``traced`` (counts of the traced chunks: ``chunks``, ``iterations``,
-    ``improved``, ``applied``, ``reslices``) and ``device_name``."""
+    host seconds), ``window_s``, ``proposals`` (in the window, by
+    :func:`portbench.runners.proposals`), ``best_log2`` (the
+    reference's exact log2 cost of the best tree), ``trace`` (a
+    :class:`portbench.trace.Trace`, or None), ``traced`` (counts of the
+    traced chunks: ``chunks``, ``iterations``, ``improved``, ``applied``,
+    ``reslices``), ``spans`` (:func:`portbench.spans.read` of the traced
+    chunks, or None), ``counts`` (the program's counters over the traced
+    chunks alone, or None) and ``device_name``."""
 
     def __init__(self, **kw):
         self.trace = None
         self.traced = None
+        self.spans = None
+        self.counts = None
         self.__dict__.update(kw)
 
 
@@ -160,6 +169,7 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, *,
     setup_s = time.perf_counter() - t0
 
     chunk_s = []
+    walked0 = runners.count_walked(runner)
     w0 = time.perf_counter()
     while True:
         c0 = time.perf_counter()
@@ -169,11 +179,13 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, *,
         if c1 - w0 >= seconds:
             break
     window_s = c1 - w0
+    walked = runners.count_walked(runner) - walked0
     phases['window_chunks'] = len(chunk_s)
 
     ctx = Context(config=config, traffic=traffic, sizes=(b, n, w, p, k),
                   setup_s=setup_s, chunk_s=chunk_s, window_s=window_s,
-                  proposals=len(chunk_s) * k * p * b,
+                  proposals=runners.proposals(runner, len(chunk_s), k,
+                                              len(ts_inds), walked),
                   device_name=(torch.cuda.get_device_name(dev) if cuda
                                else 'cpu'))
     if trace:
@@ -181,6 +193,7 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, *,
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
                                          else [])
         improved = applied = 0
+        counts0 = spans.program_counts()
         with profile(activities=acts) as prof:
             with record_function(ptrace.SPAN):
                 for _ in range(traffic['trace_chunks']):
@@ -190,8 +203,13 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, *,
                     improved += int((runner.log2_min_totals() <
                                      before).sum())
                     applied += runners.count_applied(runner) - a0
+        counts1 = spans.program_counts()
+        if counts1 is not None:
+            ctx.counts = {name: n - counts0.get(name, 0)
+                          for name, n in counts1.items()}
         t_read = time.perf_counter()
         ctx.trace = ptrace.read(prof)
+        ctx.spans = spans.read(prof)
         del prof
         phases['trace_read_s'] = time.perf_counter() - t_read
         ctx.traced = dict(
@@ -237,10 +255,14 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, *,
                             'idle_gaps': ctx.trace.idle_gaps}
     out['engine'] = engine
     out['phases'] = phases
+    out['proposals'] = ctx.proposals
     out['reasons'] = verdict.reasons
     if control:
         low = check.judge(*judge_args, control=True)
         out['control'] = {'correct': low.correct, 'checks': _numbers(low)}
+    if trace:
+        out['spans'] = ctx.spans
+        out['counts'] = ctx.counts
     out['checks'] = _numbers(verdict)
     return out
 

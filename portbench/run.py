@@ -6,11 +6,13 @@
 from the root of a checkout.  It prints one JSON line as the last line
 of its standard output: ``correct``, ``attempted``, ``failed``,
 ``metrics`` (the cell's end-to-end metrics, or with ``--trace 1`` its
-per-layer ones), ``device``, with ``--trace 1`` ``breakdown``, and last
-``checks``, each number the check compared beside its limit; the same
-numbers are the last lines of its standard error.  It exits with 2 and
-prints no result when there is no CUDA card (it never falls back to the
-CPU), and with 3 when JAX or the JAX package has been loaded.
+per-layer ones), ``device``, with ``--trace 1`` ``breakdown``, ``spans``
+(the program's stage spans) and ``counts`` (its counters over the traced
+chunks), and last ``checks``, each number the check compared beside its
+limit; the same numbers are the last lines of its standard error.  It
+exits with 2 and prints no result when there is no CUDA card (it never
+falls back to the CPU), and with 3 when JAX or the JAX package has been
+loaded.
 
 The program's kernels build into ``build/`` inside the checkout, so only
 the first run there compiles; the caches of CUDA's own compilers are

@@ -25,24 +25,17 @@ metric that reads them falls silent there.
 Device time and gaps that no span holds go under ``(none)``, device
 operations with no launch found under ``(unlinked)``.
 
-The harness does not hand its profiler to the metric readers, so the
-readers take the program's own sums; :func:`execute` runs a traced cell
-and reads the same profiler with :func:`read` too:
-
-    python3 -m portbench.spans --workload <name> --seed <n> --seconds <s>
-
-prints the cell's traced result line with a ``spans`` key (the table
-above) and a ``counts`` key (the program's counters over the whole run).
+A traced run (:func:`portbench.harness.execute` with ``trace``) reads its
+profiler with :func:`read` and hands the table to the metric readers as
+``ctx.spans``, beside ``ctx.counts``, the program's counters over the
+traced chunks alone; its result line carries both, under ``spans`` and
+``counts``.  ``python3 -m portbench.spans --workload <name> --seed <n>
+--seconds <s>`` is ``python3 -m portbench.run`` with ``--trace 1``.
 """
 
-import argparse
-import json
 import re
 import sys
-import time
-from unittest import mock
 
-from portbench import harness
 from portbench import trace as ptrace
 
 __all__ = ['PROGRAM', 'program_spans', 'program_counts', 'window_pct',
@@ -175,41 +168,17 @@ def read(prof, window: str = ptrace.SPAN) -> dict:
 
 def execute(workload: str, seed: int, seconds: float, **kw):
     """A traced run of ``workload`` (:func:`portbench.harness.execute`
-    with ``trace``; ``kw`` passed on) whose profiler :func:`read` reads
-    too.  Returns ``(result, span table)``."""
-    got = {}
-    real = ptrace.read
-
-    def both(prof):
-        got['spans'] = read(prof)
-        return real(prof)
-
-    with mock.patch.object(ptrace, 'read', both):
-        out = harness.execute(workload, seed, seconds, True, **kw)
-    return out, got['spans']
+    with ``trace``; ``kw`` passed on).  Returns ``(result, span
+    table)``."""
+    from portbench import harness
+    out = harness.execute(workload, seed, seconds, True, **kw)
+    return out, out['spans']
 
 
 def main(argv=None) -> int:
-    t0 = time.perf_counter()
-    ap = argparse.ArgumentParser(prog='portbench.spans')
-    ap.add_argument('--workload', required=True)
-    ap.add_argument('--seed', type=int, required=True)
-    ap.add_argument('--seconds', type=float, required=True)
-    args = ap.parse_args(argv)
     from portbench import run
-    run._cache_dirs()
-    import torch
-
-    if not torch.cuda.is_available():
-        print('portbench.spans: no CUDA card.', file=sys.stderr)
-        return 2
-    out, table = execute(args.workload, args.seed, args.seconds, t0=t0)
-    checks = out.pop('checks')
-    out['spans'] = table
-    out['counts'] = program_counts()
-    out['checks'] = checks
-    print(json.dumps(out), flush=True)
-    return 0
+    return run.main(list(sys.argv[1:] if argv is None else argv) +
+                    ['--trace', '1'])
 
 
 if __name__ == '__main__':

@@ -1,7 +1,10 @@
 """Finds a cell's files by the names in ``BENCHMARK.json``.
 
-- a configuration: the file its entry names (under ``configs/``);
-- a traffic mix: ``traffic/<traffic>.json``;
+- a configuration: the file its entry names (under ``configs/``); its
+  ``"network"`` entry names a generator of :mod:`portbench.networks` or a
+  frozen network, ``nets/<name>.json`` (``{"file": "<name>"}``);
+- a traffic mix: ``traffic/<traffic>.json``; its ``"run_options"`` go
+  to every ``run`` call;
 - a mix's starting paths: ``starts/<starts>.json``, by the name the mix
   gives under ``"starts"``;
 - a metric, end-to-end or per-layer: the reader ``metrics/<name>.py``,
@@ -17,7 +20,7 @@ import json
 from pathlib import Path
 
 __all__ = ['ROOT', 'HERE', 'load', 'cell', 'applies', 'reader',
-           'traffic_file', 'starts_file', 'reader_file']
+           'traffic_file', 'starts_file', 'net_file', 'reader_file']
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -38,6 +41,10 @@ def traffic_file(name: str) -> Path:
 
 def starts_file(name: str) -> Path:
     return HERE / 'starts' / f'{name}.json'
+
+
+def net_file(name: str) -> Path:
+    return HERE / 'nets' / f'{name}.json'
 
 
 def reader_file(name: str) -> Path:
